@@ -1,0 +1,129 @@
+"""K1/K2: fused KV reconstruction from decoded codec symbols.
+
+``kv_dequant_tokens`` (K1) replaces
+``src/repro/kernels/kvquant.py:kv_dequant_tokens_pallas`` (lossy levels) and
+``kv_lossless_tokens`` (K2) replaces ``kvquant.py:kv_lossless_tokens_pallas``
+(level 0).  Both emit whole token groups ``(B, G, g, C)`` — slot 0 the
+anchor, slots 1..g-1 anchor + dequantized delta — in the cache's dtype, so
+no separate anchor scatter touches device memory afterwards.  The leading
+axis B folds (n_chunks, L, 2).
+
+The CUDA kernels live in ``csrc/kvquant.cu`` (see its head for what bounds
+them on the H100 and how the design answers it).  Each ``*_cuda`` wrapper
+checks its inputs, launches, and counts its launches in ``.launches``; each
+``*_plain`` function is the same computation in PyTorch — the CPU path and
+the kernel's oracle on the card.  ``kernels.ops`` picks between them by the
+tensors' device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import check, load_library
+
+__all__ = [
+    "kv_dequant_tokens_plain",
+    "kv_dequant_tokens_cuda",
+    "kv_lossless_tokens_plain",
+    "kv_lossless_tokens_cuda",
+    "OUT_DTYPES",
+]
+
+OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_inputs(name, d_sym, side, side_name, side_dtype, per_group):
+    B, G, gm1, C = d_sym.shape
+    want = (B, G, C)
+    if d_sym.dtype != torch.uint16 or side.dtype != side_dtype:
+        raise TypeError(
+            f"{name}: d_sym must be uint16 and {side_name} {side_dtype}, got "
+            f"{d_sym.dtype} and {side.dtype}"
+        )
+    if tuple(side.shape) != want or tuple(per_group.shape[:1]) != (B,):
+        raise ValueError(f"{name}: {side_name} {tuple(side.shape)} does not match d_sym {tuple(d_sym.shape)}")
+    for t in (d_sym, side, per_group):
+        if not t.is_cuda or t.device != d_sym.device:
+            raise ValueError(f"{name}: every input must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _check_out_dtype(name, out_dtype):
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"{name}: out_dtype must be one of {OUT_DTYPES}, got {out_dtype}")
+
+
+# ---------------------------------------------------------------------------
+# K1: lossy levels
+# ---------------------------------------------------------------------------
+
+
+def kv_dequant_tokens_plain(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
+    """(B, G, g-1, C) delta symbols + (B, G, C) f32 anchors + (B,) bins ->
+    (B, G, g, C): ``[anchor; (d - qmax) * bin + anchor]``."""
+    d = d_sym.to(torch.float32) - float(qmax)
+    others = d * bins[:, None, None, None] + anchors[:, :, None, :]
+    tokens = torch.cat([anchors[:, :, None, :], others], dim=2)
+    return tokens.to(out_dtype)
+
+
+def kv_dequant_tokens_cuda(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
+    """K1 on the card; same contract as :func:`kv_dequant_tokens_plain`."""
+    _check_out_dtype("kv_dequant_tokens", out_dtype)
+    _check_inputs("kv_dequant_tokens", d_sym, anchors, "anchors", torch.float32, bins)
+    if bins.dtype != torch.float32 or bins.ndim != 1:
+        raise TypeError("kv_dequant_tokens: bins must be a (B,) float32 tensor")
+    B, G, gm1, C = d_sym.shape
+    out = torch.empty((B, G, gm1 + 1, C), dtype=out_dtype, device=d_sym.device)
+    lib = load_library()
+    check(lib.kv_dequant_tokens(
+        d_sym.data_ptr(), anchors.data_ptr(), bins.data_ptr(), out.data_ptr(),
+        B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(d_sym.device).cuda_stream,
+    ), "kv_dequant_tokens")
+    kv_dequant_tokens_cuda.launches += 1
+    return out
+
+
+kv_dequant_tokens_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: level 0 ("lossless after 8-bit")
+# ---------------------------------------------------------------------------
+
+
+def kv_lossless_tokens_plain(d_sym, a_sym, scales, *, out_dtype=torch.float32):
+    """(B, G, g-1, C) integer-delta symbols (bias 254) + (B, G, C) anchor
+    symbols (bias 128) + (B, G) scales -> (B, G, g, C): ``(a - 128) * s`` in
+    slot 0, ``((d - 254) + (a - 128)) * s`` after it.  Bit-exact in f32 with
+    ``quant.lossless_reconstruct``."""
+    q_a = a_sym.to(torch.float32) - 128.0
+    q_d = d_sym.to(torch.float32) - 254.0
+    s = scales.to(torch.float32)[:, :, None]
+    anchor = q_a * s
+    others = (q_d + q_a[:, :, None, :]) * s[..., None]
+    tokens = torch.cat([anchor[:, :, None, :], others], dim=2)
+    return tokens.to(out_dtype)
+
+
+def kv_lossless_tokens_cuda(d_sym, a_sym, scales, *, out_dtype=torch.float32):
+    """K2 on the card; same contract (bit for bit) as :func:`kv_lossless_tokens_plain`."""
+    _check_out_dtype("kv_lossless_tokens", out_dtype)
+    _check_inputs("kv_lossless_tokens", d_sym, a_sym, "a_sym", torch.uint16, scales)
+    if scales.dtype != torch.float32 or tuple(scales.shape) != tuple(d_sym.shape[:2]):
+        raise TypeError("kv_lossless_tokens: scales must be a (B, G) float32 tensor")
+    B, G, gm1, C = d_sym.shape
+    out = torch.empty((B, G, gm1 + 1, C), dtype=out_dtype, device=d_sym.device)
+    lib = load_library()
+    check(lib.kv_lossless_tokens(
+        d_sym.data_ptr(), a_sym.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        B, G, gm1, C, int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(d_sym.device).cuda_stream,
+    ), "kv_lossless_tokens")
+    kv_lossless_tokens_cuda.launches += 1
+    return out
+
+
+kv_lossless_tokens_cuda.launches = 0

@@ -1,0 +1,265 @@
+"""Decoder LM, dense family: plan, init, prefill, chunked prefill, decode.
+
+Layers run as a Python loop over the stacked per-layer weights (leading
+``L`` axis, as in the reference's pytree).  Entry points:
+
+  * ``param_plan`` / ``init_params``
+  * ``prefill(cfg, params, batch, pad_to=)``   — logits + caches (K4)
+  * ``prefill_extend(cfg, params, tokens, caches)`` — TEXT-chunk recompute
+    on top of loaded KV (plain attention, as in the reference)
+  * ``decode_step(cfg, params, tokens, caches)`` — one-token step (K3)
+
+``prefill_extend`` and ``decode_step`` update ``caches`` *in place*: the
+reference returns new caches from pure functions, and the serving engine
+clones where its callers rely on the old cache staying intact.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.attention import _project_qkv, attn_decode, attn_plan, attn_prefill, write_at
+from repro_torch.models.common import (
+    DTYPES,
+    Leaf,
+    apply_norm,
+    init_from_plan,
+    mlp_apply,
+    mlp_plan,
+    norm_plan,
+    rope,
+)
+
+__all__ = [
+    "Caches",
+    "param_plan",
+    "init_params",
+    "prefill",
+    "prefill_extend",
+    "decode_step",
+    "masked_window_update",
+]
+
+
+class Caches(NamedTuple):
+    """Serving caches of the dense family (the reference's ``Caches`` also
+    carries the SSM / hybrid states, which the port does not build yet)."""
+
+    kv_k: torch.Tensor  # (L, B, S, Hkv, Dh)
+    kv_v: torch.Tensor
+    length: torch.Tensor  # (B,) int32
+
+    def clone(self) -> "Caches":
+        return Caches(*(t.clone() for t in self))
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise ValueError(f"the port builds the dense family only, not {cfg.family}")
+
+
+# ---------------------------------------------------------------------------
+# Plans
+# ---------------------------------------------------------------------------
+
+
+def _stack_plan(plan: Dict[str, Any], n: int) -> Dict[str, Any]:
+    return {
+        k: Leaf((n,) + v.shape, ("layers",) + v.logical, v.init, v.scale)
+        if isinstance(v, Leaf) else _stack_plan(v, n)
+        for k, v in plan.items()
+    }
+
+
+def _dense_layer_plan(cfg: ArchConfig) -> Dict[str, Any]:
+    p: Dict[str, Any] = {"ln1": norm_plan(cfg.norm, cfg.d_model), "attn": attn_plan(cfg)}
+    if not cfg.parallel_block:
+        p["ln2"] = norm_plan(cfg.norm, cfg.d_model)
+    p["mlp"] = mlp_plan(cfg.mlp, cfg.d_model, cfg.d_ff, cfg.mlp_bias)
+    return p
+
+
+def param_plan(cfg: ArchConfig) -> Dict[str, Any]:
+    _check_family(cfg)
+    d, V = cfg.d_model, cfg.padded_vocab_size
+    plan: Dict[str, Any] = {
+        "embed": Leaf((V, d), ("vocab", "embed"), scale=0.02),
+        "final_norm": norm_plan(cfg.norm, d),
+        "layers": _stack_plan(_dense_layer_plan(cfg), cfg.n_layers),
+    }
+    if not cfg.tie_embeddings:
+        plan["head"] = Leaf((d, V), ("embed", "vocab"))
+    return plan
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> Dict[str, Any]:
+    """Random weights in ``cfg.dtype`` on ``device``, drawn from ``generator``
+    (which must live on the same device) with the reference's std rule."""
+    return init_from_plan(param_plan(cfg), generator, device, DTYPES[cfg.dtype])
+
+
+def _layer(params, l: int) -> Dict[str, Any]:
+    """Layer ``l``'s slice of the stacked per-layer weights (views)."""
+
+    def take(node):
+        return {k: take(v) if isinstance(v, dict) else v[l] for k, v in node.items()}
+
+    return take(params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# Blocks, embedding, head
+# ---------------------------------------------------------------------------
+
+
+def _mlp_residual(cfg, p, x, h):
+    if cfg.parallel_block:
+        return x + mlp_apply(cfg.mlp, p["mlp"], h)
+    return x + mlp_apply(cfg.mlp, p["mlp"], apply_norm(cfg.norm, p["ln2"], x))
+
+
+def _embed_tokens(cfg, params, tokens):
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def _logits(cfg, params, x):
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+
+def prefill(cfg: ArchConfig, params, batch, *, pad_to: Optional[int] = None):
+    """Prefill the context; returns (last-token logits (B,1,V), Caches).
+
+    ``pad_to``: allocate KV caches with this sequence capacity (>= T) so the
+    serving engine can decode further tokens in place; each layer's K/V is
+    written straight into it.
+    """
+    _check_family(cfg)
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device).to(torch.long)
+    x = _embed_tokens(cfg, params, tokens)
+    B, T = tokens.shape
+    dev = x.device
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
+    cap = pad_to or T
+    shape = (cfg.n_layers, B, cap, cfg.n_kv_heads, cfg.d_head)
+    kv_k = torch.zeros(shape, dtype=x.dtype, device=dev)
+    kv_v = torch.zeros(shape, dtype=x.dtype, device=dev)
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        h = apply_norm(cfg.norm, p["ln1"], x)
+        attn_out, (k, v) = attn_prefill(cfg, p["attn"], h, positions)
+        kv_k[l, :, :T] = k
+        kv_v[l, :, :T] = v
+        x = _mlp_residual(cfg, p, x + attn_out, h)
+    logits = _logits(cfg, params, x[:, -1:])
+    length = torch.full((B,), T, dtype=torch.int32, device=dev)
+    return logits, Caches(kv_k=kv_k, kv_v=kv_v, length=length)
+
+
+def _extend_mha(q, kc, vc, cache_len, n_new):
+    """Attention of a new chunk's queries vs (cache + itself already written).
+
+    q: (B, Tc, Hq, D); kc/vc: (B, S_cap, Hkv, D) with the chunk already
+    written at [cache_len, cache_len + Tc).  Causal within the chunk,
+    full attention to the cache prefix.  Plain PyTorch, as the reference
+    computes it outside any kernel; dtypes promote as in JAX.
+    """
+    B, Tc, Hq, D = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    rep = Hq // Hkv
+    scale = 1.0 / np.sqrt(D)
+    ct = torch.promote_types(q.dtype, kc.dtype)
+    qg = q.reshape(B, Tc, Hkv, rep, D).to(ct)
+    s = torch.einsum("bqkrd,btkd->bkrqt", qg, kc.to(ct)).to(torch.float32) * scale
+    k_pos = torch.arange(S, device=q.device)[None, None, :]
+    q_limit = cache_len.to(torch.int64)[:, None, None] + torch.arange(Tc, device=q.device)[None, :, None] + 1
+    mask = k_pos < q_limit  # (B, Tc, S)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkrqt,btkd->bqkrd", w.to(vc.dtype), vc)
+    return o.reshape(B, Tc, Hq, D)
+
+
+def masked_window_update(cache, new, start: int, width: int, window: Optional[int] = None) -> None:
+    """Commit ``new[:width]`` into ``cache[start : start + width]``, in place.
+
+    ``cache`` is (S, ...), token axis leading.  Mirrors the reference's
+    shifted read-merge-write window exactly, including where it clamps: the
+    window of ``window`` tokens (default ``len(new)``) starts at
+    ``clip(start, 0, S - window)``, token ``j`` of ``new`` lands at window
+    position ``j + shift`` and only positions inside both the window and
+    ``[shift, shift + width)`` are written — so a ``width == 0`` row is
+    untouched and nothing outside ``[0, S)`` is ever addressed.
+    """
+    T = new.shape[0] if window is None else int(window)
+    S = cache.shape[0]
+    start_c = min(max(int(start), 0), S - T)
+    shift = int(start) - start_c
+    lo, hi = max(shift, 0), min(shift + int(width), T)
+    if hi > lo:
+        cache[start_c + lo:start_c + hi] = new[lo - shift:hi - shift].to(cache.dtype)
+
+
+def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches):
+    """Compute KV for a text chunk *given* earlier chunks' KV (paper fn. 6:
+    the LLM recomputes a text-format chunk based on the previous chunks'
+    received-and-decoded KV).
+
+    tokens: (B, Tc).  Writes the chunk's K/V at each row's ``length`` (the
+    start clamped as ``dynamic_update_slice`` clamps it) into ``caches`` in
+    place; returns (last logits, caches with length advanced by Tc).
+    """
+    _check_family(cfg)
+    dev = caches.kv_k.device
+    tokens = torch.as_tensor(tokens, device=dev).to(torch.long)
+    B, Tc = tokens.shape
+    cache_len = caches.length
+    x = _embed_tokens(cfg, params, tokens)
+    positions = cache_len[:, None] + torch.arange(Tc, dtype=torch.int32, device=dev)[None]
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        kc, vc = caches.kv_k[l], caches.kv_v[l]
+        hn = apply_norm(cfg.norm, p["ln1"], x)
+        q, k, v, k_pre = _project_qkv(cfg, p["attn"], hn, positions)
+        write_at(kc, k_pre if cfg.prerope_kv_cache else k, cache_len)
+        write_at(vc, v, cache_len)
+        if cfg.prerope_kv_cache:
+            S = kc.shape[1]
+            pos_grid = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+            kc_read = rope(kc, pos_grid, cfg.rope_theta)
+        else:
+            kc_read = kc
+        o = _extend_mha(q, kc_read, vc, cache_len, Tc)
+        wo = p["attn"]["wo"]
+        attn_out = o.reshape(B, Tc, cfg.n_heads * cfg.d_head).to(wo.dtype) @ wo
+        x = _mlp_residual(cfg, p, x + attn_out, hn)
+    logits = _logits(cfg, params, x[:, -1:])
+    return logits, caches._replace(length=cache_len + Tc)
+
+
+def decode_step(cfg: ArchConfig, params, tokens, caches: Caches):
+    """One-token step.  tokens (B, 1) -> (logits (B, 1, V), caches), the
+    caches' K/V updated in place and ``length`` advanced by one."""
+    _check_family(cfg)
+    tokens = torch.as_tensor(tokens, device=caches.kv_k.device).to(torch.long)
+    x = _embed_tokens(cfg, params, tokens)
+    cache_len = caches.length
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        h = apply_norm(cfg.norm, p["ln1"], x)
+        attn_out = attn_decode(cfg, p["attn"], h, (caches.kv_k[l], caches.kv_v[l]), cache_len)
+        x = _mlp_residual(cfg, p, x + attn_out, h)
+    logits = _logits(cfg, params, x)
+    return logits, caches._replace(length=cache_len + 1)
