@@ -9,23 +9,37 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
 2. build   compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels each kernel against its plain PyTorch version on the card, at the
            smollm-360m main-path shapes plus ragged cases, under the bf16
-           rule of ``kernels.ops.BF16_TOL`` (K2 bit for bit); planted faults
-           (K3 skipping one split or masking one key short, K4 skipping one
-           key tile for the last query rows) must fail that rule; kernel,
+           rule of ``kernels.ops.BF16_TOL`` (K2 and K5 bit for bit, K6 bit
+           for bit in f32); planted faults (K3 skipping one split or masking
+           one key short, K4 skipping one key tile for the last query rows,
+           K6 one group's anchor off by one bin) must fail that rule; K5 on
+           exact half-bin deltas (half to even) and clipped ones; kernel,
            plain and library-yardstick times (CUDA events) and the least
            time the card could take (bytes over 3.35 TB/s vs flops over
            989 TFLOP/s).
 4. serve   smollm-360m at full width (random bf16 weights from a seed):
            four requests go through ``calculate_kv`` (K4), their KV is
-           profiled and encoded at every level in 1536-token chunks, one
-           ``decode_chunk_runs`` call rebuilds all four requests' runs at
-           mixed levels (K1 + K2, bf16 out), ``insert_runs`` lands them in a
-           4-row cache and ``generate_with_kv`` produces 32 tokens (K3).
+           profiled and encoded at every level in 1536-token chunks (K5),
+           one ``decode_chunk_runs`` call rebuilds all four requests' runs at
+           mixed levels (K1 + K2, bf16 out) and is held to the unfused
+           ``decode_chunk`` (K6), ``insert_runs`` lands them in a 4-row cache
+           and ``generate_with_kv`` produces 32 tokens (K3).
 5. text    one request loads chunk 0 from its bitstream (``decode_to_cache``),
            recomputes chunk 1 as TEXT (``prefill_extend``) and generates.
+6. store   CacheGen's offline + online flow on the same model and tables:
+           a 6144-token context (``calculate_kv``) is stored as four
+           1536-token chunks at every level (``CacheGenStreamer.
+           store_from_caches`` -> ``KVStore.store_kv``, K5); ``stream()``
+           plans it under a bandwidth dip with an SLO (Algorithm 1, stated
+           rates); the plan must hold two levels and a TEXT chunk; it is
+           materialized fused (K1/K2, TEXT through K4) and ``fused=False``
+           (K6), the two caches compared chunk by chunk, and each generates
+           32 tokens (K3).  The plan Algorithm 1 gives from the card's own
+           rates (serve phase) is printed beside it.
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5; the run fails if a kernel of the path was not launched.  The last line is
+5, and zeroed again before phase 6 and read after it; the run fails if a
+kernel of either path was not launched in it.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 Needs one CUDA card; exits 2 with no result when there is none.
 """
@@ -43,7 +57,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.core import codec  # noqa: E402
+from repro_torch.core import codec, quant  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     SPLIT_SIZE,
@@ -52,14 +66,25 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain  # noqa: E402
 from repro_torch.kernels.kvquant import (  # noqa: E402
+    kv_dequant_cuda,
+    kv_dequant_plain,
     kv_dequant_tokens_cuda,
     kv_dequant_tokens_plain,
     kv_lossless_tokens_cuda,
     kv_lossless_tokens_plain,
+    kv_quant_cuda,
+    kv_quant_plain,
 )
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.kv_layout import caches_to_codec_kv  # noqa: E402
+from repro_torch.streaming import (  # noqa: E402
+    TEXT,
+    BandwidthTrace,
+    CacheGenStreamer,
+    KVStore,
+    NetworkModel,
+)
 
 SEED = 0
 CONTEXTS = (3072, 3000, 2048, 1536)
@@ -69,6 +94,19 @@ GEN_TOKENS = 32
 TEXT_TOKENS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+# phase 6: four chunks, and the stated scenario Algorithm 1 plans under.  The
+# link's nominal rate (the prior estimate) is LINK_GBPS, but it dips to
+# DIP_GBPS for the first DIP_S seconds, so chunk 0 (level 0, from the prior)
+# lands late; the throughput measured on it rules out the finer levels for
+# chunk 1, and once chunk 1 is in, the recompute of the two remaining chunks
+# fits the SLO, so both go as TEXT.  The decisions depend on these constants
+# alone, not on the chunks' byte counts: the dip moves under 1 KB, and at
+# LINK_GBPS every chunk lands within milliseconds.
+STORE_CHUNKS = 4
+SLO_S = 3.2
+DIP_S, DIP_GBPS, LINK_GBPS = 1.0, 1e-6, 100.0
+RECOMPUTE_S_PER_CHUNK = 0.9  # 3 chunks (2.7 s) miss the 2.2 s left, 2 (1.8 s) fit
+DECODE_BYTES_PER_S = 1e9
 
 
 class Phase:
@@ -134,6 +172,7 @@ def drive_main_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(),
         params = lm.init_params(cfg, gen, dev)
         engine = Engine(cfg, params, cache_capacity=capacity, device=dev)
         contexts = [torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev) for T in lengths]
+        laps.lap("init")
         firsts, exact, kvs = [], [], []
         for ctx in contexts:
             logits, caches = engine.calculate_kv({"tokens": ctx})
@@ -141,7 +180,7 @@ def drive_main_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(),
             firsts.append(int(torch.argmax(logits[0, -1])))
             exact.append(caches)
             kvs.append(caches_to_codec_kv(caches, 0, ctx.shape[1]))
-        laps.lap("init + calculate_kv x4")
+        laps.lap("calculate_kv x4")
         ct = codec.profile([kvs[0]], codec.CodecConfig(), device=dev)
         laps.lap("profile")
         blobs = [[codec.encode_all_levels(kv[:, :, s:s + chunk], ct, chunk_idx=j)
@@ -207,6 +246,91 @@ def drive_main_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(),
         err = (c1.kv_k[:, 0, chunk:2 * chunk].float() - exact[0].kv_k[:, 0, chunk:2 * chunk].float()).abs().max()
         out = engine.generate_with_kv(c1, torch.argmax(logits[:, -1], dim=-1), TEXT_TOKENS)
         print(f"TEXT chunk K vs exact prefill: max abs diff {err.item():.4f}; generated {out[0].tolist()}")
+
+    # this device's own rates, for the plan Algorithm 1 gives from them
+    wire = sum(len(b) for run in runs for b in run)
+    return {
+        "params": params,
+        "tables": ct,
+        "decode_bytes_per_s": wire / (laps.ms["decode_chunk_runs"] / 1e3),
+        "prefill_s_per_token": laps.ms["calculate_kv x4"] / 1e3 / sum(lengths),
+    }
+
+
+def drive_store_path(cfg, dev, gen, served, phase=lambda name: contextlib.nullcontext(),
+                     chunk=CHUNK, n_chunks=STORE_CHUNKS, gen_tokens=GEN_TOKENS):
+    """Phase 6: store -> stream -> materialize -> generate_with_kv.
+
+    ``served`` is what :func:`drive_main_path` returns: the model's weights,
+    the profiled tables and the serve phase's measured rates.  The port's
+    tests run it at a tiny size on the CPU, as they do the main path.
+    """
+    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+    n_ctx = n_chunks * chunk
+    k1_tol = ops.BF16_TOL["kv_dequant_tokens"]
+    with phase("store"):
+        laps = Laps(dev)
+        engine = Engine(cfg, served["params"], cache_capacity=n_ctx + gen_tokens, device=dev)
+        gen.manual_seed(SEED + 6)
+        tokens = torch.randint(0, cfg.vocab_size, (1, n_ctx), generator=gen, device=dev)
+        logits, exact = engine.calculate_kv({"tokens": tokens})
+        require(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
+        laps.lap(f"calculate_kv {n_ctx} tokens")
+        store = KVStore(served["tables"])
+        streamer = CacheGenStreamer(store, cfg)
+        metas = streamer.store_from_caches("ctx", exact, n_ctx, chunk_tokens=chunk)
+        laps.lap("store_from_caches")
+        require([(m.start, m.end) for m in metas] == [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)],
+                f"chunks {[(m.start, m.end) for m in metas]}")
+        for lvl in range(served["tables"].config.n_levels):
+            print(f"stored level {lvl}: {store.total_bytes('ctx', lvl)} bytes for {n_ctx} tokens")
+        net = NetworkModel(BandwidthTrace.steps(DIP_S, [DIP_GBPS, LINK_GBPS]))
+        own = streamer.stream(
+            "ctx", net, slo_s=SLO_S, decode_bytes_per_s=served["decode_bytes_per_s"],
+            recompute_s=lambda n, p: served["prefill_s_per_token"] * n, prior_throughput_gbps=LINK_GBPS)
+        print(f"plan from this device's own rates (decode {served['decode_bytes_per_s']:.4g} B/s, "
+              f"recompute {served['prefill_s_per_token'] * chunk:.4g} s per chunk): "
+              f"configs {own.result.configs}, TTFT {own.result.ttft_s:.4f} s (informational)")
+        plan = streamer.stream(
+            "ctx", net, slo_s=SLO_S, decode_bytes_per_s=DECODE_BYTES_PER_S,
+            recompute_s=lambda n, p: RECOMPUTE_S_PER_CHUNK * n / chunk, prior_throughput_gbps=LINK_GBPS)
+        configs = plan.result.configs
+        laps.lap("stream x2")
+        print(f"plan from the stated rates: configs {configs}, TTFT {plan.result.ttft_s:.4f} s "
+              f"(SLO {SLO_S} s)")
+        for t in plan.result.timelines:
+            print(f"  chunk {t.chunk_idx}: config {t.config}  {t.nbytes:.0f} bytes  fetch "
+                  f"{t.fetch_start:.4f}-{t.fetch_end:.4f} s  compute {t.compute_start:.4f}-{t.compute_end:.4f} s")
+        require(len({c for c in configs if c != TEXT}) >= 2 and TEXT in configs,
+                f"the plan {configs} does not hold two levels and a TEXT chunk")
+        fused = streamer.materialize(plan, engine, tokens)
+        laps.lap("materialize fused")
+        unfused = streamer.materialize(plan, engine, tokens, fused=False)
+        laps.lap("materialize fused=False")
+        for c in (fused, unfused):
+            require(c.length.tolist() == [n_ctx], f"materialized length {c.length.tolist()}")
+        for m, cfg_i in zip(metas, configs):
+            sl = slice(m.start, m.end)
+            a = torch.stack([fused.kv_k[:, 0, sl], fused.kv_v[:, 0, sl]])
+            b = torch.stack([unfused.kv_k[:, 0, sl], unfused.kv_v[:, 0, sl]])
+            want = torch.stack([exact.kv_k[:, 0, sl], exact.kv_v[:, 0, sl]]).float()
+            diff = (a.float() - b.float()).abs().max().item()
+            if cfg_i == 0:
+                require(torch.equal(a, b), f"chunk {m.chunk_idx}: level-0 materialize modes differ")
+            elif cfg_i != TEXT:
+                x = ops.bf16_ulp_excess(a, b, **k1_tol)
+                require(x <= 1, f"chunk {m.chunk_idx}: level-{cfg_i} modes are {x:.3g} times K1's rule apart")
+            print(f"chunk {m.chunk_idx} ({'TEXT' if cfg_i == TEXT else f'level {cfg_i}'}): fused vs fused=False "
+                  f"max abs diff {diff:.4g}; fused vs exact KV {(a.float() - want).abs().max().item():.4f}")
+        laps.lap("checks")
+        first = torch.argmax(logits[:, -1], dim=-1)
+        outs = [engine.generate_with_kv(c, first, gen_tokens) for c in (fused, unfused)]
+        laps.lap(f"generate_with_kv {gen_tokens} tokens x2")
+        for o in outs:
+            require(o.shape == (1, gen_tokens), f"generated {o.shape}")
+            require(((o >= 0) & (o < cfg.padded_vocab_size)).all(), "token ids out of range")
+        print(f"token agreement fused vs fused=False {(outs[0] == outs[1]).mean():.2%} (informational)")
+        print("store steps ms:", laps.ms)
 
 
 def main() -> int:
@@ -433,6 +557,95 @@ def main() -> int:
             bound=bound(nb, 4 * D * Hq * pairs),
             shape=f"q {tuple(qq.shape)} k/v {tuple(kk.shape)} bf16 causal",
         )
+        # K5: the store's shape, (L * 2, 154, 10, 320) f32 grouped tokens,
+        # at each lossy level's bins (a random delta scale); ragged G = 147;
+        # then planted deltas of exactly k + 1/2 bins, which rintf rounds to
+        # even and roundf away from zero, and deltas past +-qmax bins
+        cc = codec.CodecConfig()
+        qmax = cc.delta_qmax
+        dscale = (torch.rand(L, 2, generator=gen, device=dev) + 0.5).cpu().numpy()
+        level_bins = [torch.as_tensor(quant.effective_bins(L, cc.layer_group_bins, m, dscale), device=dev).reshape(-1)
+                      for m in cc.level_mults]
+
+        def k5_case(Gc, bins):
+            kv = torch.randn(L * 2, Gc, g, C, generator=gen, device=dev).cumsum(dim=2)  # token-correlated
+            got = kv_quant_cuda(kv, bins, qmax=qmax)
+            require(torch.equal(got, kv_quant_plain(kv, bins, qmax=qmax)),
+                    f"K5 is not bit-exact with its plain version (G={Gc})")
+            return kv
+
+        for bins in level_bins:
+            kv5 = k5_case(G, bins)
+        k5_case(147, level_bins[0])
+        halves = [k + 0.5 for k in range(-8, 8)]
+        clipped = [qmax + 0.5, qmax + 40.0, -qmax - 0.5, -1e6]
+        t = torch.tensor([halves[j % len(halves)] for j in range(C)])
+        u = torch.tensor([clipped[j % len(clipped)] for j in range(C)])
+        kv = torch.full((2, 1, g, C), 3.0)
+        kv[0, 0, 1:] += t * 0.25  # bin 0.25: every value and delta exact in f32
+        kv[1, 0, 1:] += u * 0.25
+        bins = torch.full((2,), 0.25, device=dev)
+        got = kv_quant_cuda(kv.to(dev), bins, qmax=qmax)
+        want = torch.tensor([[max(-qmax, min(qmax, round(x))) + qmax for x in row.tolist()] for row in (t, u)])
+        require(torch.equal(got[:, 0].int().cpu(), want[:, None, :].expand(2, g - 1, C).int()),
+                "K5 does not round half to even or clip as the reference does")
+        require(torch.equal(got, kv_quant_plain(kv.to(dev), bins, qmax=qmax)), "K5 planted ties: kernel != plain")
+        B = kv5.shape[0]
+        nb = kv5.numel() * 4 + B * 4 + B * G * (g - 1) * C * 2
+        report["kv_quant"] = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: kv_quant_cuda(kv5, level_bins[0], qmax=qmax)),
+            device_ms=device_ms(lambda: kv_quant_cuda(kv5, level_bins[0], qmax=qmax), "quant_kernel"),
+            plain_ms=time_ms(lambda: kv_quant_plain(kv5, level_bins[0], qmax=qmax)),
+            library_ms=None,
+            bound=bound(nb, 6 * B * G * (g - 1) * C),
+            shape=f"kv {tuple(kv5.shape)} f32 -> uint16, 4 levels' bins, ties and clips planted",
+        )
+        del kv5
+
+        # K6: the store's shape, f32 out (the unfused decode's) and bf16;
+        # ragged G = 147; planted fault: one group's anchor off by one bin
+        tol6 = ops.BF16_TOL["kv_dequant"]
+
+        def k6_case(Gc, out_dtype):
+            d = randint(0, 2 * qmax + 1, L * 2, Gc, g - 1, C)
+            a = randn(L * 2, Gc, C, dtype=torch.float32)
+            bins = level_bins[1]
+            got = kv_dequant_cuda(d, a, bins, qmax=qmax, out_dtype=out_dtype)
+            want = kv_dequant_plain(d, a, bins, qmax=qmax, out_dtype=out_dtype)
+            if out_dtype == torch.float32:
+                require(torch.equal(got, want), f"K6 f32 is not bit-exact with its plain version (G={Gc})")
+            else:
+                x = ops.bf16_ulp_excess(got, want, **tol6)
+                require(x <= 1, f"K6 bf16 is {x:.3g} times its tolerance off (G={Gc})")
+                excess["kv_dequant"] = max(excess.get("kv_dequant", 0.0), x)
+            return (d, a, bins), want, (got.float() - want.float()).abs().max().item()
+
+        (d6, a6, b6), _, e1 = k6_case(G, torch.float32)
+        errs6 = [e1] + [k6_case(Gc, dt)[2] for Gc, dt in ((147, torch.float32), (G, torch.bfloat16),
+                                                          (147, torch.bfloat16))]
+        want = kv_dequant_plain(d6, a6, b6, qmax=qmax, out_dtype=torch.bfloat16)
+        a_bad = a6.clone()
+        a_bad[3, 5] += b6[3]
+        bad = kv_dequant_plain(d6, a_bad, b6, qmax=qmax, out_dtype=torch.bfloat16)
+        controls["kv_dequant"] = {"anchor off by one bin": ops.bf16_ulp_excess(bad, want, **tol6)}
+        require(controls["kv_dequant"]["anchor off by one bin"] > 1,
+                f"K6's rule misses a planted fault: {controls['kv_dequant']}")
+        del want, a_bad, bad
+        B = d6.shape[0]
+        nb = d6.numel() * 2 + a6.numel() * 4 + B * 4 + d6.numel() * 4
+        report["kv_dequant"] = dict(
+            max_abs_err=max(errs6),
+            ms=time_ms(lambda: kv_dequant_cuda(d6, a6, b6, qmax=qmax, out_dtype=torch.float32)),
+            device_ms=device_ms(lambda: kv_dequant_cuda(d6, a6, b6, qmax=qmax, out_dtype=torch.float32),
+                                "dequant_kernel"),
+            plain_ms=time_ms(lambda: kv_dequant_plain(d6, a6, b6, qmax=qmax, out_dtype=torch.float32)),
+            library_ms=None,
+            bound=bound(nb, 3 * d6.numel()),
+            shape=f"d_sym {tuple(d6.shape)} uint16 -> f32",
+        )
+        del d6, a6
+
         for name, r in report.items():
             if name in excess:
                 print(f"{name}: worst error {excess[name]:.3f} of the tolerance {ops.BF16_TOL[name]}; "
@@ -445,19 +658,28 @@ def main() -> int:
 
     # --------------------------------------------------------- 4 serve, 5 text
     ops.reset_launch_counts()
-    drive_main_path(cfg, dev, gen, phase=lambda name: Phase(name, phase_ms))
+    served = drive_main_path(cfg, dev, gen, phase=lambda name: Phase(name, phase_ms))
+    paths = {"serve + text": ops.launch_counts()}
 
-    # ------------------------------------------------------------ 6 summary
-    counts = ops.launch_counts()
-    print("launches on the main path (serve + text):", counts)
-    for name, n in counts.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    # --------------------------------------------------------------- 6 store
+    ops.reset_launch_counts()
+    drive_store_path(cfg, dev, gen, served, phase=lambda name: Phase(name, phase_ms))
+    paths["store"] = ops.launch_counts()
+
+    # ------------------------------------------------------------ 7 summary
+    for path, counts in paths.items():
+        print(f"launches on the {path} path:", counts)
+        for name, n in counts.items():
+            require(n > 0, f"kernel {name} was not launched on the {path} path")
+    counts = {name: sum(c[name] for c in paths.values()) for name in ops.KERNELS}
     print("phase ms:", {k: round(v, 1) for k, v in phase_ms.items()})
     meta = {
         "kv_dequant_tokens": ("kvquant.cu", "src/repro/kernels/kvquant.py:116"),
         "kv_lossless_tokens": ("kvquant.cu", "src/repro/kernels/kvquant.py:166"),
         "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:85"),
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:109"),
+        "kv_quant": ("kvquant.cu", "src/repro/kernels/kvquant.py:209"),
+        "kv_dequant": ("kvquant.cu", "src/repro/kernels/kvquant.py:76"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

@@ -27,12 +27,15 @@ chunk's tokens are rebuilt in one pass by the fused kernels K1/K2
 whole token groups in the cache's dtype.  On a CUDA device the kernels run;
 on the CPU their plain versions do — there is no switch.
 :func:`decode_chunk` (singular) is the unfused oracle the fused path is
-held to: bit-exact at level 0 (in f32), tolerance-exact at lossy levels.
+held to: bit-exact at level 0 (in f32), tolerance-exact at lossy levels;
+its lossy reconstruction is the delta-only kernel K6
+(``kernels.ops.kv_dequant``).
 
 :func:`encode_all_levels` symbolizes and entropy-codes the level-invariant
 anchors once and runs all lossy levels' delta encodes as one stacked call;
 its bitstreams are byte-identical to per-level :func:`encode_chunk`, and to
-the reference package's under the same tables.
+the reference package's under the same tables.  The lossy delta symbols of
+both come from the kernel K5 (``kernels.ops.kv_quant``).
 """
 from __future__ import annotations
 
@@ -173,11 +176,23 @@ def _symbolize(
     if level == 0:
         a_sym, d_sym, scales = quant.lossless_quantize(kv, layout)
     else:
-        anchors, deltas = gop.split_anchors_deltas(kv, layout)
-        a_sym, scales = quant.quantize_anchors(anchors)
+        grouped = gop.group_tokens(kv, layout)
+        a_sym, scales = quant.quantize_anchors(grouped[:, :, :, 0])
         bins = torch.as_tensor(_bins_for_level(cfg, L, level, delta_scale), device=kv.device)
-        d_sym = quant.quantize_deltas(deltas, bins, cfg.delta_qmax)
+        d_sym = _quantize_deltas(grouped, bins, layout, cfg.delta_qmax)
     return _lanes(a_sym), _lanes(d_sym), scales, layout
+
+
+def _quantize_deltas(
+    grouped: torch.Tensor, bins: torch.Tensor, layout: gop.GroupLayout, qmax: int
+) -> torch.Tensor:
+    """Whole token groups (L, 2, G, g, C) f32 + (L, 2) bins -> the lossy
+    delta symbols (L, 2, T - G, C) int32 in token order, through K5."""
+    L, two, G, g, C = grouped.shape
+    sym = ops.kv_quant(
+        grouped.reshape(L * two, G, g, C).contiguous(), bins.reshape(L * two).contiguous(), qmax=qmax
+    )
+    return gop.ungroup(sym.reshape(L, two, G, g - 1, C), layout.n_deltas).to(torch.int32)
 
 
 def _as_kv(kv, device: torch.device) -> torch.Tensor:
@@ -382,8 +397,29 @@ def decode_chunk(blob: bytes, ct: CodecTables) -> torch.Tensor:
         return quant.lossless_reconstruct(a_sym, d_sym, scales, layout)
     anchors = quant.dequantize_anchors(a_sym, scales)
     bins = torch.as_tensor(_bins_for_level(cfg, L, level, ct.delta_scale), device=ct.device)
-    deltas = quant.dequantize_deltas(d_sym, bins, cfg.delta_qmax)
-    return gop.merge_anchors_deltas(anchors, deltas, layout)
+    return _reconstruct_lossy(anchors, d_sym, bins, layout, cfg.delta_qmax)
+
+
+def _reconstruct_lossy(
+    anchors: torch.Tensor, d_sym: torch.Tensor, bins: torch.Tensor, layout: gop.GroupLayout, qmax: int
+) -> torch.Tensor:
+    """(L, 2, G, C) f32 anchors + (L, 2, T - G, C) delta symbols + (L, 2)
+    bins -> KV (L, 2, T, C) f32.  K6 rebuilds the delta tokens of whole
+    groups (a partial last group's missing symbols padded, then dropped);
+    the anchors go in slot 0, as ``gop.merge_anchors_deltas`` places them
+    in the reference."""
+    L, two, G, C = anchors.shape
+    gm1 = layout.group_size - 1
+    d = F.pad(d_sym, (0, 0, 0, G * gm1 - layout.n_deltas))
+    others = ops.kv_dequant(
+        d.reshape(L * two, G, gm1, C).to(torch.uint16).contiguous(),
+        anchors.reshape(L * two, G, C).contiguous(),
+        bins.reshape(L * two).contiguous(),
+        qmax=qmax,
+        out_dtype=torch.float32,
+    )
+    tokens = torch.cat([anchors.reshape(L * two, G, 1, C), others], dim=2)
+    return gop.ungroup(tokens.reshape(L, two, G, gm1 + 1, C), layout.n_tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -647,21 +683,27 @@ def encode_all_levels(kv, ct: CodecTables, chunk_idx: Optional[int] = None) -> D
         return out
 
     layout = gop.make_layout(T, cfg.group_size)
+    grouped = gop.group_tokens(kv, layout).contiguous()  # (L, 2, G, g, C)
 
     # anchors: level-invariant — symbolize and entropy-code once
-    anchors, deltas = gop.split_anchors_deltas(kv, layout)
-    a_sym, scales = quant.quantize_anchors(anchors)
+    a_sym, scales = quant.quantize_anchors(grouped[:, :, :, 0])
     a_arrays = _stream_arrays(*rans.encode(_lanes(a_sym), ct.table_idx, ct.anchor), "a")
     scales16 = scales.cpu().numpy().astype(np.float16)
 
-    # deltas: quantize all levels in one vectorized op, entropy-code in one
-    # stacked rANS call (per-lane streams are independent of the stacking)
-    bins_all = np.stack(
-        [_bins_for_level(cfg, L, lvl, ct.delta_scale) for lvl in lossy]
-    )  # (n_lossy, L, 2)
-    d_sym_all = quant.quantize_deltas(
-        deltas[None], torch.as_tensor(bins_all, device=ct.device), cfg.delta_qmax
-    )  # (n_lossy, L, 2, D, C)
+    # deltas: K5 once per lossy level over the same grouped tokens (one bin
+    # per leading row; folding the levels into that row axis would need a
+    # materialized n_lossy-fold copy of the KV), then entropy-code all levels
+    # in one stacked rANS call (per-lane streams are independent of the
+    # stacking)
+    d_sym_all = torch.stack([
+        _quantize_deltas(
+            grouped,
+            torch.as_tensor(_bins_for_level(cfg, L, lvl, ct.delta_scale), device=ct.device),
+            layout,
+            cfg.delta_qmax,
+        )
+        for lvl in lossy
+    ])  # (n_lossy, L, 2, D, C)
     n_lanes = L * two * C
     d_stack = d_sym_all.permute(0, 1, 2, 4, 3).reshape(len(lossy) * n_lanes, layout.n_deltas)
     n_td = ct.deltas[lossy[0]].n_tables

@@ -22,7 +22,8 @@ __all__ = [
     "GroupLayout",
     "make_layout",
     "split_anchors_deltas",
-    "merge_anchors_deltas",
+    "group_tokens",
+    "ungroup",
 ]
 
 
@@ -90,13 +91,22 @@ def split_anchors_deltas(
     return anchors, deltas
 
 
-def merge_anchors_deltas(
-    anchors: torch.Tensor, deltas: torch.Tensor, layout: GroupLayout
-) -> torch.Tensor:
-    """Inverse of :func:`split_anchors_deltas` (up to quantization error)."""
-    others = deltas + anchors.index_select(-2, _index(layout.delta_group_index, anchors))
-    out_shape = anchors.shape[:-2] + (layout.n_tokens,) + anchors.shape[-1:]
-    out = anchors.new_zeros(out_shape)
-    out[..., _index(layout.anchor_positions, anchors), :] = anchors
-    out[..., _index(layout.delta_positions, anchors), :] = others
-    return out
+def group_tokens(kv: torch.Tensor, layout: GroupLayout) -> torch.Tensor:
+    """``(..., T, C)`` -> whole groups ``(..., G, g, C)``, the form the
+    delta-quantization kernel takes.  A partial last group is padded with
+    copies of its anchor, so its padded deltas are 0; :func:`ungroup` drops
+    them again."""
+    G, g = layout.n_groups, layout.group_size
+    pad = G * g - layout.n_tokens
+    if pad:
+        tail = kv[..., (G - 1) * g:(G - 1) * g + 1, :]
+        kv = torch.cat([kv, tail.expand(*tail.shape[:-2], pad, tail.shape[-1])], dim=-2)
+    return kv.reshape(*kv.shape[:-2], G, g, kv.shape[-1])
+
+
+def ungroup(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``(..., G, s, C)`` group slots -> the first ``n`` of them in token
+    order, ``(..., n, C)``: with ``s = g`` and ``n = T`` the tokens, with
+    ``s = g - 1`` and ``n = T - G`` the deltas (a padded tail group's extra
+    slots come last)."""
+    return x.reshape(*x.shape[:-3], x.shape[-3] * x.shape[-2], x.shape[-1])[..., :n, :]

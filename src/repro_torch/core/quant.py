@@ -9,7 +9,9 @@ Implements the paper's §5.2 quantization stage:
   layers are split into three equal groups and the bin width grows from the
   earliest group to the last (paper §C.2 defaults 0.5 / 1.0 / 1.5), reflecting
   Insight 2 (early layers are more loss-sensitive).  The streaming *encoding
-  level* scales all three bins by ``level_mult``.
+  level* scales all three bins by ``level_mult``.  The deltas' quantization
+  and reconstruction are the kernels K5/K6 (``kernels.ops.kv_quant`` /
+  ``kv_dequant``); this module gives their bins (:func:`effective_bins`).
 * **Level 0 ("lossless-after-8bit")** reproduces the paper's lossless result:
   the KV is 8-bit quantized with a shared per-(layer, kv, group) scale and the
   *integer* symbol deltas are entropy coded — reconstruction is bit-exact with
@@ -37,8 +39,6 @@ __all__ = [
     "effective_bins",
     "quantize_anchors",
     "dequantize_anchors",
-    "quantize_deltas",
-    "dequantize_deltas",
     "lossless_quantize",
     "lossless_reconstruct",
 ]
@@ -90,7 +90,7 @@ def _wire_scale(scale: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Lossy path: 8-bit vectorwise anchors + binned deltas
+# Lossy path: 8-bit vectorwise anchors
 # ---------------------------------------------------------------------------
 
 
@@ -109,26 +109,6 @@ def quantize_anchors(anchors: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
 def dequantize_anchors(symbols: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     q = symbols.to(torch.float32) - 128.0
     return q * scales[..., None]
-
-
-def quantize_deltas(
-    deltas: torch.Tensor, bins_lkv: torch.Tensor, qmax: int
-) -> torch.Tensor:
-    """Binned symmetric quantization of delta tensors.
-
-    deltas: (L, 2, D, C) f32; bins_lkv: (L, 2) f32 bin widths.
-    Returns symbols (L, 2, D, C) int32 in [0, 2*qmax].
-    """
-    b = bins_lkv[..., None, None]
-    q = torch.clamp(torch.round(deltas / b), -qmax, qmax)
-    return (q + qmax).to(torch.int32)
-
-
-def dequantize_deltas(
-    symbols: torch.Tensor, bins_lkv: torch.Tensor, qmax: int
-) -> torch.Tensor:
-    b = bins_lkv[..., None, None]
-    return (symbols.to(torch.float32) - qmax) * b
 
 
 # ---------------------------------------------------------------------------

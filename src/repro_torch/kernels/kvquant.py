@@ -1,4 +1,4 @@
-"""K1/K2: fused KV reconstruction from decoded codec symbols.
+"""K1/K2/K5/K6: fused KV delta (de)quantization for the codec.
 
 ``kv_dequant_tokens`` (K1) replaces
 ``src/repro/kernels/kvquant.py:kv_dequant_tokens_pallas`` (lossy levels) and
@@ -7,6 +7,13 @@
 anchor, slots 1..g-1 anchor + dequantized delta — in the cache's dtype, so
 no separate anchor scatter touches device memory afterwards.  The leading
 axis B folds (n_chunks, L, 2).
+
+``kv_quant`` (K5) replaces ``kvquant.py:kv_quant_pallas``: the encoder's
+delta, divide by the bin, round half to even, clip and bias, from grouped
+f32 tokens ``(B, G, g, C)`` to ``(B, G, g-1, C)`` uint16 symbols — the lossy
+levels' delta symbols of ``codec.encode_all_levels``.  ``kv_dequant`` (K6)
+replaces ``kvquant.py:kv_dequant_pallas``: the delta-only reconstruction
+``(d - qmax) * bin + anchor`` that the unfused ``codec.decode_chunk`` runs.
 
 The CUDA kernels live in ``csrc/kvquant.cu`` (see its head for what bounds
 them on the H100 and how the design answers it).  Each ``*_cuda`` wrapper
@@ -22,6 +29,10 @@ import torch
 from repro_torch.kernels._build import check, load_library
 
 __all__ = [
+    "kv_quant_plain",
+    "kv_quant_cuda",
+    "kv_dequant_plain",
+    "kv_dequant_cuda",
     "kv_dequant_tokens_plain",
     "kv_dequant_tokens_cuda",
     "kv_lossless_tokens_plain",
@@ -62,8 +73,7 @@ def _check_out_dtype(name, out_dtype):
 def kv_dequant_tokens_plain(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
     """(B, G, g-1, C) delta symbols + (B, G, C) f32 anchors + (B,) bins ->
     (B, G, g, C): ``[anchor; (d - qmax) * bin + anchor]``."""
-    d = d_sym.to(torch.float32) - float(qmax)
-    others = d * bins[:, None, None, None] + anchors[:, :, None, :]
+    others = kv_dequant_plain(d_sym, anchors, bins, qmax=qmax, out_dtype=torch.float32)
     tokens = torch.cat([anchors[:, :, None, :], others], dim=2)
     return tokens.to(out_dtype)
 
@@ -127,3 +137,77 @@ def kv_lossless_tokens_cuda(d_sym, a_sym, scales, *, out_dtype=torch.float32):
 
 
 kv_lossless_tokens_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: encode-side delta quantization
+# ---------------------------------------------------------------------------
+
+
+def kv_quant_plain(kv_grouped, bins, *, qmax: int):
+    """(B, G, g, C) f32 grouped tokens + (B,) bins -> (B, G, g-1, C) uint16:
+    ``clip(round((x[:, :, j] - x[:, :, 0]) / bin), -qmax, qmax) + qmax``,
+    rounding half to even (``torch.round``, as ``jnp.round``)."""
+    anchor = kv_grouped[:, :, :1, :]
+    delta = kv_grouped[:, :, 1:, :] - anchor
+    q = torch.clamp(torch.round(delta / bins[:, None, None, None]), -qmax, qmax) + qmax
+    return q.to(torch.int32).to(torch.uint16)
+
+
+def kv_quant_cuda(kv_grouped, bins, *, qmax: int):
+    """K5 on the card; same contract (bit for bit) as :func:`kv_quant_plain`."""
+    if kv_grouped.dtype != torch.float32 or bins.dtype != torch.float32:
+        raise TypeError(f"kv_quant: kv and bins must be float32, got {kv_grouped.dtype} and {bins.dtype}")
+    if kv_grouped.ndim != 4 or kv_grouped.shape[2] < 1 or tuple(bins.shape) != (kv_grouped.shape[0],):
+        raise ValueError(f"kv_quant: kv {tuple(kv_grouped.shape)} and bins {tuple(bins.shape)} "
+                         "do not form (B, G, g, C) and (B,)")
+    for t in (kv_grouped, bins):
+        if not t.is_cuda or t.device != kv_grouped.device:
+            raise ValueError("kv_quant: every input must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("kv_quant: inputs must be contiguous")
+    B, G, g, C = kv_grouped.shape
+    out = torch.empty((B, G, g - 1, C), dtype=torch.uint16, device=kv_grouped.device)
+    check(load_library().kv_quant(
+        kv_grouped.data_ptr(), bins.data_ptr(), out.data_ptr(), B, G, g - 1, C, int(qmax),
+        torch.cuda.current_stream(kv_grouped.device).cuda_stream,
+    ), "kv_quant")
+    kv_quant_cuda.launches += 1
+    return out
+
+
+kv_quant_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: delta-only reconstruction
+# ---------------------------------------------------------------------------
+
+
+def kv_dequant_plain(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
+    """(B, G, g-1, C) delta symbols + (B, G, C) f32 anchors + (B,) bins ->
+    (B, G, g-1, C): ``(d - qmax) * bin + anchor``, a multiply and an add
+    each rounded in f32."""
+    d = d_sym.to(torch.float32) - float(qmax)
+    return (d * bins[:, None, None, None] + anchors[:, :, None, :]).to(out_dtype)
+
+
+def kv_dequant_cuda(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
+    """K6 on the card; same contract as :func:`kv_dequant_plain`, bit for
+    bit in f32."""
+    _check_out_dtype("kv_dequant", out_dtype)
+    _check_inputs("kv_dequant", d_sym, anchors, "anchors", torch.float32, bins)
+    if bins.dtype != torch.float32 or bins.ndim != 1:
+        raise TypeError("kv_dequant: bins must be a (B,) float32 tensor")
+    B, G, gm1, C = d_sym.shape
+    out = torch.empty((B, G, gm1, C), dtype=out_dtype, device=d_sym.device)
+    check(load_library().kv_dequant(
+        d_sym.data_ptr(), anchors.data_ptr(), bins.data_ptr(), out.data_ptr(),
+        B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(d_sym.device).cuda_stream,
+    ), "kv_dequant")
+    kv_dequant_cuda.launches += 1
+    return out
+
+
+kv_dequant_cuda.launches = 0

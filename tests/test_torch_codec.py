@@ -8,10 +8,12 @@ import pytest
 import torch
 
 from repro.core import codec as jcodec
+from repro.core import gop as jgop
+from repro.core import quant as jquant
 from repro.core import rans as jrans
 from repro.core import tables as jtables
 
-from repro_torch.core import codec, rans, tables
+from repro_torch.core import codec, gop, rans, tables
 
 torch.set_num_threads(1)
 
@@ -78,7 +80,7 @@ def test_profile_matches_reference(samples, shared):
     np.testing.assert_array_equal(ct.table_idx, jct.table_idx)
 
 
-@pytest.mark.parametrize("T", [40, 37, 1])
+@pytest.mark.parametrize("T", [40, 37, 1, 7, 10, 11])
 def test_encode_byte_identical_to_reference(shared, T):
     jct, ct = shared
     kv = _kv(20 + T, T)
@@ -88,6 +90,25 @@ def test_encode_byte_identical_to_reference(shared, T):
     for lvl in ref:
         assert mine[lvl] == ref[lvl], f"level {lvl} differs"
         assert codec.encode_chunk(kv, ct, lvl, chunk_idx=3) == ref[lvl]
+
+
+@pytest.mark.parametrize("T", [1530, 1536, 7, 10, 11])
+def test_delta_kernels_path_matches_reference(T):
+    """K5's and K6's paths through whole groups — the partial last group
+    padded with its anchor, the padded slots dropped — give the reference's
+    delta symbols exactly, and its reconstruction within 2e-5."""
+    kv = _kv(50 + T, T)
+    layout, jlayout = gop.make_layout(T, 10), jgop.make_layout(T, 10)
+    bins = np.random.default_rng(T).uniform(0.05, 0.5, size=(L, 2)).astype(np.float32)
+    grouped = gop.group_tokens(torch.as_tensor(kv), layout)
+    assert tuple(grouped.shape) == (L, 2, -(-T // 10), 10, C)
+    sym = codec._quantize_deltas(grouped, torch.as_tensor(bins), layout, 127)
+    janchors, jdeltas = jgop.split_anchors_deltas(jnp.asarray(kv), jlayout)
+    jsym = jquant.quantize_deltas(jdeltas, jnp.asarray(bins), 127)
+    np.testing.assert_array_equal(sym.numpy(), np.asarray(jsym))
+    got = codec._reconstruct_lossy(torch.as_tensor(np.array(janchors)), sym, torch.as_tensor(bins), layout, 127)
+    want = jgop.merge_anchors_deltas(janchors, jquant.dequantize_deltas(jsym, jnp.asarray(bins), 127), jlayout)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,12 @@ try:  # the reference; absent where only the port is installed (the card's machi
     from repro.kernels import ref
     from repro.kernels.decode_attention import decode_attention_pallas
     from repro.kernels.flash_attention import flash_attention_pallas
-    from repro.kernels.kvquant import kv_dequant_tokens_pallas, kv_lossless_tokens_pallas
+    from repro.kernels.kvquant import (
+        kv_dequant_pallas,
+        kv_dequant_tokens_pallas,
+        kv_lossless_tokens_pallas,
+        kv_quant_pallas,
+    )
 except ImportError:
     jnp = None
 
@@ -18,10 +23,14 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import SPLIT_SIZE, decode_attention_cuda, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.kvquant import (
+    kv_dequant_cuda,
+    kv_dequant_plain,
     kv_dequant_tokens_cuda,
     kv_dequant_tokens_plain,
     kv_lossless_tokens_cuda,
     kv_lossless_tokens_plain,
+    kv_quant_cuda,
+    kv_quant_plain,
 )
 
 torch.set_num_threads(1)
@@ -94,6 +103,75 @@ def test_lossless_tokens_plain_bit_exact_with_pallas(case):
     oracle = ref.kv_lossless_tokens_ref(jnp.asarray(d), jnp.asarray(a), jnp.asarray(s))
     np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
     np.testing.assert_array_equal(got.numpy(), np.asarray(oracle))
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6 (CPU: plain vs Pallas interpret vs ref)
+# ---------------------------------------------------------------------------
+
+
+def _quant_inputs(seed, B, G, g, C, qmax=127):
+    """Token-correlated groups, plus planted exact half-bin deltas (which
+    round half to even) and deltas past +-qmax bins (which clip)."""
+    r = _rng(seed)
+    kv = np.cumsum(r.normal(size=(B, G, g, C)), axis=2).astype(np.float32)
+    bins = r.uniform(0.05, 0.5, size=(B,)).astype(np.float32)
+    bins[0] = 0.25  # row 0: every planted value and delta is exact in f32
+    ties = (np.arange(C) % 16 - 8 + 0.5) * 0.25  # k + 1/2 bins
+    kv[0, :, 1:] = kv[0, :, :1] + ties
+    if g > 2:
+        kv[0, 0, 2] = kv[0, 0, 0] + np.where(np.arange(C) % 2, 1.0, -1.0) * (qmax + 30) * 0.25
+    return kv, bins
+
+
+# (B, G, g, C, block_groups): G = 7 and 5 fit no block; g = 1 has no deltas
+QUANT_CASES = [(3, 7, 10, 64, 4), (2, 5, 4, 32, 8), (1, 1, 10, 16, 8), (2, 3, 1, 16, 2)]
+
+
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_quant_plain_bit_exact_with_pallas(case):
+    B, G, g, C, bg = case
+    kv, bins = _quant_inputs(sum(case), B, G, g, C)
+    got = ops.kv_quant(_t(kv), _t(bins), qmax=127)
+    assert got.dtype == torch.uint16 and tuple(got.shape) == (B, G, g - 1, C)
+    got = got.to(torch.int32).numpy()
+    if g > 1:  # the Pallas kernel takes no empty block
+        pal = kv_quant_pallas(jnp.asarray(kv), jnp.asarray(bins), qmax=127, block_groups=bg, interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(pal).astype(np.int32))
+    np.testing.assert_array_equal(got, np.asarray(ref.kv_quant_ref(jnp.asarray(kv), jnp.asarray(bins), qmax=127)))
+    if g > 2:  # ties went to even (0.5 -> 0, -0.5 -> 0, 1.5 -> 2), clips to the ends
+        want = np.clip(np.round((kv[0, :, 1:] - kv[0, :, :1]) / np.float32(0.25)), -127, 127) + 127
+        np.testing.assert_array_equal(got[0], want.astype(np.int32))
+        assert {0, 254} <= set(got[0, 0, 1].tolist())
+
+
+@pytest.mark.parametrize("case", KV_CASES)
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_dequant_plain_matches_pallas(case, out_dtype):
+    B, G, gm1, C, bg = case
+    d, a, bins = _dequant_inputs(3 + sum(case), B, G, gm1, C)
+    jdt, tdt = (jnp.float32, torch.float32) if out_dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    got = ops.kv_dequant(_t(d), _t(a), _t(bins), qmax=127, out_dtype=tdt)
+    assert got.dtype == tdt and tuple(got.shape) == (B, G, gm1, C)
+    pal = kv_dequant_pallas(jnp.asarray(d), jnp.asarray(a), jnp.asarray(bins), qmax=127,
+                            out_dtype=jdt, block_groups=bg, interpret=True)
+    oracle = ref.kv_dequant_ref(jnp.asarray(d), jnp.asarray(a), jnp.asarray(bins), qmax=127, out_dtype=jdt)
+    for want in (pal, oracle):
+        want = torch.as_tensor(np.array(want, np.float32))
+        if out_dtype == "float32":
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL)
+        else:
+            assert ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["kv_dequant"]) <= 1
+
+
+def test_dequant_rule_catches_an_anchor_off_by_one_bin():
+    d, a, bins = _dequant_inputs(5, 4, 154, 9, 320)
+    want = ops.kv_dequant(_t(d), _t(a), _t(bins), qmax=127)
+    a[2, 7] += bins[2]
+    bad = ops.kv_dequant(_t(d), _t(a), _t(bins), qmax=127)
+    tol = ops.BF16_TOL["kv_dequant"]
+    assert ops.bf16_ulp_excess(want, want.float(), **tol) <= 0.5
+    assert ops.bf16_ulp_excess(bad, want, **tol) > 1
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +295,10 @@ def test_wrappers_count_only_kernel_launches():
     ops.reset_launch_counts()
     d, a, bins = _dequant_inputs(0, 1, 2, 3, 8)
     ops.kv_dequant_tokens(_t(d), _t(a), _t(bins), qmax=127)
+    ops.kv_dequant(_t(d), _t(a), _t(bins), qmax=127)
+    kv, qbins = _quant_inputs(0, 1, 2, 4, 8)
+    ops.kv_quant(_t(kv), _t(qbins), qmax=127)
+    assert set(ops.KERNELS) >= {"kv_quant", "kv_dequant"}
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
@@ -255,6 +337,28 @@ def test_cuda_kvquant_matches_plain(cuda, case):
         want = kv_lossless_tokens_plain(d_sym, a_sym, s, out_dtype=dt)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QUANT_CASES + [(64, 154, 10, 320, 8), (64, 147, 10, 320, 8)])
+def test_cuda_quant_dequant_match_plain(cuda, case):
+    B, G, g, C, _ = case
+    kv, bins = _quant_inputs(sum(case), B, G, g, C)
+    kv, bins = _t(kv).to(cuda), _t(bins).to(cuda)
+    before = kv_quant_cuda.launches
+    got = kv_quant_cuda(kv, bins, qmax=127)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kv_quant_plain(kv, bins, qmax=127))
+    assert kv_quant_cuda.launches == before + 1
+    d, a, dbins = (_t(x).to(cuda) for x in _dequant_inputs(sum(case), B, G, g - 1, C))
+    for dt in (torch.float32, torch.bfloat16):
+        got = kv_dequant_cuda(d, a, dbins, qmax=127, out_dtype=dt)
+        want = kv_dequant_plain(d, a, dbins, qmax=127, out_dtype=dt)
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            assert ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["kv_dequant"]) <= 1
 
 
 @pytest.mark.gpu
