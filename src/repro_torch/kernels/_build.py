@@ -25,7 +25,9 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["CSRC", "BUILD_DIR", "load_library", "check"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "aligned16", "load_library", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -50,7 +52,7 @@ _SIGNATURES = {
     "kv_dequant": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     # decode_attention.cu
     "decode_attention": (
-        _P, _P, _P, _P, _P, _P, _P, _P,  # q k v kv_len out part_m part_l part_acc
+        _P, _P, _P, _P, _P, _P,  # q k v kv_len out part
         _I, _I, _I, _I, _I, _I,  # B Hq Hkv S D n_splits
         _L, _L, _L, _L, _L, _L,  # q strides (b, h), k strides (b, s, h), v stride b
         _L, _L,  # v strides (s, h)
@@ -144,3 +146,13 @@ def check(err: int, name: str) -> None:
     """Raise if a kernel's launch returned a CUDA error."""
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where its base address and every stride but the last are
+    multiples of 16 bytes, as the kernels' 16-byte row copies need; else a
+    contiguous copy (a head dim of 32, 64 or 128 makes that aligned)."""
+    es = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)

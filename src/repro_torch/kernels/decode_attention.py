@@ -11,22 +11,25 @@ the whole cache per layer per token.  ``kv_len (B,)`` masks each row to its
 first ``kv_len[b]`` positions (clamped to S); a row with ``kv_len == 0``
 outputs zeros.  The output has q's dtype.
 
-``decode_attention_cuda`` launches ``csrc/decode_attention.cu`` (split-KV
-flash-decoding; its head says what bounds it and how the design answers)
-and counts its launches in ``.launches``; ``decode_attention_plain`` is the
-same function in PyTorch, the CPU path and the kernel's oracle.
+``decode_attention_cuda`` launches ``csrc/decode_attention.cu`` (tile-wise
+split-KV flash-decoding, then a small launch that merges the splits; its
+head says what bounds it and how the design answers) and counts one launch
+per call in ``.launches``; ``decode_attention_plain`` is the same function
+in PyTorch, the CPU path and the kernel's oracle.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from repro_torch.kernels._build import check, load_library
+from repro_torch.kernels._build import aligned16, check, load_library
 
-__all__ = ["decode_attention_plain", "decode_attention_cuda"]
+__all__ = ["TILE", "decode_attention_plain", "decode_attention_cuda", "split_size"]
 
-SPLIT_SIZE = 128  # cache positions per block of the split-KV pass
+TILE = 64  # cache positions per tile of the kernel
+_WAVES = 2  # blocks per SM the split size aims at
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_REP = 16
 
@@ -54,6 +57,21 @@ def decode_attention_plain(q, k, v, kv_len, *, scale=None):
     return o.reshape(B, Hq, D).to(q.dtype)
 
 
+def split_size(S: int, B: int, Hkv: int, n_sm: int) -> int:
+    """Cache positions per block of the split-KV pass: a multiple of the tile,
+    so that the ``B * Hkv * ceil(S / split)`` blocks fill ``n_sm`` SMs about
+    twice (fewer where rows are shorter than S: blocks past ``kv_len`` exit
+    at once)."""
+    per_row = -(-_WAVES * n_sm // (B * Hkv))  # blocks per (row, KV head)
+    per_block = -(-S // per_row)
+    return max(TILE, -(-per_block // TILE) * TILE)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def decode_attention_cuda(q, k, v, kv_len, *, scale=None):
     """K3 on the card; same contract as :func:`decode_attention_plain`."""
     B, Hq, D = q.shape
@@ -75,20 +93,21 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale=None):
         raise ValueError("decode_attention: the head dim must be contiguous")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    n_splits = max(1, -(-S // SPLIT_SIZE))
+    k, v = aligned16(k), aligned16(v)  # the cache as it is, unless its rows are misaligned
     dev = q.device
+    split = split_size(S, B, Hkv, _n_sm(dev.index))
+    n_splits = max(1, -(-S // split))
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=dev)
-    part_m = torch.empty((B, Hq, n_splits), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hq, n_splits, D), dtype=torch.float32, device=dev)
+    # one scratch allocation: (m, l) per (row, query head, split), then the
+    # splits' unnormalized accumulators
+    part = torch.empty(B * Hq * n_splits * (D + 2), dtype=torch.float32, device=dev)
     lib = load_library()
     check(lib.decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(), part.data_ptr(),
         B, Hq, Hkv, S, D, n_splits,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        SPLIT_SIZE, float(scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
+        split, float(scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
         torch.cuda.current_stream(dev).cuda_stream,
     ), "decode_attention")
     decode_attention_cuda.launches += 1

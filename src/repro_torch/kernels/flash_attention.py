@@ -11,9 +11,11 @@ keys at or before its position, ``prefix_len (B,)`` additionally opens the
 first ``prefix_len[b]`` keys to every query (prefix-LM).
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` (see its head
-for the bound and the design) and counts its launches in ``.launches``;
-``flash_attention_plain`` is the same function in PyTorch — the reference's
-q-chunked ``chunked_mha`` — the CPU path and the kernel's oracle.
+for the bound and the design: bf16 on the tensor cores, f32 on scalar FMAs)
+and counts its launches in ``.launches``; ``flash_attention_plain`` is the
+same function in PyTorch — the reference's q-chunked ``chunked_mha`` — the
+CPU path and the kernel's oracle.  ``flash_attention_magnitude`` is the
+scale of the rule the bf16 kernel is held to (``kernels.ops.BF16_TOL``).
 """
 from __future__ import annotations
 
@@ -22,9 +24,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import check, load_library
+from repro_torch.kernels._build import aligned16, check, load_library
 
-__all__ = ["flash_attention_plain", "flash_attention_cuda"]
+__all__ = ["flash_attention_plain", "flash_attention_cuda", "flash_attention_magnitude"]
 
 Q_CHUNK = 1024  # queries per step of the plain version: bounds its score matrix
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,6 +65,16 @@ def flash_attention_plain(
     return out.to(q.dtype)
 
 
+def flash_attention_magnitude(
+    q, k, v, prefix_len: Optional[torch.Tensor] = None, *, causal: bool = True, scale=None,
+):
+    """``sum_t w_t |v_t|`` per output element, in f32: the plain version over
+    ``|v|``.  Rounding each weight ``w_t`` by at most a relative ``u`` moves
+    the output by at most ``u`` times this."""
+    return flash_attention_plain(q.float(), k.float(), v.float().abs(), prefix_len,
+                                 causal=causal, scale=scale)
+
+
 def flash_attention_cuda(
     q, k, v, prefix_len: Optional[torch.Tensor] = None, *, causal: bool = True, scale=None,
 ):
@@ -89,6 +101,10 @@ def flash_attention_cuda(
         raise ValueError("flash_attention: the head dim must be contiguous")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    if q.dtype == torch.bfloat16:
+        if not scale > 0:  # the kernel takes each row's max on the unscaled scores
+            raise ValueError(f"flash_attention: the bf16 kernel needs a positive scale, not {scale}")
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)  # it copies 16-byte row chunks
     out = torch.empty((B, Tq, Hq, D), dtype=q.dtype, device=q.device)
     lib = load_library()
     check(lib.flash_attention(

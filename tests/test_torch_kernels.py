@@ -20,8 +20,17 @@ except ImportError:
     jnp = None
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import SPLIT_SIZE, decode_attention_cuda, decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+from repro_torch.kernels.decode_attention import (
+    TILE,
+    decode_attention_cuda,
+    decode_attention_plain,
+    split_size,
+)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda,
+    flash_attention_magnitude,
+    flash_attention_plain,
+)
 from repro_torch.kernels.kvquant import (
     kv_dequant_cuda,
     kv_dequant_plain,
@@ -249,8 +258,9 @@ def test_flash_attention_plain_ragged_length_matches_ref():
 
 # ---------------------------------------------------------------------------
 # The bf16 rule the CUDA kernels are held to (ops.BF16_TOL) admits the
-# output's rounding and rejects planted faults of the kinds a split-KV or
-# tiled kernel can make, at the smollm-360m decode shapes
+# output's rounding (and K4's tensor-core rounding of its weights) and
+# rejects planted faults of the kinds a split-KV or tiled kernel can make,
+# at the smollm-360m shapes
 # ---------------------------------------------------------------------------
 
 
@@ -261,33 +271,83 @@ def _decode_fault(fault):
                for s in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
     lens = torch.tensor([3073, 3001, 2049, 1537], dtype=torch.int32)
     want = decode_attention_plain(q, k, v, lens)
-    if fault == "split skipped":
-        cut = lambda x: torch.cat([x[:, :1024], x[:, 1024 + SPLIT_SIZE:]], dim=1)  # noqa: E731
-        return want, decode_attention_plain(q, cut(k), cut(v), lens - SPLIT_SIZE)
-    return want, decode_attention_plain(q, k, v, lens - 1)  # one key masked off
+    if fault == "split skipped":  # the split at 1024, as the kernel cuts S on an H100 (132 SMs)
+        split = split_size(S, B, Hkv, 132)
+        cut = lambda x: torch.cat([x[:, :1024], x[:, 1024 + split:]], dim=1)  # noqa: E731
+        return want, decode_attention_plain(q, cut(k), cut(v), lens - split), None
+    if fault == "last tile dropped":  # kv_len rounded down to the tile
+        return want, decode_attention_plain(q, k, v, lens // TILE * TILE), None
+    return want, decode_attention_plain(q, k, v, lens - 1), None  # one key masked off
+
+
+def _flash_inputs(seed, T, Hq, Hkv, D=64):
+    r = _rng(seed)
+    return tuple(_t(r.normal(size=(1, T, h, D)).astype(np.float32)).bfloat16().float() for h in (Hq, Hkv, Hkv))
 
 
 def _flash_fault(fault):
-    r = _rng(12)
-    T, Hq, Hkv, D = 1024, 3, 1, 64
-    q, k, v = (_t(r.normal(size=(1, T, h, D)).astype(np.float32)).bfloat16().float() for h in (Hq, Hkv, Hkv))
+    T = 1024
+    q, k, v = _flash_inputs(12, T, 3, 1)
     want = flash_attention_plain(q, k, v)
-    bad = want.clone()  # the last 64 query rows skip the 32-key tile at 512
-    cut = lambda x: torch.cat([x[:, :512], x[:, 512 + 32:]], dim=1)  # noqa: E731
-    bad[:, T - 64:] = flash_attention_plain(q[:, T - 64:], cut(k), cut(v))
-    return want, bad
+    if fault == "tile skipped":  # the last 64 query rows skip the 32-key tile at 512
+        bad = want.clone()
+        cut = lambda x: torch.cat([x[:, :512], x[:, 512 + 32:]], dim=1)  # noqa: E731
+        bad[:, T - 64:] = flash_attention_plain(q[:, T - 64:], cut(k), cut(v))
+    else:  # the diagonal tiles' mask off by one: every query also sees its next key
+        nxt = lambda x: torch.cat([x, x[:, :1]], dim=1)  # noqa: E731  (key T: seen by no row below)
+        bad = flash_attention_plain(q, nxt(k), nxt(v))  # query t at position t + 1
+        bad[:, T - 1] = want[:, T - 1]  # the last query has no next key
+    return want, bad, flash_attention_magnitude(q, k, v)
 
 
 @pytest.mark.parametrize("kernel,fault", [
     ("decode_attention", "split skipped"),
     ("decode_attention", "kv_len - 1"),
+    ("decode_attention", "last tile dropped"),
     ("flash_attention", "tile skipped"),
+    ("flash_attention", "diagonal off by one"),
 ])
 def test_bf16_rule_admits_rounding_and_catches_planted_faults(kernel, fault):
-    want, bad = (_decode_fault if kernel == "decode_attention" else _flash_fault)(fault)
+    want, bad, scale = (_decode_fault if kernel == "decode_attention" else _flash_fault)(fault)
     tol = ops.BF16_TOL[kernel]
-    assert ops.bf16_ulp_excess(want.bfloat16(), want, **tol) <= 0.5
-    assert ops.bf16_ulp_excess(bad.bfloat16(), want, **tol) > 1
+    assert ops.bf16_ulp_excess(want.bfloat16(), want, scale=scale, **tol) <= 0.5
+    assert ops.bf16_ulp_excess(bad.bfloat16(), want, scale=scale, **tol) > 1
+
+
+def _tensor_core_flash(q, k, v, tile=64):
+    """K4's bf16 arithmetic, causal, in PyTorch: f32 scores of bf16 inputs,
+    an online softmax in log2 units over tiles of ``tile`` keys, each
+    unnormalized weight rounded to bf16 for the value product, f32 sums."""
+    _, T, Hq, D = q.shape
+    rep = Hq // k.shape[2]
+    qh = q[0].transpose(0, 1)  # (Hq, T, D)
+    kh, vh = (x[0].transpose(0, 1).repeat_interleave(rep, 0) for x in (k, v))
+    m = torch.full((Hq, T, 1), float("-inf"))
+    l, o = torch.zeros((Hq, T, 1)), torch.zeros((Hq, T, D))
+    pos = torch.arange(T)[:, None]
+    for k0 in range(0, T, tile):
+        s = qh @ kh[:, k0:k0 + tile].transpose(1, 2) * (D ** -0.5 * 1.4426950408889634)
+        s = s.masked_fill(torch.arange(k0, min(k0 + tile, T))[None] > pos, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        a = torch.exp2(m - m_new)  # m_new is finite: key 0 is in every row's first tile
+        p = torch.exp2(s - m_new)
+        l = l * a + p.sum(-1, keepdim=True)
+        o = o * a + p.bfloat16().float() @ vh[:, k0:k0 + tile]
+        m = m_new
+    return (o / l).transpose(0, 1)[None].bfloat16()
+
+
+def test_flash_rule_admits_a_tensor_core_result_at_the_smollm_shape():
+    """q (1, 3072, 15, 64) against k/v (1, 3072, 5, 64), causal: the weights'
+    bf16 rounding breaks the plain two-ulp rule but stays inside K4's."""
+    q, k, v = _flash_inputs(13, 3072, 15, 5)
+    got = _tensor_core_flash(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    tol = ops.BF16_TOL["flash_attention"]
+    assert ops.bf16_ulp_excess(got, want, scale=flash_attention_magnitude(q, k, v), **tol) <= 1
+    assert ops.bf16_ulp_excess(got, want, ulps=tol["ulps"], atol=tol["atol"]) > 1
+    with pytest.raises(ValueError, match="scale"):
+        ops.bf16_ulp_excess(got, want, **tol)
 
 
 def test_wrappers_count_only_kernel_launches():
@@ -361,6 +421,28 @@ def test_cuda_quant_dequant_match_plain(cuda, case):
             assert ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["kv_dequant"]) <= 1
 
 
+def _decode_case(cuda, seed, B, Hq, Hkv, S, D, q_dtype, kv_dtype):
+    r = _rng(seed)
+    q = _t(r.normal(size=(B, Hq, D)).astype(np.float32)).to(cuda, q_dtype)
+    k = _t(r.normal(size=(B, S, Hkv, D)).astype(np.float32)).to(cuda, kv_dtype)
+    v = _t(r.normal(size=(B, S, Hkv, D)).astype(np.float32)).to(cuda, kv_dtype)
+    return q, k, v
+
+
+def _check_decode(q, k, v, lens):
+    before = decode_attention_cuda.launches
+    got = decode_attention_cuda(q, k, v, lens)
+    want = decode_attention_plain(q.float(), k.float(), v.float(), lens)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1  # the merge launch is not counted apart
+    assert got.dtype == q.dtype and got.shape == q.shape
+    if q.dtype == torch.bfloat16:
+        assert ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["decode_attention"]) <= 1
+    else:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert not got[lens == 0].float().any()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32),
@@ -369,37 +451,78 @@ def test_cuda_quant_dequant_match_plain(cuda, case):
     (torch.bfloat16, torch.float32),
 ])
 def test_cuda_decode_attention_matches_plain(cuda, q_dtype, kv_dtype):
-    r = _rng(3)
-    B, Hq, Hkv, S, D = 4, 15, 5, 1000, 64
-    q = _t(r.normal(size=(B, Hq, D)).astype(np.float32)).to(cuda, q_dtype)
-    k = _t(r.normal(size=(B, S, Hkv, D)).astype(np.float32)).to(cuda, kv_dtype)
-    v = _t(r.normal(size=(B, S, Hkv, D)).astype(np.float32)).to(cuda, kv_dtype)
-    lens = torch.tensor([0, 1, 999, 1000], dtype=torch.int32, device=cuda)
-    got = decode_attention_cuda(q, k, v, lens)
-    want = decode_attention_plain(q.float(), k.float(), v.float(), lens)
-    torch.cuda.synchronize()
-    assert got.dtype == q_dtype
-    if q_dtype == torch.bfloat16:
-        assert ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["decode_attention"]) <= 1
-    else:
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-    assert not got[0].float().any()
+    """kv_len at the tile's and the split's edges, past S (clamped) and 0."""
+    B, Hq, Hkv, S, D = 11, 15, 5, 4096, 64
+    split = split_size(S, B, Hkv, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    q, k, v = _decode_case(cuda, 3, B, Hq, Hkv, S, D, q_dtype, kv_dtype)
+    lens = [0, 1, TILE - 1, TILE, TILE + 1, split - 1, split, split + 1, S - 1, S, S + 100]
+    _check_decode(q, k, v, torch.tensor(lens, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [
-    (1, 15, 5, 300, 300, True, None),
-    (2, 6, 2, 77, 200, True, [0, 150]),
-    (1, 4, 4, 130, 130, False, None),
+@pytest.mark.parametrize("Hq,Hkv,D,kv_dtype", [
+    (16, 1, 32, torch.bfloat16),  # group of 16
+    (4, 4, 128, torch.bfloat16),  # MHA, D = 128
+    (8, 1, 128, torch.float32),  # the largest tile ring
+    (6, 2, 32, torch.float32),
 ])
-def test_cuda_flash_attention_matches_plain(cuda, case):
-    B, Hq, Hkv, Tq, Tk, causal, prefix = case
-    r = _rng(Tq)
-    q = _t(r.normal(size=(B, Tq, Hq, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
-    k = _t(r.normal(size=(B, Tk, Hkv, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
-    v = _t(r.normal(size=(B, Tk, Hkv, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+def test_cuda_decode_attention_geometries(cuda, Hq, Hkv, D, kv_dtype):
+    q, k, v = _decode_case(cuda, Hq + D, 3, Hq, Hkv, 700, D, torch.bfloat16, kv_dtype)
+    lens = torch.tensor([700, 65, 0], dtype=torch.int32, device=cuda)
+    _check_decode(q, k, v, lens)
+    # the cache read in place through strides: one layer of a (L, B, S, H, D)
+    # cache, and a head slice of a wider one
+    wide = torch.cat([k, k], dim=2)
+    _check_decode(q, torch.stack([k, k])[1], wide[:, :, Hkv:], lens)
+    # rows misaligned for 16-byte copies: the wrapper copies them
+    flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    odd = flat[1:].view(k.shape)
+    odd.copy_(v)
+    _check_decode(q, k, odd, lens)
+
+
+# (B, Hq, Hkv, Tq, Tk, D, causal, prefix)
+CUDA_FLASH_CASES = [
+    (1, 15, 5, 3072, 3072, 64, True, None),  # the serve phase's prefill
+    (1, 15, 5, 6144, 6144, 64, True, None),  # the store's prefill
+    (1, 15, 5, 1, 1, 64, True, None),
+    (1, 15, 5, 65, 65, 64, True, None),
+    (2, 15, 5, 3000, 3000, 64, True, None),
+    (1, 15, 5, 300, 300, 64, True, None),
+    (2, 6, 2, 77, 200, 64, True, [0, 150]),  # prefix-LM, Tq < Tk
+    (2, 15, 5, 1024, 1024, 64, True, [100, 700]),
+    (1, 4, 4, 130, 130, 64, False, None),  # bidirectional
+    (1, 15, 5, 1000, 3072, 64, True, None),  # the decoder offset
+    (1, 8, 2, 300, 300, 128, True, None),
+    (1, 4, 2, 200, 333, 32, True, None),
+]
+
+
+def _flash_case(cuda, case, dtype):
+    B, Hq, Hkv, Tq, Tk, D, causal, prefix = case
+    r = _rng(Tq + D)
+    q = _t(r.normal(size=(B, Tq, Hq, D)).astype(np.float32)).to(cuda, dtype)
+    k = _t(r.normal(size=(B, Tk, Hkv, D)).astype(np.float32)).to(cuda, dtype)
+    v = _t(r.normal(size=(B, Tk, Hkv, D)).astype(np.float32)).to(cuda, dtype)
     plen = None if prefix is None else torch.tensor(prefix, dtype=torch.int32, device=cuda)
+    before = flash_attention_cuda.launches
     got = flash_attention_cuda(q, k, v, plen, causal=causal)
-    want = flash_attention_plain(q.float(), k.float(), v.float(), plen, causal=causal)
     torch.cuda.synchronize()
-    assert ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["flash_attention"]) <= 1
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    return got, flash_attention_plain(q.float(), k.float(), v.float(), plen, causal=causal), (q, k, v, plen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CUDA_FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, case):
+    got, want, (q, k, v, plen) = _flash_case(cuda, case, torch.bfloat16)
+    mag = flash_attention_magnitude(q, k, v, plen, causal=case[6])
+    assert ops.bf16_ulp_excess(got, want, scale=mag, **ops.BF16_TOL["flash_attention"]) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c for c in CUDA_FLASH_CASES if c[3] <= 300 or c[7] is not None])
+def test_cuda_flash_attention_f32_matches_plain(cuda, case):
+    got, want, _ = _flash_case(cuda, case, torch.float32)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
