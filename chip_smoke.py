@@ -10,15 +10,18 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
 3. kernels each kernel against its plain PyTorch version on the card, at the
            smollm-360m main-path shapes plus ragged cases, under the bf16
            rule of ``kernels.ops.BF16_TOL`` (K2 and K5 bit for bit, K6 bit
-           for bit in f32); planted faults (K3 skipping one split, masking
-           one key short or dropping a ragged last tile, K4 skipping one key
-           tile for the last query rows or letting every query see its next
-           key, K6 one group's anchor off by one bin) must fail that rule;
-           K4 is also timed at the store's 6144-token shape; K5 on
-           exact half-bin deltas (half to even) and clipped ones; kernel,
-           plain and library-yardstick times (CUDA events) and the least
-           time the card could take (bytes over 3.35 TB/s vs flops over
-           989 TFLOP/s).
+           for bit in f32); planted faults (K1 one group's anchor off by one
+           bin or two neighbouring channels swapped, K3 skipping one split,
+           masking one key short or dropping a ragged last tile, K4 skipping
+           one key tile for the last query rows or letting every query see
+           its next key, K6 one group's anchor off by one bin) must fail
+           that rule; K1 and K5 also at C = 36 (4 channels an access) and
+           on inputs misaligned by one element (V = 1); K4 is also timed at the
+           store's 6144-token shape; K5 on exact half-bin deltas (half to
+           even) and clipped ones; kernel, plain and library-yardstick times
+           (CUDA events), each kernel's device time (profiler, by exact
+           name; the run fails without one) and the least time the card
+           could take (bytes over 3.35 TB/s vs flops over 989 TFLOP/s).
 4. serve   smollm-360m at full width (random bf16 weights from a seed):
            four requests go through ``calculate_kv`` (K4), their KV is
            profiled and encoded at every level in 1536-token chunks (K5),
@@ -62,6 +65,8 @@ import torch  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import codec, quant  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.timing import bound_ms as bound  # noqa: E402
+from repro_torch.kernels.timing import device_ms, time_ms  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     TILE,
     decode_attention_cuda,
@@ -82,6 +87,7 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     kv_lossless_tokens_plain,
     kv_quant_cuda,
     kv_quant_plain,
+    vector_width,
 )
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
@@ -100,8 +106,6 @@ CHUNK = 1536
 CAPACITY = 4096
 GEN_TOKENS = 32
 TEXT_TOKENS = 8
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = 989e12  # H100 SXM dense bf16
 # phase 6: four chunks, and the stated scenario Algorithm 1 plans under.  The
 # link's nominal rate (the prior estimate) is LINK_GBPS, but it dips to
 # DIP_GBPS for the first DIP_S seconds, so chunk 0 (level 0, from the prior)
@@ -357,37 +361,6 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_ms = {}
 
-    def time_ms(fn, iters=10, warmup=2):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / iters
-
-    def device_ms(fn, *kernel_names, iters=5):
-        """Mean device time per call of the named kernels, from the profiler's
-        CUDA trace; None where the trace holds no device time for them."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-                 if any(k in e.key for k in kernel_names))
-        return us / iters / 1e3 if us else None
-
-    def bound(nbytes, flops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS
-        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
     gen = torch.Generator(device=dev)
 
     def randn(*shape, dtype=torch.bfloat16):
@@ -395,6 +368,12 @@ def main() -> int:
 
     def randint(lo, hi, *shape, dtype=torch.uint16):
         return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(dtype)
+
+    def misaligned(t, offset=1):
+        """A contiguous copy of ``t`` that starts ``offset`` elements into its
+        buffer, so K1/K5 must take a narrower access than their 16 bytes."""
+        view = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:].view(t.shape)
+        return view.copy_(t)
 
     # ------------------------------------------------------------------ 1 env
     with Phase("env", phase_ms):
@@ -422,29 +401,50 @@ def main() -> int:
         gen.manual_seed(SEED + 7)
 
         # K1: the serve phase's lossy chunks (4 chunks x L x 2), bf16 out;
-        # ragged: a 1464-token chunk (G = 147) and f32 out
-        def k1_case(B, Gc, out_dtype):
-            d = randint(0, 255, B, Gc, g - 1, C)
-            a = randn(B, Gc, C, dtype=torch.float32)
+        # ragged: a 1464-token chunk (G = 147) and f32 out; C = 36 (V = 4)
+        # and inputs one element off their 16-byte alignment (V = 1).
+        # Planted faults: one group's anchor off by one bin, and channels 2
+        # and 3 (one vector) swapped everywhere
+        tol1 = ops.BF16_TOL["kv_dequant_tokens"]
+
+        def k1_case(B, Gc, out_dtype, Cc=C, offset=0, V=8):
+            d = randint(0, 255, B, Gc, g - 1, Cc)
+            a = randn(B, Gc, Cc, dtype=torch.float32)
+            if offset:
+                d, a = misaligned(d, offset), misaligned(a, offset)
             bins = torch.rand(B, generator=gen, device=dev) * 0.2 + 0.01
+            require(vector_width(Cc, d, a) == V, f"K1 takes {vector_width(Cc, d, a)} channels an access, not {V}")
             got = kv_dequant_tokens_cuda(d, a, bins, qmax=127, out_dtype=out_dtype)
             want = kv_dequant_tokens_plain(d, a, bins, qmax=127, out_dtype=out_dtype)
             err = (got.float() - want.float()).abs().max().item()
             if out_dtype == torch.bfloat16:
-                x = ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["kv_dequant_tokens"])
+                x = ops.bf16_ulp_excess(got, want, **tol1)
                 require(x <= 1, f"K1 bf16 is {x:.3g} times its tolerance off ({err})")
                 excess["kv_dequant_tokens"] = max(excess.get("kv_dequant_tokens", 0.0), x)
             else:
                 require(err <= 2e-5, f"K1 f32 error {err} > 2e-5")
-            return (d, a, bins), err
+            return (d, a, bins), want, err
 
-        (d, a, bins), e1 = k1_case(4 * L * 2, G, torch.bfloat16)
-        _, e2 = k1_case(L * 2, 147, torch.float32)
-        _, e3 = k1_case(L * 2, 147, torch.bfloat16)
+        (d, a, bins), want, e1 = k1_case(4 * L * 2, G, torch.bfloat16)
+        errs1 = [e1] + [k1_case(L * 2, 147, dt)[2] for dt in (torch.float32, torch.bfloat16)]
+        errs1 += [k1_case(L * 2, 147, dt, Cc=36, V=4)[2] for dt in (torch.float32, torch.bfloat16)]
+        errs1 += [k1_case(L * 2, G, dt, offset=1, V=1)[2] for dt in (torch.float32, torch.bfloat16)]
+        a_bad = a.clone()
+        a_bad[3, 5] += bins[3]
+        swapped = want.clone()
+        swapped[..., [2, 3]] = want[..., [3, 2]]
+        controls["kv_dequant_tokens"] = {
+            "anchor off by one bin": ops.bf16_ulp_excess(
+                kv_dequant_tokens_plain(d, a_bad, bins, qmax=127, out_dtype=torch.bfloat16), want, **tol1),
+            "channels 2 and 3 swapped": ops.bf16_ulp_excess(swapped, want, **tol1),
+        }
+        require(min(controls["kv_dequant_tokens"].values()) > 1,
+                f"K1's rule misses a planted fault: {controls['kv_dequant_tokens']}")
+        del want, a_bad, swapped
         B = d.shape[0]
         nb = d.numel() * 2 + a.numel() * 4 + bins.numel() * 4 + B * G * g * C * 2
         report["kv_dequant_tokens"] = dict(
-            max_abs_err=max(e1, e2, e3),
+            max_abs_err=max(errs1),
             ms=time_ms(lambda: kv_dequant_tokens_cuda(d, a, bins, qmax=127, out_dtype=torch.bfloat16)),
             device_ms=device_ms(lambda: kv_dequant_tokens_cuda(d, a, bins, qmax=127, out_dtype=torch.bfloat16),
                                 "dequant_tokens_kernel"),
@@ -609,16 +609,21 @@ def main() -> int:
         level_bins = [torch.as_tensor(quant.effective_bins(L, cc.layer_group_bins, m, dscale), device=dev).reshape(-1)
                       for m in cc.level_mults]
 
-        def k5_case(Gc, bins):
-            kv = torch.randn(L * 2, Gc, g, C, generator=gen, device=dev).cumsum(dim=2)  # token-correlated
+        def k5_case(Gc, bins, Cc=C, offset=0, V=8):
+            kv = torch.randn(L * 2, Gc, g, Cc, generator=gen, device=dev).cumsum(dim=2)  # token-correlated
+            if offset:
+                kv = misaligned(kv, offset)
+            require(vector_width(Cc, kv) == V, f"K5 takes {vector_width(Cc, kv)} channels an access, not {V}")
             got = kv_quant_cuda(kv, bins, qmax=qmax)
             require(torch.equal(got, kv_quant_plain(kv, bins, qmax=qmax)),
-                    f"K5 is not bit-exact with its plain version (G={Gc})")
+                    f"K5 is not bit-exact with its plain version (G={Gc}, C={Cc}, offset {offset})")
             return kv
 
         for bins in level_bins:
             kv5 = k5_case(G, bins)
         k5_case(147, level_bins[0])
+        k5_case(147, level_bins[1], Cc=36, V=4)
+        k5_case(G, level_bins[2], offset=1, V=1)
         halves = [k + 0.5 for k in range(-8, 8)]
         clipped = [qmax + 0.5, qmax + 40.0, -qmax - 0.5, -1e6]
         t = torch.tensor([halves[j % len(halves)] for j in range(C)])
@@ -641,7 +646,8 @@ def main() -> int:
             plain_ms=time_ms(lambda: kv_quant_plain(kv5, level_bins[0], qmax=qmax)),
             library_ms=None,
             bound=bound(nb, 6 * B * G * (g - 1) * C),
-            shape=f"kv {tuple(kv5.shape)} f32 -> uint16, 4 levels' bins, ties and clips planted",
+            shape=f"kv {tuple(kv5.shape)} f32 -> uint16, 4 levels' bins, ties and clips planted, "
+                  "C = 36 and misaligned cases",
         )
         del kv5
 
@@ -688,7 +694,9 @@ def main() -> int:
         )
         del d6, a6
 
+        require(t6["device_ms"] is not None, "the profiler holds no device time for K4 at the store shape")
         for name, r in report.items():
+            require(r["device_ms"] is not None, f"the profiler holds no device time for {name}'s kernels")
             if name in excess:
                 print(f"{name}: worst error {excess[name]:.3f} of the tolerance {ops.BF16_TOL[name]}; "
                       f"planted faults {controls.get(name, 'none')}")
@@ -730,7 +738,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": counts[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"], "device_ms": r["device_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

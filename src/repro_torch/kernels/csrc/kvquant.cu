@@ -11,13 +11,29 @@
 // the caller places the anchors).  K5 is the encoder's mirror: delta against
 // the group's anchor, divide by the bin, round half to even, clip, bias.
 // Each element costs one to four flops against 6-10 bytes moved, so the
-// card's memory rate bounds all four (well under 1 flop/byte, far under the
-// ~300 flop/byte where the tensor cores would bound).  The design reads
-// every input byte once and writes every output byte once, in one pass:
-// one thread per output element, a grid-stride loop, neighbouring threads
-// on neighbouring channels so every warp reads and writes contiguous runs.
-// Unlike the TPU kernels there is no block of whole groups, so G needs no
-// divisor.
+// card's memory rate is the only bound these passes should meet (well under
+// 1 flop/byte, far under the ~300 flop/byte where the tensor cores would
+// bound).  Every input byte is read once and every output byte written once.
+//
+// K1 and K5: one thread per (row b, group, vector of V channels).  The first
+// design, one thread per output element, spent its time on integer work, not
+// bytes: every element recovered its coordinates with 64-bit division and
+// modulo (four of them), loaded its anchor and bin again, and moved 2-4
+// bytes per access; at ~80 integer instructions an element the SMs' issue
+// rate, not memory, set its time (K1 ran at 0.94 TB/s, K5 at 1.25 TB/s).
+// Now b comes from blockIdx.y, the group from one 32-bit division per
+// thread, and the thread walks its group's g slots itself, with the row's
+// bin and the group's anchor vector in registers throughout.  Its accesses
+// are V elements wide, 16 bytes at V = 8 (two for f32), and it issues the
+// loads of several slots (kUnrollK1, kUnrollK5) before their arithmetic and
+// stores, so each thread keeps four to eight 16-byte loads in flight.  Bytes
+// now bound both: on an H100 they move about 2.9 TB/s, 85-88% of 3.35 TB/s.
+// The wrapper picks V (8, 4, 2 or 1: the largest that divides C with every
+// pointer aligned to its access width); all four widths are instantiations
+// of the same kernel.  Streaming stores (__stcs) measured no faster.
+//
+// K2 and K6 still use the first design (a grid-stride loop, one thread per
+// output element); they are next to move to K1's.
 //
 // K2 must equal quant.lossless_reconstruct bit for bit in f32, and K6 its
 // plain version, so both spell their multiply and add as
@@ -29,6 +45,10 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -45,26 +65,100 @@ int grid_for(long long total, int threads) {
   return (int)blocks;
 }
 
-template <typename TOut>
-__global__ void dequant_tokens_kernel(const uint16_t* __restrict__ d_sym,
-                                      const float* __restrict__ anchors,
-                                      const float* __restrict__ bins,
-                                      TOut* __restrict__ out, long long total,
-                                      int G, int gm1, int C, float qmax) {
-  const int g = gm1 + 1;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % C);
-    const long long rest = i / C;
-    const int j = (int)(rest % g);
-    const long long bg = rest / g;  // b * G + group
-    const float anchor = anchors[bg * C + c];
-    float x = anchor;
-    if (j > 0) {
-      const float d = (float)d_sym[(bg * gm1 + (j - 1)) * C + c] - qmax;
-      x = d * bins[bg / G] + anchor;
+// ---- K1 and K5: one thread per (row, group, vector of V channels) ----
+
+constexpr int kThreads = 256;
+// slots whose loads a thread issues before their arithmetic and stores: 8
+// for K1 (9 x 2 bytes of symbols a channel per group), 4 for K5, whose f32
+// slots take twice the registers (72 a thread at V = 8; capping it at 64
+// spills, and 2 slots or 8 measured slower on the H100)
+constexpr int kUnrollK1 = 8;
+constexpr int kUnrollK5 = 4;
+constexpr int kMaxGridY = 65535;
+
+template <int BYTES> struct Raw;
+template <> struct Raw<16> { using type = uint4; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<2> { using type = unsigned short; };
+
+// The V elements at p, in accesses of min(16, V * sizeof(T)) bytes; p is
+// aligned to that width (the wrapper's vector_width checks the base
+// pointers, and every offset is a multiple of V elements).
+template <int V, typename T>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
+  constexpr int BYTES = V * (int)sizeof(T) < 16 ? V * (int)sizeof(T) : 16;
+  using R = typename Raw<BYTES>::type;
+#pragma unroll
+  for (int i = 0; i < V; i += BYTES / (int)sizeof(T)) {
+    const R r = __ldg(reinterpret_cast<const R*>(p + i));
+    memcpy(&v[i], &r, BYTES);
+  }
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[V]) {
+  constexpr int BYTES = V * (int)sizeof(T) < 16 ? V * (int)sizeof(T) : 16;
+  using R = typename Raw<BYTES>::type;
+#pragma unroll
+  for (int i = 0; i < V; i += BYTES / (int)sizeof(T)) {
+    R r;
+    memcpy(&r, &v[i], BYTES);
+    *reinterpret_cast<R*>(p + i) = r;
+  }
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Thread t of a row's G * C / V covers group t / (C / V) and channels
+// (t % (C / V)) * V ..+V; rows are blockIdx.y, then every gridDim.y-th.
+// Returns false for the threads past the row's end.
+template <int V>
+__device__ __forceinline__ bool group_vector(int G, int C, int& grp, int& c) {
+  const int cv = C / V;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= G * cv) return false;
+  grp = t / cv;
+  c = (t - grp * cv) * V;
+  return true;
+}
+
+template <typename TOut, int V>
+__global__ void __launch_bounds__(kThreads) dequant_tokens_kernel(
+    const uint16_t* __restrict__ d_sym, const float* __restrict__ anchors,
+    const float* __restrict__ bins, TOut* __restrict__ out, long long B, int G, int gm1,
+    int C, float qmax) {
+  int grp, c;
+  if (!group_vector<V>(G, C, grp, c)) return;
+  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
+    const long long bg = b * G + grp;
+    const float bin = bins[b];
+    const uint16_t* sym = d_sym + bg * gm1 * C + c;
+    TOut* o = out + bg * (gm1 + 1) * C + c;
+    float anchor[V];
+    TOut y[V];
+    load_vec<V>(anchors + bg * C + c, anchor);
+#pragma unroll
+    for (int k = 0; k < V; ++k) y[k] = from_float<TOut>(anchor[k]);
+    store_vec<V>(o, y);
+    for (int j0 = 0; j0 < gm1; j0 += kUnrollK1) {
+      uint16_t s[kUnrollK1][V];
+#pragma unroll
+      for (int u = 0; u < kUnrollK1; ++u)
+        if (j0 + u < gm1) load_vec<V>(sym + (long long)(j0 + u) * C, s[u]);
+#pragma unroll
+      for (int u = 0; u < kUnrollK1; ++u) {
+        if (j0 + u < gm1) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) y[k] = from_float<TOut>(((float)s[u][k] - qmax) * bin + anchor[k]);
+          store_vec<V>(o + (long long)(j0 + u + 1) * C, y);
+        }
+      }
     }
-    store(out, i, x);
   }
 }
 
@@ -108,34 +202,74 @@ __global__ void dequant_kernel(const uint16_t* __restrict__ d_sym,
   }
 }
 
-__global__ void quant_kernel(const float* __restrict__ kv, const float* __restrict__ bins,
-                             uint16_t* __restrict__ out, long long total, int G, int gm1,
-                             int C, float qmax) {
-  const int g = gm1 + 1;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % C);
-    const long long rest = i / C;
-    const int j = (int)(rest % gm1);
-    const long long bg = rest / gm1;
-    const float* group = kv + bg * g * (long long)C;
-    const float delta = __fsub_rn(group[(long long)(j + 1) * C + c], group[c]);
-    float q = rintf(__fdiv_rn(delta, bins[bg / G]));
-    q = fminf(fmaxf(q, -qmax), qmax);
-    out[i] = (uint16_t)(int)(q + qmax);
+template <int V>
+__global__ void __launch_bounds__(kThreads) quant_kernel(
+    const float* __restrict__ kv, const float* __restrict__ bins, uint16_t* __restrict__ out,
+    long long B, int G, int gm1, int C, float qmax) {
+  int grp, c;
+  if (!group_vector<V>(G, C, grp, c)) return;
+  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
+    const long long bg = b * G + grp;
+    const float bin = bins[b];
+    const float* x = kv + bg * (gm1 + 1) * C + c;
+    uint16_t* o = out + bg * gm1 * C + c;
+    float anchor[V];
+    load_vec<V>(x, anchor);
+    for (int j0 = 0; j0 < gm1; j0 += kUnrollK5) {
+      float v[kUnrollK5][V];
+#pragma unroll
+      for (int u = 0; u < kUnrollK5; ++u)
+        if (j0 + u < gm1) load_vec<V>(x + (long long)(j0 + u + 1) * C, v[u]);
+#pragma unroll
+      for (int u = 0; u < kUnrollK5; ++u) {
+        if (j0 + u < gm1) {
+          uint16_t q[V];
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            float r = rintf(__fdiv_rn(__fsub_rn(v[u][k], anchor[k]), bin));
+            r = fminf(fmaxf(r, -qmax), qmax);
+            q[k] = (uint16_t)(int)(r + qmax);
+          }
+          store_vec<V>(o + (long long)(j0 + u) * C, q);
+        }
+      }
+    }
   }
+}
+
+// Calls f(std::integral_constant<int, V>()) for V in {8, 4, 2, 1}; false for
+// any other V.
+template <typename F>
+bool with_vector_width(int V, F&& f) {
+  switch (V) {
+    case 8: f(std::integral_constant<int, 8>()); return true;
+    case 4: f(std::integral_constant<int, 4>()); return true;
+    case 2: f(std::integral_constant<int, 2>()); return true;
+    case 1: f(std::integral_constant<int, 1>()); return true;
+    default: return false;
+  }
+}
+
+// The grid of K1 and K5: x over a row's G * C / V vectors, y over rows.
+bool row_grid(long long B, int G, int C, int V, dim3& grid) {
+  if (V < 1 || C % V || (long long)G * C > INT_MAX) return false;
+  grid = dim3((G * (C / V) + kThreads - 1) / kThreads, (unsigned)(B < kMaxGridY ? B : kMaxGridY));
+  return true;
 }
 
 }  // namespace
 
 extern "C" int kv_quant(const void* kv, const void* bins, void* out, long long B, int G,
-                        int gm1, int C, int qmax, void* stream) {
-  const long long total = B * G * (long long)gm1 * C;
-  if (total == 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  quant_kernel<<<grid_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
-      (const float*)kv, (const float*)bins, (uint16_t*)out, total, G, gm1, C, (float)qmax);
-  return (int)cudaGetLastError();
+                        int gm1, int C, int qmax, int V, void* stream) {
+  dim3 grid;
+  if (!row_grid(B, G, C, V, grid)) return (int)cudaErrorInvalidValue;
+  if (B * G * (long long)gm1 * C == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool ok = with_vector_width(V, [&](auto v) {
+    quant_kernel<decltype(v)::value><<<grid, kThreads, 0, s>>>(
+        (const float*)kv, (const float*)bins, (uint16_t*)out, B, G, gm1, C, (float)qmax);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 extern "C" int kv_dequant(const void* d_sym, const void* anchors, const void* bins, void* out,
@@ -160,22 +294,24 @@ extern "C" int kv_dequant(const void* d_sym, const void* anchors, const void* bi
 
 extern "C" int kv_dequant_tokens(const void* d_sym, const void* anchors, const void* bins,
                                  void* out, long long B, int G, int gm1, int C, int qmax,
-                                 int out_bf16, void* stream) {
-  const long long total = B * G * (long long)(gm1 + 1) * C;
-  if (total == 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  const int blocks = grid_for(total, threads);
+                                 int out_bf16, int V, void* stream) {
+  dim3 grid;
+  if (!row_grid(B, G, C, V, grid)) return (int)cudaErrorInvalidValue;
+  if (B * G * (long long)C == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (out_bf16) {
-    dequant_tokens_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (const uint16_t*)d_sym, (const float*)anchors, (const float*)bins,
-        (__nv_bfloat16*)out, total, G, gm1, C, (float)qmax);
-  } else {
-    dequant_tokens_kernel<float><<<blocks, threads, 0, s>>>(
-        (const uint16_t*)d_sym, (const float*)anchors, (const float*)bins, (float*)out,
-        total, G, gm1, C, (float)qmax);
-  }
-  return (int)cudaGetLastError();
+  const bool ok = with_vector_width(V, [&](auto v) {
+    constexpr int W = decltype(v)::value;
+    if (out_bf16) {
+      dequant_tokens_kernel<__nv_bfloat16, W><<<grid, kThreads, 0, s>>>(
+          (const uint16_t*)d_sym, (const float*)anchors, (const float*)bins,
+          (__nv_bfloat16*)out, B, G, gm1, C, (float)qmax);
+    } else {
+      dequant_tokens_kernel<float, W><<<grid, kThreads, 0, s>>>(
+          (const uint16_t*)d_sym, (const float*)anchors, (const float*)bins, (float*)out, B, G,
+          gm1, C, (float)qmax);
+    }
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 extern "C" int kv_lossless_tokens(const void* d_sym, const void* a_sym, const void* scales,

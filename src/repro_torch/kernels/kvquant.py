@@ -16,7 +16,10 @@ replaces ``kvquant.py:kv_dequant_pallas``: the delta-only reconstruction
 ``(d - qmax) * bin + anchor`` that the unfused ``codec.decode_chunk`` runs.
 
 The CUDA kernels live in ``csrc/kvquant.cu`` (see its head for what bounds
-them on the H100 and how the design answers it).  Each ``*_cuda`` wrapper
+them on the H100 and how the design answers it).  K1 and K5 read and write
+V channels at a time; :func:`vector_width` picks V for the tensors at hand
+(8 where C and the pointers allow: 16-byte accesses), and any contiguous
+input runs, a narrower V where it is misaligned.  Each ``*_cuda`` wrapper
 checks its inputs, launches, and counts its launches in ``.launches``; each
 ``*_plain`` function is the same computation in PyTorch — the CPU path and
 the kernel's oracle on the card.  ``kernels.ops`` picks between them by the
@@ -38,9 +41,21 @@ __all__ = [
     "kv_lossless_tokens_plain",
     "kv_lossless_tokens_cuda",
     "OUT_DTYPES",
+    "vector_width",
 ]
 
 OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def vector_width(C: int, *tensors: torch.Tensor) -> int:
+    """The channels K1 and K5 move per access: the largest V in (8, 4, 2, 1)
+    that divides C and to whose access width, ``min(16, V * itemsize)``
+    bytes, every tensor's base address is aligned (each access then is,
+    since the kernels step through rows of C elements in multiples of V)."""
+    for V in (8, 4, 2):
+        if C % V == 0 and all(t.data_ptr() % min(16, V * t.element_size()) == 0 for t in tensors):
+            return V
+    return 1
 
 
 def _check_inputs(name, d_sym, side, side_name, side_dtype, per_group):
@@ -89,7 +104,7 @@ def kv_dequant_tokens_cuda(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.b
     lib = load_library()
     check(lib.kv_dequant_tokens(
         d_sym.data_ptr(), anchors.data_ptr(), bins.data_ptr(), out.data_ptr(),
-        B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16),
+        B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16), vector_width(C, d_sym, anchors, out),
         torch.cuda.current_stream(d_sym.device).cuda_stream,
     ), "kv_dequant_tokens")
     kv_dequant_tokens_cuda.launches += 1
@@ -170,7 +185,7 @@ def kv_quant_cuda(kv_grouped, bins, *, qmax: int):
     out = torch.empty((B, G, g - 1, C), dtype=torch.uint16, device=kv_grouped.device)
     check(load_library().kv_quant(
         kv_grouped.data_ptr(), bins.data_ptr(), out.data_ptr(), B, G, g - 1, C, int(qmax),
-        torch.cuda.current_stream(kv_grouped.device).cuda_stream,
+        vector_width(C, kv_grouped, out), torch.cuda.current_stream(kv_grouped.device).cuda_stream,
     ), "kv_quant")
     kv_quant_cuda.launches += 1
     return out

@@ -19,7 +19,7 @@ try:  # the reference; absent where only the port is installed (the card's machi
 except ImportError:
     jnp = None
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, timing
 from repro_torch.kernels.decode_attention import (
     TILE,
     decode_attention_cuda,
@@ -40,6 +40,7 @@ from repro_torch.kernels.kvquant import (
     kv_lossless_tokens_plain,
     kv_quant_cuda,
     kv_quant_plain,
+    vector_width,
 )
 
 torch.set_num_threads(1)
@@ -171,6 +172,49 @@ def test_dequant_plain_matches_pallas(case, out_dtype):
             np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL)
         else:
             assert ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["kv_dequant"]) <= 1
+
+
+@pytest.mark.parametrize("fault", ["anchor off by one bin", "channels 2 and 3 swapped"])
+def test_dequant_tokens_rule_catches_planted_faults(fault):
+    """K1's rule at the main path's shape rejects the faults a vectorized
+    kernel can make: a wrong anchor, two channels of one vector exchanged."""
+    d, a, bins = _dequant_inputs(6, 4, 154, 9, 320)
+    want = ops.kv_dequant_tokens(_t(d), _t(a), _t(bins), qmax=127)
+    if fault == "anchor off by one bin":
+        a[2, 7] += bins[2]
+        bad = ops.kv_dequant_tokens(_t(d), _t(a), _t(bins), qmax=127)
+    else:
+        bad = want.clone()
+        bad[..., [2, 3]] = want[..., [3, 2]]
+    tol = ops.BF16_TOL["kv_dequant_tokens"]
+    assert ops.bf16_ulp_excess(want, want.float(), **tol) <= 0.5
+    assert ops.bf16_ulp_excess(bad, want, **tol) > 1
+
+
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` starting ``offset`` elements into its buffer."""
+    if not offset:
+        return t
+    return torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("C,offset,itemsize,want", [
+    (320, 0, 4, 8), (320, 0, 2, 8), (64, 0, 4, 8), (16, 0, 2, 8),
+    (36, 0, 4, 4), (10, 0, 4, 2), (5, 0, 4, 1), (5, 0, 2, 1),
+    (320, 1, 4, 1), (320, 2, 4, 2), (320, 4, 4, 8),  # f32 views 4, 8 and 16 bytes in
+    (320, 1, 2, 1), (320, 2, 2, 2), (320, 4, 2, 4), (320, 8, 2, 8),  # uint16 views
+])
+def test_vector_width_follows_channels_and_alignment(C, offset, itemsize, want):
+    """K1/K5 move V = 8 channels an access (16 bytes) where C and every
+    pointer allow, else the widest narrower V; an aligned tensor beside a
+    misaligned one does not widen it."""
+    dtype = torch.float32 if itemsize == 4 else torch.uint16
+    aligned = torch.zeros(2, 3, C)
+    assert aligned.data_ptr() % 16 == 0
+    view = _at_offset(torch.zeros(2, 3, C, dtype=dtype), offset)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset * itemsize % 16
+    assert vector_width(C, view) == want
+    assert vector_width(C, aligned, view) == want
 
 
 def test_dequant_rule_catches_an_anchor_off_by_one_bin():
@@ -350,6 +394,22 @@ def test_flash_rule_admits_a_tensor_core_result_at_the_smollm_shape():
         ops.bf16_ulp_excess(got, want, **tol)
 
 
+@pytest.mark.parametrize("key,name", [
+    ("void (anonymous namespace)::quant_kernel<8>(float const*, float const*, unsigned short*, "
+     "long long, int, int, int, float)", "quant_kernel"),
+    ("void (anonymous namespace)::dequant_kernel<float>(unsigned short const*, float const*, "
+     "float const*, float*, long long, int, int, int, float)", "dequant_kernel"),
+    ("void (anonymous namespace)::dequant_tokens_kernel<__nv_bfloat16, 4>(unsigned short const*, "
+     "float const*, float const*, __nv_bfloat16*, long long, int, int, int, float)", "dequant_tokens_kernel"),
+    ("dequant_tokens_kernel<__nv_bfloat16, 8>", "dequant_tokens_kernel"),
+    ("decode_combine_kernel", "decode_combine_kernel"),
+])
+def test_profiler_keys_match_kernels_by_exact_name(key, name):
+    """``quant_kernel`` is a substring of ``dequant_kernel``: device times are
+    matched by the function name itself."""
+    assert timing.kernel_name(key) == name
+
+
 def test_wrappers_count_only_kernel_launches():
     """On the CPU the plain versions run and no launch is counted."""
     ops.reset_launch_counts()
@@ -374,12 +434,24 @@ def cuda():
     return torch.device("cuda")
 
 
+# (B, G, g-1, C, offset): the CPU cases, the main path's shapes, C = 36, 10
+# and 5 (V = 4, 2, 1), g-1 = 1 and 15, G = 1, more rows than a grid's y
+# extent (65,535), and inputs that are contiguous views `offset` elements
+# into their buffer (1: misaligned for any vector access; 2: V = 2 at most)
+CUDA_KV_CASES = [c[:4] + (0,) for c in KV_CASES] + [
+    (64, 154, 9, 320, 0), (256, 154, 9, 320, 0), (8, 147, 9, 320, 0), (4, 154, 15, 36, 0),
+    (6, 1, 1, 10, 0), (3, 147, 9, 5, 0), (70000, 1, 1, 8, 0), (4, 154, 9, 320, 1), (2, 147, 9, 320, 2),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", KV_CASES + [(64, 154, 9, 320, 8)])
+@pytest.mark.parametrize("case", CUDA_KV_CASES)
 def test_cuda_kvquant_matches_plain(cuda, case):
-    B, G, gm1, C, _ = case
+    B, G, gm1, C, offset = case
     d, a, bins = _dequant_inputs(sum(case), B, G, gm1, C)
-    d, a, bins = _t(d).to(cuda), _t(a).to(cuda), _t(bins).to(cuda)
+    d, a, bins = _at_offset(_t(d).to(cuda), offset), _at_offset(_t(a).to(cuda), offset), _t(bins).to(cuda)
+    if offset:
+        assert vector_width(C, d, a) < 8
     for dt in (torch.float32, torch.bfloat16):
         got = kv_dequant_tokens_cuda(d, a, bins, qmax=127, out_dtype=dt)
         want = kv_dequant_tokens_plain(d, a, bins, qmax=127, out_dtype=dt)
@@ -399,12 +471,21 @@ def test_cuda_kvquant_matches_plain(cuda, case):
         assert torch.equal(got, want)
 
 
+# (B, G, g, C, offset), as CUDA_KV_CASES: g = 2 and 16 (g-1 = 1 and 15)
+CUDA_QUANT_CASES = [c[:4] + (0,) for c in QUANT_CASES] + [
+    (64, 154, 10, 320, 0), (64, 147, 10, 320, 0), (4, 154, 16, 36, 0), (6, 1, 2, 10, 0),
+    (3, 147, 10, 5, 0), (70000, 1, 2, 8, 0), (4, 154, 10, 320, 1), (2, 147, 10, 320, 2),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", QUANT_CASES + [(64, 154, 10, 320, 8), (64, 147, 10, 320, 8)])
+@pytest.mark.parametrize("case", CUDA_QUANT_CASES)
 def test_cuda_quant_dequant_match_plain(cuda, case):
-    B, G, g, C, _ = case
+    B, G, g, C, offset = case
     kv, bins = _quant_inputs(sum(case), B, G, g, C)
-    kv, bins = _t(kv).to(cuda), _t(bins).to(cuda)
+    kv, bins = _at_offset(_t(kv).to(cuda), offset), _t(bins).to(cuda)
+    if offset:
+        assert vector_width(C, kv) < 8
     before = kv_quant_cuda.launches
     got = kv_quant_cuda(kv, bins, qmax=127)
     torch.cuda.synchronize()
