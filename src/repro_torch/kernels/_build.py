@@ -47,9 +47,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # kvquant.cu
     "kv_dequant_tokens": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
-    "kv_lossless_tokens": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    "kv_lossless_tokens": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     "kv_quant": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
-    "kv_dequant": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    "kv_dequant": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
     # decode_attention.cu
     "decode_attention": (
         _P, _P, _P, _P, _P, _P,  # q k v kv_len out part

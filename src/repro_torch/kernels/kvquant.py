@@ -16,16 +16,18 @@ replaces ``kvquant.py:kv_dequant_pallas``: the delta-only reconstruction
 ``(d - qmax) * bin + anchor`` that the unfused ``codec.decode_chunk`` runs.
 
 The CUDA kernels live in ``csrc/kvquant.cu`` (see its head for what bounds
-them on the H100 and how the design answers it).  K1 and K5 read and write
+them on the H100 and how the design answers it).  All four read and write
 V channels at a time; :func:`vector_width` picks V for the tensors at hand
-(8 where C and the pointers allow: 16-byte accesses), and any contiguous
-input runs, a narrower V where it is misaligned.  Each ``*_cuda`` wrapper
+(the most that C, the pointers and one 16-byte store of the output allow),
+and any contiguous input runs, a narrower V where it is misaligned.  Each ``*_cuda`` wrapper
 checks its inputs, launches, and counts its launches in ``.launches``; each
 ``*_plain`` function is the same computation in PyTorch — the CPU path and
 the kernel's oracle on the card.  ``kernels.ops`` picks between them by the
 tensors' device.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -47,13 +49,20 @@ __all__ = [
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def vector_width(C: int, *tensors: torch.Tensor) -> int:
-    """The channels K1 and K5 move per access: the largest V in (8, 4, 2, 1)
+def vector_width(C: int, *tensors: torch.Tensor, out: Optional[torch.Tensor] = None) -> int:
+    """The channels the kernels move per access: the largest V in (8, 4, 2, 1)
     that divides C and to whose access width, ``min(16, V * itemsize)``
-    bytes, every tensor's base address is aligned (each access then is,
-    since the kernels step through rows of C elements in multiples of V)."""
+    bytes, every tensor's base address (``out``'s too) is aligned (each
+    access then is, since the kernels step through rows of C elements in
+    multiples of V), and at which a thread stores its V elements of ``out``
+    in one access of at most 16 bytes: 4 for an f32 output.  On an H100,
+    two 16-byte stores a thread to one 32-byte span (V = 8 of f32) held K6
+    at 61% of its bound, one 16-byte store (V = 4) reached 84%; K5 reading
+    its f32 input in two 16-byte loads ran as fast as in one."""
+    widest = 8 if out is None else 16 // out.element_size()
+    tensors = tensors if out is None else (*tensors, out)
     for V in (8, 4, 2):
-        if C % V == 0 and all(t.data_ptr() % min(16, V * t.element_size()) == 0 for t in tensors):
+        if V <= widest and C % V == 0 and all(t.data_ptr() % min(16, V * t.element_size()) == 0 for t in tensors):
             return V
     return 1
 
@@ -104,7 +113,7 @@ def kv_dequant_tokens_cuda(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.b
     lib = load_library()
     check(lib.kv_dequant_tokens(
         d_sym.data_ptr(), anchors.data_ptr(), bins.data_ptr(), out.data_ptr(),
-        B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16), vector_width(C, d_sym, anchors, out),
+        B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16), vector_width(C, d_sym, anchors, out=out),
         torch.cuda.current_stream(d_sym.device).cuda_stream,
     ), "kv_dequant_tokens")
     kv_dequant_tokens_cuda.launches += 1
@@ -144,7 +153,7 @@ def kv_lossless_tokens_cuda(d_sym, a_sym, scales, *, out_dtype=torch.float32):
     lib = load_library()
     check(lib.kv_lossless_tokens(
         d_sym.data_ptr(), a_sym.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        B, G, gm1, C, int(out_dtype == torch.bfloat16),
+        B, G, gm1, C, int(out_dtype == torch.bfloat16), vector_width(C, d_sym, a_sym, out=out),
         torch.cuda.current_stream(d_sym.device).cuda_stream,
     ), "kv_lossless_tokens")
     kv_lossless_tokens_cuda.launches += 1
@@ -185,7 +194,7 @@ def kv_quant_cuda(kv_grouped, bins, *, qmax: int):
     out = torch.empty((B, G, g - 1, C), dtype=torch.uint16, device=kv_grouped.device)
     check(load_library().kv_quant(
         kv_grouped.data_ptr(), bins.data_ptr(), out.data_ptr(), B, G, g - 1, C, int(qmax),
-        vector_width(C, kv_grouped, out), torch.cuda.current_stream(kv_grouped.device).cuda_stream,
+        vector_width(C, kv_grouped, out=out), torch.cuda.current_stream(kv_grouped.device).cuda_stream,
     ), "kv_quant")
     kv_quant_cuda.launches += 1
     return out
@@ -208,8 +217,7 @@ def kv_dequant_plain(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat1
 
 
 def kv_dequant_cuda(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
-    """K6 on the card; same contract as :func:`kv_dequant_plain`, bit for
-    bit in f32."""
+    """K6 on the card; same contract (bit for bit) as :func:`kv_dequant_plain`."""
     _check_out_dtype("kv_dequant", out_dtype)
     _check_inputs("kv_dequant", d_sym, anchors, "anchors", torch.float32, bins)
     if bins.dtype != torch.float32 or bins.ndim != 1:
@@ -218,7 +226,7 @@ def kv_dequant_cuda(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16
     out = torch.empty((B, G, gm1, C), dtype=out_dtype, device=d_sym.device)
     check(load_library().kv_dequant(
         d_sym.data_ptr(), anchors.data_ptr(), bins.data_ptr(), out.data_ptr(),
-        B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16),
+        B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16), vector_width(C, d_sym, anchors, out=out),
         torch.cuda.current_stream(d_sym.device).cuda_stream,
     ), "kv_dequant")
     kv_dequant_cuda.launches += 1

@@ -1,20 +1,22 @@
-"""Time K1 and K5 of this checkout against other builds of ``csrc/kvquant.cu``
-on one card, in turns.
+"""Time K1, K2, K5 and K6 of this checkout against other builds of
+``csrc/kvquant.cu`` on one card, in turns.
 
-    PYTHONPATH=src python -m repro_torch.kernels.kvquant_ab --old OLD.cu [--variant OTHER.cu ...]
+    PYTHONPATH=src python -m repro_torch.kernels.kvquant_ab --other OTHER.cu [--other ...]
 
 Each given source is built with the library's flags (``_build.NVCC_FLAGS``)
-into its own shared library under ``build/kvquant_ab/``.  ``--old`` takes a
-source whose K1/K5 entry points have no vector-width argument (the
-one-thread-per-element kernels, e.g. ``git show 9fd2a6a:src/repro_torch/
-kernels/csrc/kvquant.cu``); ``--variant`` takes a patched copy of this
-checkout's source, with its signatures.  ptxas' registers and spills print
-for every K1/K5 instantiation of every build.  At the main path's shapes (K5: kv
-``(64,154,10,320)`` f32; K1: d_sym ``(256,154,9,320)`` uint16 -> bf16) each
-build is held to the plain version (K5 bit for bit, K1 by its bf16 rule) and
-timed in turns, the others around this checkout's (old, new, new, old):
-device time from the profiler and CUDA-event time, per call.  The last line
-is one JSON object with the card's name and power limit.
+into its own shared library under ``build/kvquant_ab/``.  Each of its four C
+entry points is called with or without the vector width V (the argument
+before the stream) as the source declares it: in ``git show
+201e068:src/repro_torch/kernels/csrc/kvquant.cu`` K1 and K5 take V, K2 and
+K6 do not.  ptxas' registers and spills print for every instantiation of
+the four kernels of every build.  At the main path's shapes (K5: kv
+``(64,154,10,320)`` f32; K1: d_sym ``(256,154,9,320)`` uint16 -> bf16; K2:
+d_sym ``(192,154,9,320)`` -> bf16; K6: d_sym ``(64,154,9,320)`` -> f32)
+each build is held to the plain versions (K1 by its bf16 rule, the others
+bit for bit) and timed in turns, the others around this checkout's (old,
+new, new, old): device time from the profiler and CUDA-event time, per
+call.  The last line is one JSON object with the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -28,25 +30,35 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.kvquant import kv_dequant_tokens_plain, kv_quant_plain, vector_width
+from repro_torch.kernels.kvquant import (
+    kv_dequant_plain,
+    kv_dequant_tokens_plain,
+    kv_lossless_tokens_plain,
+    kv_quant_plain,
+    vector_width,
+)
 from repro_torch.kernels.timing import bound_ms, device_ms, time_ms
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the K1/K5 entry points before they took the vector width
-_SIGNATURES_WITHOUT_V = {
-    "kv_dequant_tokens": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
-    "kv_quant": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
+# C entry point -> its kernel's function name
+KERNELS = {
+    "kv_quant": "quant_kernel",
+    "kv_dequant_tokens": "dequant_tokens_kernel",
+    "kv_lossless_tokens": "lossless_tokens_kernel",
+    "kv_dequant": "dequant_kernel",
 }
+_MANGLED = re.compile(r"\d(quant|dequant|dequant_tokens|lossless_tokens)_kernelI(13__nv_bfloat16|f)?(?:Li(\d))?E")
+_TYPES = {"13__nv_bfloat16": "__nv_bfloat16", "f": "float"}
 
 
 def ptxas_summary(log: str) -> dict:
-    """K1's and K5's mangled kernel names -> "R registers, S spill bytes",
-    from ``ptxas -v``."""
+    """The four kernels' instantiations (``dequant_kernel<float, 8>``) ->
+    "R registers, S spill bytes", from ``ptxas -v``."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            fn = m.group(1)
+            k = _MANGLED.search(m.group(1))
+            fn = k and f"{k.group(1)}_kernel<{', '.join(filter(None, (_TYPES.get(k.group(2)), k.group(3))))}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and fn:
@@ -54,7 +66,13 @@ def ptxas_summary(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             out[fn] = f"{m.group(1)} registers, " + out.get(fn, "")
-    return {k: v for k, v in out.items() if re.search(r"\d(quant_kernel|dequant_tokens_kernel)[IE]", k)}
+    return out
+
+
+def takes_vector_width(source: str) -> dict:
+    """Each ``extern "C"`` entry point of ``source`` -> whether it takes ``int V``."""
+    return {m.group(1): re.search(r"\bint V\b", m.group(2)) is not None
+            for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', source)}
 
 
 def build(src: Path):
@@ -69,39 +87,54 @@ def build(src: Path):
     return ctypes.CDLL(str(lib_path)), r.stdout + r.stderr
 
 
-def callers(lib, with_v: bool):
-    """K5 and K1 (bf16 out) through ``lib``'s C entry points."""
-    sigs = _build._SIGNATURES if with_v else _SIGNATURES_WITHOUT_V
-    for name in ("kv_quant", "kv_dequant_tokens"):
-        getattr(lib, name).argtypes = sigs[name]
+def callers(lib, with_v: dict) -> dict:
+    """Entry point name -> K5, K1 (bf16 out), K2 (bf16 out) or K6 (f32 out)
+    through ``lib``; ``with_v[name]`` says whether it takes V."""
+    for name in KERNELS:
+        sig = _build._SIGNATURES[name]
+        getattr(lib, name).argtypes = sig if with_v[name] else sig[:-2] + sig[-1:]
         getattr(lib, name).restype = ctypes.c_int
+
+    def launch(name, tensors, *args):
+        """``args`` up to V; V (where the entry takes it, by this checkout's
+        rule) and the stream follow.  ``tensors``: the inputs, then out."""
+        v = (vector_width(tensors[0].shape[-1], *tensors[:-1], out=tensors[-1]),) if with_v[name] else ()
+        _build.check(getattr(lib, name)(*args, *v, torch.cuda.current_stream().cuda_stream), name)
 
     def k5(kv, bins, qmax):
         B, G, g, C = kv.shape
         out = torch.empty((B, G, g - 1, C), dtype=torch.uint16, device=kv.device)
-        v = (vector_width(C, kv, out),) if with_v else ()
-        _build.check(lib.kv_quant(kv.data_ptr(), bins.data_ptr(), out.data_ptr(), B, G, g - 1, C, qmax,
-                                  *v, torch.cuda.current_stream().cuda_stream), "kv_quant")
+        launch("kv_quant", (kv, out), kv.data_ptr(), bins.data_ptr(), out.data_ptr(), B, G, g - 1, C, qmax)
         return out
 
     def k1(d, a, bins, qmax):
         B, G, gm1, C = d.shape
         out = torch.empty((B, G, gm1 + 1, C), dtype=torch.bfloat16, device=d.device)
-        v = (vector_width(C, d, a, out),) if with_v else ()
-        _build.check(lib.kv_dequant_tokens(d.data_ptr(), a.data_ptr(), bins.data_ptr(), out.data_ptr(),
-                                           B, G, gm1, C, qmax, 1, *v, torch.cuda.current_stream().cuda_stream),
-                     "kv_dequant_tokens")
+        launch("kv_dequant_tokens", (d, a, out), d.data_ptr(), a.data_ptr(), bins.data_ptr(), out.data_ptr(),
+               B, G, gm1, C, qmax, 1)
         return out
 
-    return k5, k1
+    def k2(d, a, s):
+        B, G, gm1, C = d.shape
+        out = torch.empty((B, G, gm1 + 1, C), dtype=torch.bfloat16, device=d.device)
+        launch("kv_lossless_tokens", (d, a, out), d.data_ptr(), a.data_ptr(), s.data_ptr(), out.data_ptr(),
+               B, G, gm1, C, 1)
+        return out
+
+    def k6(d, a, bins, qmax):
+        B, G, gm1, C = d.shape
+        out = torch.empty((B, G, gm1, C), dtype=torch.float32, device=d.device)
+        launch("kv_dequant", (d, a, out), d.data_ptr(), a.data_ptr(), bins.data_ptr(), out.data_ptr(),
+               B, G, gm1, C, qmax, 0)
+        return out
+
+    return {"kv_quant": k5, "kv_dequant_tokens": k1, "kv_lossless_tokens": k2, "kv_dequant": k6}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", type=Path, action="append", default=[],
-                    help="a kvquant.cu whose K1/K5 take no vector width")
-    ap.add_argument("--variant", type=Path, action="append", default=[],
-                    help="a kvquant.cu with this checkout's signatures")
+    ap.add_argument("--other", type=Path, action="append", default=[],
+                    help="another kvquant.cu to time against this checkout's (repeatable)")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -110,11 +143,12 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
 
-    builds = {"new": callers(_build.load_library(), True)}
+    own = takes_vector_width((_build.CSRC / "kvquant.cu").read_text())
+    builds = {"new": callers(_build.load_library(), own)}
     ptxas = {"new": ptxas_summary((_build.BUILD_DIR / "kvquant.log").read_text())}
-    for src, with_v in [(s, False) for s in args.old] + [(s, True) for s in args.variant]:
+    for src in args.other:
         lib, log = build(src)
-        builds[src.stem] = callers(lib, with_v)
+        builds[src.stem] = callers(lib, takes_vector_width(src.read_text()))
         ptxas[src.stem] = ptxas_summary(log)
     for name, regs in ptxas.items():
         for fn, what in regs.items():
@@ -123,36 +157,62 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     qmax = 127
+
+    def symbols(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.uint16)
+
     kv = torch.randn(64, 154, 10, 320, generator=gen, device=dev).cumsum(dim=2)
     kbins = torch.rand(64, generator=gen, device=dev) * 0.4 + 0.05
-    d = torch.randint(0, 2 * qmax + 1, (256, 154, 9, 320), generator=gen, device=dev,
-                      dtype=torch.int32).to(torch.uint16)
-    a = torch.randn(256, 154, 320, generator=gen, device=dev)
-    dbins = torch.rand(256, generator=gen, device=dev) * 0.2 + 0.01
-    want5 = kv_quant_plain(kv, kbins, qmax=qmax)
-    want1 = kv_dequant_tokens_plain(d, a, dbins, qmax=qmax, out_dtype=torch.bfloat16)
-    for name, (k5, k1) in builds.items():
-        if not torch.equal(k5(kv, kbins, qmax), want5):
-            raise RuntimeError(f"kvquant_ab: K5 of {name} is not bit-exact with its plain version")
-        x = ops.bf16_ulp_excess(k1(d, a, dbins, qmax), want1, **ops.BF16_TOL["kv_dequant_tokens"])
-        if x > 1:
-            raise RuntimeError(f"kvquant_ab: K1 of {name} is {x:.3g} times its rule off its plain version")
-    del want5, want1
+    d1, a1 = symbols(2 * qmax + 1, 256, 154, 9, 320), torch.randn(256, 154, 320, generator=gen, device=dev)
+    bins1 = torch.rand(256, generator=gen, device=dev) * 0.2 + 0.01
+    d2, a2 = symbols(509, 192, 154, 9, 320), symbols(256, 192, 154, 320)
+    s2 = (torch.rand(192, 154, generator=gen, device=dev) * 0.05 + 1e-3).half().float()
+    d6, a6 = symbols(2 * qmax + 1, 64, 154, 9, 320), torch.randn(64, 154, 320, generator=gen, device=dev)
+    bins6 = torch.rand(64, generator=gen, device=dev) * 0.2 + 0.01
+    inputs = {
+        "kv_quant": (kv, kbins, qmax),
+        "kv_dequant_tokens": (d1, a1, bins1, qmax),
+        "kv_lossless_tokens": (d2, a2, s2),
+        "kv_dequant": (d6, a6, bins6, qmax),
+    }
+    want = {
+        "kv_quant": kv_quant_plain(kv, kbins, qmax=qmax),
+        "kv_dequant_tokens": kv_dequant_tokens_plain(d1, a1, bins1, qmax=qmax, out_dtype=torch.bfloat16),
+        "kv_lossless_tokens": kv_lossless_tokens_plain(d2, a2, s2, out_dtype=torch.bfloat16),
+        "kv_dequant": kv_dequant_plain(d6, a6, bins6, qmax=qmax, out_dtype=torch.float32),
+    }
+    for name, fns in builds.items():
+        for kernel, fn in fns.items():
+            got = fn(*inputs[kernel])
+            if kernel == "kv_dequant_tokens":
+                x = ops.bf16_ulp_excess(got, want[kernel], **ops.BF16_TOL[kernel])
+                if x > 1:
+                    raise RuntimeError(f"kvquant_ab: K1 of {name} is {x:.3g} times its rule off its plain version")
+            elif not torch.equal(got, want[kernel]):
+                raise RuntimeError(f"kvquant_ab: {kernel} of {name} is not bit-exact with its plain version")
+    del want
 
+    out_bytes = {  # the output each kernel writes
+        "kv_quant": 64 * 154 * 9 * 320 * 2,
+        "kv_dequant_tokens": 256 * 154 * 10 * 320 * 2,
+        "kv_lossless_tokens": 192 * 154 * 10 * 320 * 2,
+        "kv_dequant": d6.numel() * 4,
+    }
+    ops_count = {
+        "kv_quant": 6 * 64 * 154 * 9 * 320,
+        "kv_dequant_tokens": 3 * d1.numel(),
+        "kv_lossless_tokens": 2 * a2.numel() + 3 * d2.numel(),
+        "kv_dequant": 3 * d6.numel(),
+    }
     others = [n for n in builds if n != "new"]
     turns = others + ["new", "new"] + others[::-1]
-    runs = {
-        "kv_quant": ("quant_kernel", lambda k5, k1: k5(kv, kbins, qmax),
-                     bound_ms(kv.numel() * 4 + 64 * 4 + 64 * 154 * 9 * 320 * 2, 6 * 64 * 154 * 9 * 320)),
-        "kv_dequant_tokens": ("dequant_tokens_kernel", lambda k5, k1: k1(d, a, dbins, qmax),
-                              bound_ms(d.numel() * 2 + a.numel() * 4 + 256 * 4 + 256 * 154 * 10 * 320 * 2,
-                                       3 * d.numel())),
-    }
-    result = {"card": smi, "turns": turns, "kernels": {}}
-    for kernel, (fn_name, call, bound) in runs.items():
+    result = {"card": smi, "turns": turns, "ptxas": ptxas, "kernels": {}}
+    for kernel, fn_name in KERNELS.items():
+        nbytes = sum(t.numel() * t.element_size() for t in inputs[kernel] if isinstance(t, torch.Tensor))
+        bound = bound_ms(nbytes + out_bytes[kernel], ops_count[kernel])
         rows = {n: {"device_ms": [], "ms": []} for n in builds}
         for n in turns:
-            fn = lambda: call(*builds[n])  # noqa: E731
+            fn = lambda: builds[n][kernel](*inputs[kernel])  # noqa: E731
             rows[n]["device_ms"].append(device_ms(fn, fn_name, iters=args.iters))
             rows[n]["ms"].append(time_ms(fn, iters=args.iters))
         for n, r in rows.items():

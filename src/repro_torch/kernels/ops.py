@@ -8,8 +8,8 @@ reference's ``kernels/ops.py``: the device decides.
 ``launch_counts`` / ``reset_launch_counts`` read and zero the kernels'
 launch counters, so a run can show that its path went through them.
 ``bf16_ulp_excess`` with ``BF16_TOL`` is the one rule by which a kernel with
-bf16 output is held against its plain version (K2 and K5 are held bit for
-bit).
+bf16 output is held against its plain version (K2, K5 and K6 are held bit
+for bit).
 """
 from __future__ import annotations
 
@@ -67,15 +67,17 @@ def reset_launch_counts() -> None:
 # kernel name -> (bf16 ulps, atol[, rel]) of its bf16 output against its
 # plain version: K1 is one rounding of the f32 sum (a contracted
 # multiply-add may round a sum that cancels near zero across a bf16 step,
-# hence the f32 atol); K6 rounds the same f32 value as its plain version
-# (bit for bit in f32) and is held to K1's rule in bf16; K3 against the
-# plain version in f32 from the same bf16 inputs differs by the output's
-# rounding and f32 summation order only (its weights stay f32).  K4 runs
-# its value product on the tensor cores, so it rounds each unnormalized
-# weight to bf16 (relative error at most u = 2^-8) before multiplying, as
-# the reference's chunked_mha rounds its weights to v's dtype at bf16; that
-# moves an output by at most u * sum_t w_t |v_t|, which ``rel`` admits on
-# top of the output's rounding (``scale`` = ``flash_attention_magnitude``).
+# hence the f32 atol); K6's kernel equals its plain version bit for bit
+# (one cast of the same f32 value), so its rule holds the plain version to
+# the reference's, which may contract, and rejects a wrong anchor; K3
+# against the plain version in f32 from the same bf16 inputs differs by the
+# output's rounding and f32 summation order only (its weights stay f32).
+# K4 runs its value product on the tensor cores, so it rounds each
+# unnormalized weight to bf16 (relative error at most u = 2^-8) before
+# multiplying, as the reference's chunked_mha rounds its weights to v's
+# dtype at bf16; that moves an output by at most u * sum_t w_t |v_t|, which
+# ``rel`` admits on top of the output's rounding (``scale`` =
+# ``flash_attention_magnitude``).
 BF16_TOL = {
     "kv_dequant_tokens": {"ulps": 1, "atol": 2e-5},
     "kv_dequant": {"ulps": 1, "atol": 2e-5},

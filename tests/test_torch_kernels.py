@@ -217,6 +217,25 @@ def test_vector_width_follows_channels_and_alignment(C, offset, itemsize, want):
     assert vector_width(C, aligned, view) == want
 
 
+@pytest.mark.parametrize("out_dtype,offset,want", [
+    (torch.float32, 0, 4), (torch.bfloat16, 0, 8),  # one 16-byte store a slot
+    (torch.float32, 1, 1), (torch.bfloat16, 1, 1),
+    (torch.float32, 2, 2), (torch.bfloat16, 2, 2),
+    (torch.float32, 4, 4), (torch.bfloat16, 4, 4),
+])
+def test_vector_width_of_lossless_tokens_mix(out_dtype, offset, want):
+    """K2 reads two uint16 inputs and writes f32 or bf16: the symbols'
+    offset narrows V, and an f32 output stores at most 4 channels (16
+    bytes) an access."""
+    B, G, gm1, C = 2, 3, 9, 320
+    d = _at_offset(torch.zeros(B, G, gm1, C, dtype=torch.uint16), offset)
+    a = _at_offset(torch.zeros(B, G, C, dtype=torch.uint16), offset)
+    out = torch.empty(B, G, gm1 + 1, C, dtype=out_dtype)
+    assert out.data_ptr() % 16 == 0
+    assert vector_width(C, d, a, out=out) == want
+    assert vector_width(C, d, a) == (8 if offset == 0 else want)
+
+
 def test_dequant_rule_catches_an_anchor_off_by_one_bin():
     d, a, bins = _dequant_inputs(5, 4, 154, 9, 320)
     want = ops.kv_dequant(_t(d), _t(a), _t(bins), qmax=127)
@@ -403,6 +422,11 @@ def test_flash_rule_admits_a_tensor_core_result_at_the_smollm_shape():
      "float const*, float const*, __nv_bfloat16*, long long, int, int, int, float)", "dequant_tokens_kernel"),
     ("dequant_tokens_kernel<__nv_bfloat16, 8>", "dequant_tokens_kernel"),
     ("decode_combine_kernel", "decode_combine_kernel"),
+    ("lossless_tokens_kernel<__nv_bfloat16, 8>", "lossless_tokens_kernel"),
+    ("void (anonymous namespace)::lossless_tokens_kernel<float, 1>(unsigned short const*, "
+     "unsigned short const*, float const*, float*, long long, int, int, int)", "lossless_tokens_kernel"),
+    ("void (anonymous namespace)::dequant_kernel<float, 8>(unsigned short const*, float const*, "
+     "float const*, float*, long long, int, int, int, float)", "dequant_kernel"),
 ])
 def test_profiler_keys_match_kernels_by_exact_name(key, name):
     """``quant_kernel`` is a substring of ``dequant_kernel``: device times are
@@ -461,14 +485,18 @@ def test_cuda_kvquant_matches_plain(cuda, case):
         else:
             assert ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["kv_dequant_tokens"]) <= 1
     r = _rng(1)
-    a_sym = _t(r.integers(1, 256, size=(B, G, C)).astype(np.uint16)).to(cuda)
-    d_sym = _t(r.integers(0, 509, size=(B, G, gm1, C)).astype(np.uint16)).to(cuda)
+    a_sym = _at_offset(_t(r.integers(1, 256, size=(B, G, C)).astype(np.uint16)).to(cuda), offset)
+    d_sym = _at_offset(_t(r.integers(0, 509, size=(B, G, gm1, C)).astype(np.uint16)).to(cuda), offset)
     s = _t(r.uniform(1e-3, 0.05, size=(B, G)).astype(np.float32)).to(cuda)
+    if offset:
+        assert vector_width(C, d_sym, a_sym) < 8
     for dt in (torch.float32, torch.bfloat16):
+        before = kv_lossless_tokens_cuda.launches
         got = kv_lossless_tokens_cuda(d_sym, a_sym, s, out_dtype=dt)
         want = kv_lossless_tokens_plain(d_sym, a_sym, s, out_dtype=dt)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+        assert kv_lossless_tokens_cuda.launches == before + 1
 
 
 # (B, G, g, C, offset), as CUDA_KV_CASES: g = 2 and 16 (g-1 = 1 and 15)
@@ -491,15 +519,17 @@ def test_cuda_quant_dequant_match_plain(cuda, case):
     torch.cuda.synchronize()
     assert torch.equal(got, kv_quant_plain(kv, bins, qmax=127))
     assert kv_quant_cuda.launches == before + 1
-    d, a, dbins = (_t(x).to(cuda) for x in _dequant_inputs(sum(case), B, G, g - 1, C))
-    for dt in (torch.float32, torch.bfloat16):
+    d, a, dbins = _dequant_inputs(sum(case), B, G, g - 1, C)
+    d, a, dbins = _at_offset(_t(d).to(cuda), offset), _at_offset(_t(a).to(cuda), offset), _t(dbins).to(cuda)
+    if offset:
+        assert vector_width(C, d, a) < 8
+    for dt in (torch.float32, torch.bfloat16):  # bf16: one cast of the same f32 value
+        before = kv_dequant_cuda.launches
         got = kv_dequant_cuda(d, a, dbins, qmax=127, out_dtype=dt)
         want = kv_dequant_plain(d, a, dbins, qmax=127, out_dtype=dt)
         torch.cuda.synchronize()
-        if dt == torch.float32:
-            assert torch.equal(got, want)
-        else:
-            assert ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["kv_dequant"]) <= 1
+        assert torch.equal(got, want)
+        assert kv_dequant_cuda.launches == before + 1
 
 
 def _decode_case(cuda, seed, B, Hq, Hkv, S, D, q_dtype, kv_dtype):
