@@ -37,16 +37,32 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            store_from_caches`` -> ``KVStore.store_kv``, K5); ``stream()``
            plans it under a bandwidth dip with an SLO (Algorithm 1, stated
            rates); the plan must hold two levels and a TEXT chunk; it is
-           materialized fused (K1/K2, TEXT through K4) and ``fused=False``
-           (K6), the two caches compared chunk by chunk, and each generates
-           32 tokens (K3).  The plan Algorithm 1 gives from the card's own
-           rates (serve phase) is printed beside it.
+           materialized fused (K1/K2; TEXT through plain attention) and
+           ``fused=False`` (K6), the two caches compared chunk by chunk, and
+           each generates 32 tokens (K3).  The plan Algorithm 1 gives from
+           the card's own rates (serve phase) is printed beside it.
+7. session CacheGen's live adaptive loop over phase 6's store and context:
+           ``ServeSession.run`` over the default ``SimTransport`` under the
+           same dip and stated rates must make the plan's decisions (at
+           full width ``[0, 1, TEXT, TEXT]``) with its TTFT, and hold a
+           cache equal to the fused ``materialize`` (level 0 and TEXT bit
+           for bit, lossy chunks within K1's rule; decode K1/K2); the same
+           session under a ``RetryPolicy`` and a seeded ``FaultPlan``
+           (``FaultyTransport`` over ``SimTransport``) whose draw truncates
+           chunk 0's first fetch must finish ``ok`` with retries, a salvaged
+           and resumed prefix, and a reconciled byte ledger;
+           ``generate_with_kv`` runs
+           from the clean session's cache (K3).  The session's wall times
+           and its realized decode rate (bitstream bytes over wall decode
+           seconds) are printed beside the stated rate.
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5, and zeroed again before phase 6 and read after it; the run fails if a
-kernel of either path was not launched in it.  The last line is
-``{"ok": true, "device": {...}}``; the line before it lists the kernels.
-Needs one CUDA card; exits 2 with no result when there is none.
+5, then zeroed before phase 6 and before phase 7 and read after each; the
+run fails if a kernel that a path runs was not launched in it (all six on
+the serve + text and store paths; K1, K2 and K3 on the session path).  The
+last line is ``{"ok": true, "device": {...}}``; the line before it lists
+the kernels.  Needs one CUDA card; exits 2 with no result when there is
+none.
 """
 import contextlib
 import itertools
@@ -92,12 +108,17 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.kv_layout import caches_to_codec_kv  # noqa: E402
+from repro_torch.serving.session import ServeSession  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     TEXT,
     BandwidthTrace,
     CacheGenStreamer,
+    FaultPlan,
+    FaultyTransport,
     KVStore,
     NetworkModel,
+    RetryPolicy,
+    SimTransport,
 )
 
 SEED = 0
@@ -119,6 +140,14 @@ SLO_S = 3.2
 DIP_S, DIP_GBPS, LINK_GBPS = 1.0, 1e-6, 100.0
 RECOMPUTE_S_PER_CHUNK = 0.9  # 3 chunks (2.7 s) miss the 2.2 s left, 2 (1.8 s) fit
 DECODE_BYTES_PER_S = 1e9
+# phase 7's faulted run: keyed draws of this plan truncate chunk 0's first
+# level-0 fetch after 67% of its bytes, and no (chunk, level) key of the
+# context more than twice in a row, so three attempts always land a chunk
+FAULT_PLAN = dict(seed=18, truncate_p=0.5)
+FAULT_RETRY = dict(max_attempts=3, backoff_s=0.01)
+# the kernels each path runs: every path needs each of its kernels launched
+ALL_KERNELS = tuple(ops.KERNELS)
+SESSION_KERNELS = ("kv_dequant_tokens", "kv_lossless_tokens", "decode_attention")
 
 
 class Phase:
@@ -352,6 +381,108 @@ def drive_store_path(cfg, dev, gen, served, phase=lambda name: contextlib.nullco
             note = f"; they part at step {k}, where the fused path's top-2 logit gap is {top[1] - top[0]:.4g}"
         print(f"token agreement fused vs fused=False {agree.mean():.2%} (informational{note})")
         print("store steps ms:", laps.ms)
+    return {"engine": engine, "streamer": streamer, "tokens": tokens, "plan": plan, "fused": fused,
+            "first": first, "fused_tokens": outs[0], "chunk": chunk}
+
+
+def drive_session_path(cfg, stored, phase=lambda name: contextlib.nullcontext(), gen_tokens=GEN_TOKENS):
+    """Phase 7: the live session over phase 6's store and context.
+
+    ``stored`` is what :func:`drive_store_path` returns.  A clean
+    ``ServeSession`` run must reproduce phase 6's plan, TTFT and fused cache;
+    a faulted run must recover through retries and a resumed prefix; the
+    clean run's cache generates.  The port's tests run it at a tiny size on
+    the CPU.
+    """
+    engine, streamer, tokens = stored["engine"], stored["streamer"], stored["tokens"]
+    plan, fused, chunk = stored["plan"], stored["fused"], stored["chunk"]
+    metas, n_ctx = plan.metas, plan.metas[-1].end
+    k1_tol = ops.BF16_TOL["kv_dequant_tokens"]
+    with phase("session"):
+        laps = Laps(engine.device)
+        network = lambda: NetworkModel(BandwidthTrace.steps(DIP_S, [DIP_GBPS, LINK_GBPS]))  # noqa: E731
+
+        def session(**kw):
+            return ServeSession(streamer, engine, slo_s=SLO_S, decode_bytes_per_s=DECODE_BYTES_PER_S,
+                                recompute_s=lambda n, p: RECOMPUTE_S_PER_CHUNK * n / chunk, **kw)
+
+        clean = session().run("ctx", tokens, network(), prior_throughput_gbps=LINK_GBPS)
+        laps.lap("clean run")
+        require(clean.status == "ok" and clean.caches.length.tolist() == [n_ctx],
+                f"clean session: status {clean.status}, length {clean.caches.length.tolist()}")
+        require(clean.configs == plan.result.configs,
+                f"clean session configs {clean.configs}, phase 6's plan {plan.result.configs}")
+        require(clean.ttft_s == plan.result.ttft_s, f"session TTFT {clean.ttft_s} != plan's {plan.result.ttft_s}")
+        equal = True
+        for m, cfg_i in zip(metas, clean.configs):
+            sl = slice(m.start, m.end)
+            a = torch.stack([clean.caches.kv_k[:, 0, sl], clean.caches.kv_v[:, 0, sl]])
+            b = torch.stack([fused.kv_k[:, 0, sl], fused.kv_v[:, 0, sl]])
+            same = torch.equal(a, b)
+            equal &= same
+            if cfg_i in (0, TEXT):  # the same calls on the same inputs as materialize's
+                require(same, f"chunk {m.chunk_idx} ({cfg_i}): the session's cache differs from materialize's")
+            else:
+                x = ops.bf16_ulp_excess(a, b, **k1_tol)
+                require(x <= 1, f"chunk {m.chunk_idx}: level-{cfg_i} session cache is {x:.3g} times K1's rule off")
+            print(f"session chunk {m.chunk_idx} ({'TEXT' if cfg_i == TEXT else f'level {cfg_i}'}): "
+                  f"{'equal to' if same else 'within K1 rule of'} materialize's cache")
+        laps.lap("checks")
+        bitstream = sum(t.nbytes for t in clean.timelines if t.config != TEXT)
+        print(f"session (clean): configs {clean.configs}, TTFT {clean.ttft_s:.4f} s (plan {plan.result.ttft_s:.4f} s, "
+              f"SLO {SLO_S} s), {clean.n_runs} decode run(s), bitstream bytes {bitstream:.0f}, "
+              f"wall decode {clean.wall_decode_s:.4f} s, recompute {clean.wall_recompute_s:.4f} s, "
+              f"total {clean.wall_total_s:.4f} s")
+        print(f"session realized decode rate {bitstream / clean.wall_decode_s:.4g} B/s (bitstream bytes / wall "
+              f"decode s) vs the stated {DECODE_BYTES_PER_S:.4g} B/s (informational)")
+
+        fault_plan = FaultPlan(**FAULT_PLAN)
+        first_fault = fault_plan.draw("ctx", 0, 0, 0)
+        require(first_fault is not None and first_fault.kind == "truncate",
+                f"the fault plan's first draw for chunk 0 is {first_fault}, not a truncation")
+        net = network()
+        ft = FaultyTransport(SimTransport(streamer.store, net), fault_plan)
+        faulted = session(retry_policy=RetryPolicy(**FAULT_RETRY)).run(
+            "ctx", tokens, net, prior_throughput_gbps=LINK_GBPS, transport=ft)
+        laps.lap("faulted run")
+        require(faulted.status == "ok" and faulted.caches.length.tolist() == [n_ctx],
+                f"faulted session: status {faulted.status} ({faulted.failure}), "
+                f"length {faulted.caches.length.tolist()}")
+        require(faulted.n_retries > 0 and faulted.salvaged_bytes > 0 and faulted.n_resumes > 0,
+                f"faulted session: {faulted.n_retries} retries, {faulted.salvaged_bytes} salvaged bytes, "
+                f"{faulted.n_resumes} resumes")
+        for t in faulted.timelines:
+            if t.wire_bytes > 0:
+                require(abs(t.salvaged_bytes + t.refetched_bytes - t.wire_bytes) < 1e-6,
+                        f"chunk {t.chunk_idx}: salvaged {t.salvaged_bytes} + refetched {t.refetched_bytes} "
+                        f"!= wire {t.wire_bytes}")
+        require(abs(faulted.salvaged_bytes + faulted.refetched_bytes - faulted.wire_bytes) < 1e-6,
+                "faulted session: the byte ledger does not reconcile")
+        # a resumed blob is the stored blob, so chunks decided alike decode alike
+        for m, c0, c1 in zip(metas, clean.configs, faulted.configs):
+            if c0 != c1:
+                break
+            sl = slice(m.start, m.end)
+            require(torch.equal(faulted.caches.kv_k[:, 0, sl], clean.caches.kv_k[:, 0, sl])
+                    and torch.equal(faulted.caches.kv_v[:, 0, sl], clean.caches.kv_v[:, 0, sl]),
+                    f"chunk {m.chunk_idx}: the faulted session's cache differs from the clean one's")
+        print(f"session (faulted, {FAULT_PLAN}): configs {faulted.configs}, TTFT {faulted.ttft_s:.4f} s, "
+              f"injected {ft.n_injected}, retries {faulted.n_retries}, failed attempts "
+              f"{faulted.n_failed_attempts} {faulted.fault_counts}, resumes {faulted.n_resumes}, salvaged "
+              f"{faulted.salvaged_bytes:.0f} + refetched {faulted.refetched_bytes:.0f} = wire "
+              f"{faulted.wire_bytes:.0f} bytes, wall total {faulted.wall_total_s:.4f} s")
+        laps.lap("faulted checks")
+
+        out = engine.generate_with_kv(clean.caches, stored["first"], gen_tokens)
+        laps.lap(f"generate_with_kv {gen_tokens} tokens")
+        require(out.shape == (1, gen_tokens), f"generated {out.shape}")
+        require(((out >= 0) & (out < cfg.padded_vocab_size)).all(), "token ids out of range")
+        agree = (out == stored["fused_tokens"]).mean()
+        if equal:  # the same cache and first token: K3 must give the same tokens
+            require(agree == 1.0, f"tokens from the session's cache agree {agree:.2%} with materialize's")
+        print(f"session tokens agree {agree:.2%} with those of phase 6's fused cache")
+        print("session steps ms:", laps.ms)
+    return {"clean": clean, "faulted": faulted, "tokens": out}
 
 
 def main() -> int:
@@ -728,14 +859,21 @@ def main() -> int:
 
     # --------------------------------------------------------------- 6 store
     ops.reset_launch_counts()
-    drive_store_path(cfg, dev, gen, served, phase=lambda name: Phase(name, phase_ms))
+    stored = drive_store_path(cfg, dev, gen, served, phase=lambda name: Phase(name, phase_ms))
     paths["store"] = ops.launch_counts()
 
-    # ------------------------------------------------------------ 7 summary
+    # ------------------------------------------------------------- 7 session
+    ops.reset_launch_counts()
+    drive_session_path(cfg, stored, phase=lambda name: Phase(name, phase_ms))
+    paths["session"] = ops.launch_counts()
+
+    # --------------------------------------------------------------- summary
+    runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS}
+    require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")
     for path, counts in paths.items():
         print(f"launches on the {path} path:", counts)
-        for name, n in counts.items():
-            require(n > 0, f"kernel {name} was not launched on the {path} path")
+        for name in runs[path]:
+            require(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
     counts = {name: sum(c[name] for c in paths.values()) for name in ops.KERNELS}
     print("phase ms:", {k: round(v, 1) for k, v in phase_ms.items()})
     meta = {

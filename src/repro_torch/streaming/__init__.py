@@ -12,6 +12,13 @@ from repro_torch.streaming.calibration import (  # noqa: F401
     measured_decode_bytes_per_s,
     measured_level_priorities,
 )
+from repro_torch.streaming.faults import (  # noqa: F401
+    Fault,
+    FaultPlan,
+    FaultyBackend,
+    FaultyTransport,
+    with_faulty_backend,
+)
 from repro_torch.streaming.network import (  # noqa: F401
     BandwidthTrace,
     FetchOutcome,
@@ -51,6 +58,7 @@ from repro_torch.streaming.transport import (  # noqa: F401
     LocalTransport,
     RetryPolicy,
     Salvage,
+    SimTransport,
     Transport,
     as_completed,
     classify_failure,

@@ -295,6 +295,13 @@ class KVStore:
             ) from e
         return blob
 
+    def delete_kv(self, context_id: str, chunk_idx: int, level: int) -> bool:
+        """Remove one (chunk, level) blob; True if it existed.  Metadata is
+        left intact — a reader then sees the descriptive ``KeyError`` of a
+        missing entry, which is exactly the fault the retry machinery
+        classifies as permanent-at-level."""
+        return self.backend.delete(context_id, chunk_idx, level)
+
     def get_run(
         self, context_id: str, chunk_levels: List[Tuple[int, int]]
     ) -> List[bytes]:

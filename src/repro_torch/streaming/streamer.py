@@ -15,9 +15,10 @@ consecutive bitstream chunks form a run, each run is decoded in one batched
 ``codec.decode_chunks`` call (stacked rANS scans + the fused kernels K1/K2,
 mixed levels welcome) and written into the serving cache in place with one
 ``Engine.decode_to_cache`` per run; TEXT chunks are recomputed with
-``Engine.prefill_extend`` (prefill attention, K4).  ``fused=False`` keeps
-the per-chunk path as the correctness oracle: ``KVStore.decode`` →
-``codec.decode_chunk`` (K6) → :func:`_insert_codec_kv`.
+``Engine.prefill_extend`` (plain attention over the cache,
+``lm._extend_mha``; no kernel).  ``fused=False`` keeps the per-chunk path
+as the correctness oracle: ``KVStore.decode`` → ``codec.decode_chunk`` (K6)
+→ :func:`_insert_codec_kv`.
 
 Run grouping lives in :class:`RunSegmenter`, an incremental double-buffered
 segmenter; the offline ``materialize`` drives it through

@@ -9,11 +9,29 @@ The fetch layer split:
     in-flight fetch whose :meth:`~FetchHandle.result` carries the realized
     bytes *and* timing (:class:`FetchResult`); :func:`as_completed` yields
     handles in completion order;
-  * ``NetworkModel`` (streaming/network.py) — the virtual-clock link model
-    of the offline simulator.
+  * ``NetworkModel`` (streaming/network.py) — the virtual-clock link model,
+    used by the offline simulator and by :class:`SimTransport`'s pacing.
 
-:class:`LocalTransport` reads the store directly, with no link; its timing
-is host wall time.  It is the offline ``materialize`` default.
+Two transports:
+
+  * :class:`LocalTransport` — direct storage read, no link.  Timing is
+    host wall time; the offline ``materialize`` default.
+  * :class:`SimTransport` — *real* asynchronous reads (one worker thread
+    per attempt, bytes read from the backing store and paced in cancellable
+    slices against the ``BandwidthTrace``), with completion timing taken
+    from ``NetworkModel.fetch_outcome`` — the identical arithmetic the
+    virtual-clock simulator runs.  A SimTransport-backed session therefore
+    makes exactly the simulator's per-chunk decisions while its fetches,
+    hedges and cancellations are genuinely concurrent I/O.
+
+Hedging is transport-level I/O, not clock arithmetic: pass
+``hedge_after_s`` to :meth:`Transport.fetch_run` and :class:`SimTransport`
+issues a duplicate attempt after that delay, uses the winner's bytes,
+*cancels* the loser (its paced read stops), and reports the loser's
+transferred bytes as ``duplicate_bytes``.
+
+Worker threads only read, slice and checksum ``bytes``; no CUDA tensor
+crosses a thread — decodes and cache writes stay on the caller's thread.
 
 Failure model.  A fetch can fail five ways, and each maps to one
 :func:`classify_failure` kind a retry loop acts on:
@@ -30,7 +48,11 @@ Failure model.  A fetch can fail five ways, and each maps to one
   * ``"fatal"`` (anything else) — a programming error; never masked.
 
 Retryable kinds are retried up to :class:`RetryPolicy` bounds with
-exponential backoff.
+exponential backoff; detection latency + backoff are charged to the
+session's ``StreamClock`` so Algorithm-1 re-planning sees the lost time.
+Once the per-level budget is exhausted the chunk is re-decided with that
+level (and everything finer) excluded — coarser levels, ultimately TEXT
+recompute.
 
 Byte-range resume.  ``fetch_run(..., byte_range=(offset, length_or_None),
 resumable=True)`` fetches a slice of a single chunk's blob and/or asks for
@@ -49,6 +71,7 @@ import time
 from typing import List, Optional, Protocol, Sequence, Tuple, runtime_checkable
 
 from repro_torch.core.bitstream import IntegrityError, SegmentIndex, segment_index
+from repro_torch.streaming.network import NetworkModel
 from repro_torch.streaming.storage import KVStore
 
 __all__ = [
@@ -58,6 +81,7 @@ __all__ = [
     "LocalTransport",
     "RetryPolicy",
     "Salvage",
+    "SimTransport",
     "Transport",
     "as_completed",
     "classify_failure",
@@ -345,6 +369,18 @@ def _clamp_range(
     return off, min(off + int(ln), blob_len)
 
 
+def _probe_cold(store, context_id: str, chunk_levels: ChunkLevels) -> int:
+    """How many of a run's entries would be served cold right now (0 for a
+    flat store — only a tiered store exposes ``tier_penalty``)."""
+    penalty = getattr(store, "tier_penalty", None)
+    if not callable(penalty):
+        return 0
+    try:
+        return penalty(context_id, chunk_levels)[1]
+    except Exception:
+        return 0
+
+
 # ---------------------------------------------------------------------------
 # LocalTransport: direct store read
 # ---------------------------------------------------------------------------
@@ -381,6 +417,9 @@ class LocalTransport:
         handle = FetchHandle(context_id, chunk_levels)
 
         def work():
+            # tier probe before the reads promote everything hot; wall
+            # timing below then includes the cold tier's actual read cost
+            cold_entries = _probe_cold(self.store, context_id, chunk_levels)
             t0 = time.perf_counter()
             try:
                 blobs = [
@@ -410,12 +449,304 @@ class LocalTransport:
                 throughput_gbps=nbytes * 8.0 / max(wall, 1e-9) / 1e9,
                 wall_s=wall,
                 completion_order=tuple(ci for ci, _ in chunk_levels),
+                cold_entries=cold_entries,
                 seg_index=seg_idx,
                 range_offset=range_offset,
                 range_total=range_total,
             ))
 
         threading.Thread(target=work, daemon=True).start()
+        return handle
+
+    def close(self) -> None:
+        pass
+
+
+# ---------------------------------------------------------------------------
+# SimTransport: paced async reads against a BandwidthTrace
+# ---------------------------------------------------------------------------
+
+
+class _Attempt:
+    """One attempt's paced read: real bytes off the store, real slices,
+    really cancellable.  ``time_scale`` maps virtual seconds to host sleep
+    (0 = read at host speed, timing stays purely virtual)."""
+
+    def __init__(self, nbytes: int, duration_s: float, time_scale: float):
+        self.nbytes = nbytes
+        self.duration_s = max(float(duration_s), 0.0)
+        self.time_scale = time_scale
+        self.bytes_read = 0
+        self.error: Optional[BaseException] = None
+        self.cancelled = threading.Event()
+        self.finished = threading.Event()
+
+    def run(self, read_blobs) -> None:
+        try:
+            blobs = read_blobs()
+        except BaseException as e:
+            self.error = e
+            self.finished.set()
+            return
+        # pace the payload in cancellable slices proportional to the
+        # attempt's share of its (virtual) transfer window
+        n_slices = 16 if self.time_scale > 0 else 1
+        sleep_per = self.duration_s * self.time_scale / n_slices
+        total = sum(len(b) for b in blobs)
+        for s in range(n_slices):
+            if self.cancelled.is_set():
+                self.finished.set()
+                return
+            if sleep_per > 0:
+                time.sleep(sleep_per)
+            self.bytes_read = min(total, (total * (s + 1)) // n_slices)
+        self.bytes_read = total
+        self.blobs = blobs
+        self.finished.set()
+
+
+class _SimHandle(FetchHandle):
+    def __init__(self, attempts: List[_Attempt], context_id=None, chunk_levels=None):
+        super().__init__(context_id, chunk_levels)
+        self._attempts = attempts
+        self._salvage_fn = None  # set by the transport when salvageable
+
+    def salvage_at(self, at_t: Optional[float] = None) -> Optional[Salvage]:
+        if self._salvage_fn is None:
+            return None
+        return self._salvage_fn(at_t)
+
+    def _abort(self) -> None:
+        for a in self._attempts:
+            a.cancelled.set()
+
+
+class SimTransport:
+    """Trace-paced asynchronous reads over a :class:`KVStore`.
+
+    Completion timing comes from ``NetworkModel.fetch_outcome`` — the exact
+    arithmetic the virtual-clock simulator uses, straggler draws keyed per
+    (chunk_idx, attempt) — so sessions fetching through this transport make
+    the simulator's decisions on the same trace, while the bytes genuinely
+    move on worker threads: the primary attempt reads and paces, a hedge
+    attempt (when ``hedge_after_s`` fires) races it, and the virtual loser's
+    read is cancelled mid-pace.  ``time_scale`` scales virtual seconds into
+    real host sleep (default 0: no sleeping, timing stays virtual).
+    """
+
+    def __init__(
+        self,
+        store: KVStore,
+        network: NetworkModel,
+        *,
+        time_scale: float = 0.0,
+    ):
+        self.store = store
+        self.network = network
+        self.time_scale = float(time_scale)
+        # paced reads take real wall time; unpaced handles resolve ~instantly
+        self.realtime = self.time_scale > 0
+
+    supports_range = True
+
+    def fetch_run(
+        self,
+        context_id: str,
+        chunk_levels: ChunkLevels,
+        *,
+        start_t: float = 0.0,
+        hedge_after_s: Optional[float] = None,
+        byte_range: Optional[Tuple[int, Optional[int]]] = None,
+        resumable: bool = False,
+    ) -> FetchHandle:
+        chunk_levels = list(chunk_levels)
+        if byte_range is not None and len(chunk_levels) != 1:
+            raise ValueError("byte-range fetch is single-chunk only")
+        if byte_range is not None:
+            hedge_after_s = None  # a resumed suffix is never hedged
+        salvageable = resumable and len(chunk_levels) == 1
+        read_full = lambda: [  # noqa: E731
+            self.store.get_kv(context_id, ci, lvl) for ci, lvl in chunk_levels
+        ]
+        # one cell per concern, filled when the worker's read realizes the
+        # blob: the segment index (metadata, unpriced) and the range span
+        idx_cell: List[Optional[SegmentIndex]] = [None]
+        span_cell: List[Tuple[int, int]] = [(0, 0)]  # (range_offset, total)
+
+        def read():
+            blobs = read_full()
+            if len(blobs) == 1 and (resumable or byte_range is not None):
+                full = blobs[0]
+                if resumable:
+                    idx_cell[0] = segment_index(full)
+                if byte_range is not None:
+                    off, end = _clamp_range(byte_range, len(full))
+                    span_cell[0] = (off, len(full))
+                    blobs = [full[off:end]]
+            return blobs
+
+        # sizes are needed up front to price the transfer; metadata is the
+        # frontend's job, the blob bytes still travel through the attempts
+        try:
+            try:
+                metas = self.store.meta(context_id)
+                full_nbytes = sum(
+                    metas[ci].sizes[lvl] for ci, lvl in chunk_levels
+                )
+            except (KeyError, IndexError):
+                full_nbytes = sum(len(b) for b in read_full())
+        except KeyError as e:
+            # 404 after one round trip on the virtual clock
+            e.fail_t = start_t + float(getattr(self.network, "rtt_s", 0.0))
+            failed = FetchHandle(context_id, chunk_levels)
+            failed._finish(None, e)
+            return failed
+        if byte_range is not None:
+            # the link only carries the requested slice
+            off, end = _clamp_range(byte_range, int(full_nbytes))
+            nbytes = end - off
+        else:
+            nbytes = full_nbytes
+        key_chunk = chunk_levels[0][0] if chunk_levels else 0
+
+        # a tiered store's entries that are not hot pay its cold tier's
+        # modeled read surcharge, folded into the fetch's virtual timing
+        # *before* the reads below promote them; a flat store has no
+        # tier_penalty and pays nothing
+        tier_penalty = getattr(self.store, "tier_penalty", None)
+        tier_extra_s, cold_entries = (
+            tier_penalty(context_id, chunk_levels)
+            if callable(tier_penalty)
+            else (0.0, 0)
+        )
+
+        # virtual truth, computed once at issue: who wins, and when
+        outcome = self.network.fetch_outcome(
+            float(nbytes), start_t, chunk_idx=key_chunk,
+            hedge_after_s=hedge_after_s,
+        )
+        if tier_extra_s > 0:
+            end_t = outcome.end_t + tier_extra_s
+            dur = max(end_t - start_t, 1e-9)
+            outcome = dataclasses.replace(
+                outcome,
+                end_t=end_t,
+                throughput_gbps=float(nbytes) * 8.0 / dur / 1e9,
+            )
+        primary_dur = self.network.fetch_time(
+            float(nbytes), start_t, chunk_idx=key_chunk, attempt=0
+        ) + tier_extra_s
+        hedge_issued = outcome.hedge_issued
+        attempts = [_Attempt(nbytes, primary_dur, self.time_scale)]
+        if hedge_issued:
+            hedge_dur = self.network.fetch_time(
+                float(nbytes), start_t + (hedge_after_s or 0.0),
+                chunk_idx=key_chunk, attempt=1, straggle=False,
+            )
+            attempts.append(_Attempt(nbytes, hedge_dur, self.time_scale))
+        handle = _SimHandle(attempts, context_id, chunk_levels)
+        winner_i = 1 if outcome.hedged else 0
+
+        if salvageable or byte_range is not None:
+            # bytes start flowing one RTT (plus any up-front stall and cold
+            # surcharge) after issue; what has crossed the link by virtual
+            # time t is the trace's byte integral over [flow_start, t) —
+            # the same arithmetic fetch_outcome charges for a hedge loser
+            flow_start = (
+                start_t
+                + float(getattr(self.network, "rtt_s", 0.0))
+                + self.network.straggler_delay(key_chunk, attempt=0)
+                + tier_extra_s
+            )
+
+            def salvage_fn(at_t: Optional[float]) -> Optional[Salvage]:
+                a = attempts[0]
+                if not a.finished.is_set():
+                    a.finished.wait(timeout=5.0)
+                if a.error is not None or not hasattr(a, "blobs"):
+                    return None  # the read itself failed: nothing realized
+                payload = b"".join(a.blobs)
+                if at_t is None:
+                    realized = len(payload)
+                else:
+                    realized = 0 if at_t <= flow_start else min(
+                        len(payload),
+                        int(self.network.trace.bytes_in_window(
+                            at_t - flow_start, flow_start
+                        )),
+                    )
+                if realized <= 0:
+                    return None
+                off, total = span_cell[0]
+                return Salvage(
+                    data=payload[:realized],
+                    offset=off,
+                    total=total or (len(payload) if byte_range is None else 0),
+                    index=idx_cell[0],
+                    nbytes_wire=float(realized),
+                )
+
+            handle._salvage_fn = salvage_fn
+
+        def coordinate():
+            threads = []
+            for i, a in enumerate(attempts):
+                th = threading.Thread(target=a.run, args=(read,), daemon=True)
+                threads.append(th)
+                if i == 0:
+                    th.start()
+            if hedge_issued:
+                # the duplicate is issued hedge_after_s after the primary
+                # (scaled into host time when pacing is on)
+                if self.time_scale > 0 and hedge_after_s:
+                    attempts[0].finished.wait(hedge_after_s * self.time_scale)
+                threads[1].start()
+            winner = attempts[winner_i]
+            winner.finished.wait()
+            # cancel the loser(s) at the winner's completion instant
+            for i, a in enumerate(attempts):
+                if i != winner_i:
+                    a.cancelled.set()
+            if winner.error is not None:
+                # bytes travelled (or the read failed) on the virtual window;
+                # the failure is detected at the transfer's modeled end
+                if getattr(winner.error, "fail_t", None) is None:
+                    try:
+                        winner.error.fail_t = outcome.end_t
+                    except AttributeError:
+                        pass  # exception type with __slots__
+                handle._finish(None, winner.error)
+                return
+            if winner.cancelled.is_set() or not hasattr(winner, "blobs"):
+                handle._finish(None, FetchError(
+                    "fetch was cancelled",
+                    context_id=context_id,
+                    chunk_levels=chunk_levels,
+                    fail_t=outcome.end_t,
+                ))
+                return
+            loser = attempts[1 - winner_i] if hedge_issued else None
+            handle._finish(FetchResult(
+                blobs=winner.blobs,
+                nbytes=nbytes,
+                start_t=start_t,
+                end_t=outcome.end_t,
+                throughput_gbps=outcome.throughput_gbps,
+                hedged=outcome.hedged,
+                hedge_issued=hedge_issued,
+                duplicate_bytes=outcome.duplicate_bytes,
+                wall_s=0.0,
+                winner="hedge" if outcome.hedged else "primary",
+                loser_cancelled=loser.cancelled.is_set() if loser else False,
+                loser_bytes_read=loser.bytes_read if loser else 0,
+                completion_order=tuple(ci for ci, _ in chunk_levels),
+                cold_entries=cold_entries,
+                seg_index=idx_cell[0],
+                range_offset=span_cell[0][0],
+                range_total=span_cell[0][1],
+            ))
+
+        threading.Thread(target=coordinate, daemon=True).start()
         return handle
 
     def close(self) -> None:

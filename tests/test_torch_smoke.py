@@ -1,6 +1,7 @@
 """``chip_smoke.py`` off the card: it refuses to run without one, and its
-main path (phases 4-5) and store path (phase 6) run at a tiny size on the
-CPU through the kernels' plain versions (no launch counted)."""
+main path (phases 4-5), store path (phase 6) and session path (phase 7) run
+at a tiny size on the CPU through the kernels' plain versions (no launch
+counted)."""
 import contextlib
 import importlib.util
 import io
@@ -48,15 +49,39 @@ def test_chip_smoke_main_path_runs_on_cpu_at_tiny_size(rehearsal):
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
 
 
-def test_chip_smoke_store_path_runs_on_cpu_at_tiny_size(rehearsal):
-    """Phase 6 at four 20-token chunks: the stated scenario's plan holds two
-    levels and a TEXT chunk whatever the chunks' sizes (the script fails
-    otherwise), and both materialize modes agree."""
+@pytest.fixture(scope="module")
+def stored(rehearsal):
     smoke, cfg, gen, served, _ = rehearsal
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        smoke.drive_store_path(cfg, torch.device("cpu"), gen, served, chunk=20, gen_tokens=8)
-    out = out.getvalue()
+        state = smoke.drive_store_path(cfg, torch.device("cpu"), gen, served, chunk=20, gen_tokens=8)
+    return state, out.getvalue()
+
+
+def test_chip_smoke_store_path_runs_on_cpu_at_tiny_size(rehearsal, stored):
+    """Phase 6 at four 20-token chunks: the stated scenario's plan holds two
+    levels and a TEXT chunk whatever the chunks' sizes (the script fails
+    otherwise), and both materialize modes agree."""
+    smoke = rehearsal[0]
+    out = stored[1]
     assert "plan from the stated rates: configs [0, " in out and "-1, -1]" in out
     assert "plan from this device's own rates" in out and "store steps ms" in out
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_session_path_runs_on_cpu_at_tiny_size(rehearsal, stored):
+    """Phase 7 on phase 6's tiny store: the clean session reproduces the
+    plan and its cache, the faulted one recovers through a resumed prefix
+    (the script fails otherwise), and the clean cache generates."""
+    smoke, cfg = rehearsal[:2]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = smoke.drive_session_path(cfg, stored[0], gen_tokens=8)
+    out = out.getvalue()
+    assert "session (clean): configs [0, " in out and "-1, -1], TTFT" in out and "session realized decode rate" in out
+    assert "session (faulted" in out and "session steps ms" in out
+    faulted = got["faulted"]
+    assert faulted.status == "ok" and faulted.n_retries > 0 and faulted.salvaged_bytes > 0
+    assert abs(faulted.salvaged_bytes + faulted.refetched_bytes - faulted.wire_bytes) < 1e-6
+    assert got["tokens"].shape == (1, 8)
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
