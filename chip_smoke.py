@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's load-then-generate path once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -55,14 +55,36 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            from the clean session's cache (K3).  The session's wall times
            and its realized decode rate (bitstream bytes over wall decode
            seconds) are printed beside the stated rate.
+8. serving multi-request serving over phase 6's engine, store and context:
+           a ``ConcurrentScheduler`` wave of four requests under an idealized
+           ``ContentionModel`` must make phase 7's decisions and TTFT each,
+           with caches equal to phase 7's (level 0 and lossy chunks bit for
+           bit — one stacked ``decode_chunk_runs``, K1/K2 — and TEXT chunks,
+           from one batch-4 ``prefill_extend_rows``, within
+           ``TEXT_BATCH_REL`` relative); ``ContinuousScheduler`` over the same
+           requests at t = 0 must equal the wave bit for bit; an open loop of
+           four staggered arrivals on two rows must recycle rows and generate
+           32 tokens a request in stacked ``decode_step_rows`` steps (K3),
+           some of width 2, each token the argmax of a batch-1 oracle fed
+           the same tokens from the request's result cache, or within
+           ``GEN_BATCH_REL`` of it; on a copy of the wave's pool
+           ``save_row`` -> ``reset_rows`` -> ``restore_row`` must be
+           bit-exact and ``decode_step_rows`` must leave ragged inactive
+           rows (one at capacity) bit for bit; K3 is held to its plain
+           version on a 4-row and a 2-row pool at the lengths those steps
+           give it (a full row's ``kv_len`` past the capacity; launches not
+           counted); an N = 1 generation must equal ``generate_with_kv``'s
+           tokens.  It prints the stacked decode rate beside phase 7's and
+           the wall ms of a stacked step (with its logits read) at widths 1
+           and 2 on a 2-row pool.
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5, then zeroed before phase 6 and before phase 7 and read after each; the
-run fails if a kernel that a path runs was not launched in it (all six on
-the serve + text and store paths; K1, K2 and K3 on the session path).  The
-last line is ``{"ok": true, "device": {...}}``; the line before it lists
-the kernels.  Needs one CUDA card; exits 2 with no result when there is
-none.
+5, then zeroed before each of phases 6, 7 and 8 and read after it; the run
+fails if a kernel that a path runs was not launched in it (all six on the
+serve + text and store paths; K1, K2 and K3 on the session and serving
+paths).  The last line is ``{"ok": true, "device": {...}}``; the line
+before it lists the kernels, with launches summed over the paths.  Needs
+one CUDA card; exits 2 with no result when there is none.
 """
 import contextlib
 import itertools
@@ -106,13 +128,17 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     vector_width,
 )
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.lm import Caches  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
+from repro_torch.serving.generation import GenerationSpec  # noqa: E402
 from repro_torch.serving.kv_layout import caches_to_codec_kv  # noqa: E402
+from repro_torch.serving.scheduler import ConcurrentScheduler, ContinuousScheduler, SessionRequest  # noqa: E402
 from repro_torch.serving.session import ServeSession  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     TEXT,
     BandwidthTrace,
     CacheGenStreamer,
+    ContentionModel,
     FaultPlan,
     FaultyTransport,
     KVStore,
@@ -145,9 +171,30 @@ DECODE_BYTES_PER_S = 1e9
 # context more than twice in a row, so three attempts always land a chunk
 FAULT_PLAN = dict(seed=18, truncate_p=0.5)
 FAULT_RETRY = dict(max_attempts=3, backoff_s=0.01)
+# phase 8: an idealized engine (stacking costs nothing), so every request of
+# a wave decides exactly as phase 7's lone session; the open loop's virtual
+# arrivals (two at once, two while their rows are busy)
+IDEAL_CONTENTION = {1: 1.0, 8: 1.0}
+ARRIVALS = (0.0, 0.01, 0.5, 0.6)
+# phase 8's TEXT chunks come from a batch-4 prefill_extend_rows, phase 7's
+# from a batch-1 prefill_extend: a product may sum in another order at
+# another batch, which moves a result by one bf16 rounding (2^-9 relative)
+# per layer; over 32 layers that drifts ~sqrt(32) x 2^-9 ~ 2^-6.5 when the
+# roundings fall at random and 32 x 2^-9 = 2^-4 if all added up.  A chunk of
+# the wrong tokens, row or offset is off by ~1.  The rule sits between.
+TEXT_BATCH_REL = 2.0 ** -5
+# the open loop's tokens come from width-1 and width-2 steps, the oracle's
+# from batch-1 ones: the same drift moves each logit by about the rule
+# times its spread, so a near tie may flip.  The oracle's logit of each
+# picked token must lie within this share of its largest |logit| below its
+# best; a token picked from another row's state lands at a random rank of
+# the vocabulary, a few spreads below the best.
+GEN_BATCH_REL = TEXT_BATCH_REL
+STEP_SAMPLES = 8
 # the kernels each path runs: every path needs each of its kernels launched
 ALL_KERNELS = tuple(ops.KERNELS)
 SESSION_KERNELS = ("kv_dequant_tokens", "kv_lossless_tokens", "decode_attention")
+SERVING_KERNELS = SESSION_KERNELS
 
 
 class Phase:
@@ -186,6 +233,18 @@ class Laps:
         now = time.perf_counter()
         self.ms[name] = round(1e3 * (now - self.t), 1)
         self.t = now
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block compare a kernel with its plain version:
+    they leave the paths' launch counts as they were."""
+    held = ops.launch_counts()
+    try:
+        yield
+    finally:
+        for name, fn in ops.KERNELS.items():
+            fn.launches = held[name]
 
 
 def require(cond, msg):
@@ -483,6 +542,225 @@ def drive_session_path(cfg, stored, phase=lambda name: contextlib.nullcontext(),
         print(f"session tokens agree {agree:.2%} with those of phase 6's fused cache")
         print("session steps ms:", laps.ms)
     return {"clean": clean, "faulted": faulted, "tokens": out}
+
+
+def drive_serving_path(cfg, stored, sessioned, phase=lambda name: contextlib.nullcontext(), n_requests=4, rows=2,
+                       gen_tokens=GEN_TOKENS):
+    """Phase 8: multi-request serving on phase 6's engine, store and context.
+
+    ``sessioned`` is what :func:`drive_session_path` returns.  A wave of
+    ``n_requests`` loads (``ConcurrentScheduler``) must decide and cache as
+    phase 7's clean session; the continuous loop over the same requests at
+    t = 0 must equal the wave; an open loop on ``rows`` rows must recycle
+    them and generate ``gen_tokens`` tokens per request in stacked steps
+    that a batch-1 oracle confirms; the row primitives must round-trip bit
+    for bit on a copy of the wave's pool, and K3 must match its plain
+    version at the pools' shapes.  The results it returns are left as the
+    schedulers made them.  The port's tests run it at a tiny size on the
+    CPU.
+    """
+    engine, streamer, tokens = stored["engine"], stored["streamer"], stored["tokens"]
+    plan, chunk = stored["plan"], stored["chunk"]
+    metas, n_ctx, cap = plan.metas, plan.metas[-1].end, engine.capacity
+    clean = sessioned["clean"]
+    first = int(stored["first"][0])
+    k1_tol = ops.BF16_TOL["kv_dequant_tokens"]
+    dev = engine.device
+
+    def request(start_t=0.0, generation=None):
+        session = ServeSession(streamer, engine, slo_s=SLO_S, decode_bytes_per_s=DECODE_BYTES_PER_S,
+                               recompute_s=lambda n, p: RECOMPUTE_S_PER_CHUNK * n / chunk)
+        return SessionRequest(session, "ctx", tokens, NetworkModel(BandwidthTrace.steps(DIP_S, [DIP_GBPS, LINK_GBPS])),
+                              prior_throughput_gbps=LINK_GBPS, start_t=start_t, generation=generation)
+
+    def chunk_kv(caches, m):
+        sl = slice(m.start, m.end)
+        return torch.stack([caches.kv_k[:, 0, sl], caches.kv_v[:, 0, sl]])
+
+    def bitstream_bytes(results):
+        return sum(t.nbytes for r in results for t in r.timelines if t.config != TEXT)
+
+    with phase("serving"):
+        laps = Laps(dev)
+        # ---- 1. the wave: every request decides and caches as phase 7's session
+        wave = ConcurrentScheduler(engine, contention=ContentionModel(IDEAL_CONTENTION)).run(
+            [request() for _ in range(n_requests)])
+        laps.lap(f"wave of {n_requests}")
+        worst_text = 0.0
+        for i, s in enumerate(wave.sessions):
+            require(s.status == "ok" and s.caches.length.tolist() == [n_ctx],
+                    f"wave request {i}: status {s.status}, length {s.caches.length.tolist()}")
+            require(s.configs == clean.configs and s.ttft_s == plan.result.ttft_s,
+                    f"wave request {i}: configs {s.configs}, TTFT {s.ttft_s}; phase 7's {clean.configs}, "
+                    f"the plan's TTFT {plan.result.ttft_s}")
+            for m, c in zip(metas, s.configs):
+                a, b = chunk_kv(s.caches, m), chunk_kv(clean.caches, m)
+                if c == TEXT:
+                    rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+                    require(rel <= TEXT_BATCH_REL, f"wave request {i} chunk {m.chunk_idx}: the batch-{n_requests} TEXT "
+                            f"recompute is {rel:.3g} off the batch-1 one (relative), over {TEXT_BATCH_REL:.3g}")
+                    worst_text = max(worst_text, rel)
+                elif not torch.equal(a, b):
+                    # reconstruction is per element, so stacking lanes should change no bit
+                    x = ops.bf16_ulp_excess(a, b, **k1_tol)
+                    require(c != 0 and x <= 1, f"wave request {i} chunk {m.chunk_idx} (level {c}) differs from "
+                            f"phase 7's cache ({x:.3g} of K1's rule)")
+                    print(f"wave request {i} chunk {m.chunk_idx} (level {c}): within K1's rule of phase 7's, not equal")
+        wire = bitstream_bytes(wave.sessions)
+        print(f"serving wave: {n_requests} requests, configs {wave.sessions[0].configs} each, TTFT "
+              f"{wave.sessions[0].ttft_s:.4f} s each; rounds {wave.n_rounds}, decode batches {wave.n_decode_batches}, "
+              f"runs {wave.n_runs}, text batches {wave.n_text_batches}; wall decode {wave.wall_decode_s:.4f} s, "
+              f"recompute {wave.wall_recompute_s:.4f} s, total {wave.wall_total_s:.4f} s; level-0 and lossy chunks "
+              f"equal phase 7's, TEXT chunks within {worst_text:.3g} relative of them")
+        single = bitstream_bytes([clean])
+        print(f"stacked decode rate {wire / wave.wall_decode_s:.4g} B/s ({wire:.0f} bitstream bytes of "
+              f"{n_requests} requests / wall decode s) vs phase 7's single request "
+              f"{single / clean.wall_decode_s:.4g} B/s")
+
+        # ---- 2. the continuous loop at t = 0 on as many rows: the wave exactly
+        cont = ContinuousScheduler(engine, contention=ContentionModel(IDEAL_CONTENTION)).run(
+            [request() for _ in range(n_requests)])
+        laps.lap("continuous at t = 0")
+        for name in ("n_rounds", "n_decode_batches", "n_text_batches", "n_runs"):
+            require(getattr(cont, name) == getattr(wave, name),
+                    f"continuous {name} {getattr(cont, name)} != the wave's {getattr(wave, name)}")
+        for i, (a, b) in enumerate(zip(cont.sessions, wave.sessions)):
+            require(a.configs == b.configs and a.ttft_s == b.ttft_s,
+                    f"continuous request {i}: configs {a.configs}, TTFT {a.ttft_s}; the wave's {b.configs}, {b.ttft_s}")
+            require(torch.equal(a.caches.kv_k, b.caches.kv_k) and torch.equal(a.caches.kv_v, b.caches.kv_v)
+                    and torch.equal(a.caches.length, b.caches.length),
+                    f"continuous request {i}: the cache differs from the wave's")
+        print(f"continuous at t = 0: the wave's {cont.n_rounds} rounds, dispatches, decisions and caches, bit for bit")
+
+        # ---- 3. the open loop: arrivals over virtual time on fewer rows, generating
+        spec = GenerationSpec(n_tokens=gen_tokens, first_token=first)
+        arrivals = [ARRIVALS[i % len(ARRIVALS)] + 0.5 * (i // len(ARRIVALS)) for i in range(n_requests)]
+        loop = ContinuousScheduler(engine, rows=rows, contention=ContentionModel(IDEAL_CONTENTION)).run(
+            [request(start_t=a, generation=spec) for a in arrivals])
+        laps.lap(f"open loop of {n_requests} on {rows} rows")
+        seen, recycled = set(), 0
+        for tl in sorted(loop.timeline, key=lambda tl: tl.admit_t):
+            recycled += sum(1 for r in tl.rows_used if r in seen)
+            seen.update(tl.rows_used)
+        require(loop.n_rows == rows and recycled >= 2, f"the pool of {loop.n_rows} rows recycled {recycled} times")
+        for i, (s, tl) in enumerate(zip(loop.sessions, loop.timeline)):
+            require(s.status == "ok" and tl.n_tokens_out == gen_tokens,
+                    f"open-loop request {i}: status {s.status}, {tl.n_tokens_out} tokens")
+            require(all(0 <= t < cfg.padded_vocab_size for t in tl.tokens_out), f"request {i}: token ids out of range")
+        require(loop.n_gen_tokens == n_requests * gen_tokens, f"{loop.n_gen_tokens} tokens generated")
+        require(max(m for _, m in loop.gen_occupancy) >= 2, f"no stacked step of width 2: {loop.gen_occupancy}")
+        # each request's tokens against a batch-1 oracle fed the same tokens
+        # from the cache its load left (the result's own copy)
+        exact, worst_gen = 0, 0.0
+        for i, (s, tl) in enumerate(zip(loop.sessions, loop.timeline)):
+            z, _ = engine.logits_with_kv(s.caches, np.array([[first] + tl.tokens_out[:-1]]))
+            z, picked = z[0], np.array(tl.tokens_out)
+            gap = (z.max(-1) - z[np.arange(gen_tokens), picked]) / np.abs(z).max(-1)
+            exact += int((gap == 0).sum())
+            worst_gen = max(worst_gen, float(gap.max()))
+            require(gap.max() <= GEN_BATCH_REL, f"open-loop request {i}: token {int(gap.argmax())} lies "
+                    f"{gap.max():.3g} (of the largest |logit|) below the batch-1 oracle's best, "
+                    f"over {GEN_BATCH_REL:.3g}")
+        laps.lap(f"batch-1 oracle of {n_requests} x {gen_tokens} tokens")
+        print(f"open loop: arrivals {arrivals}, admitted at "
+              f"{[round(float(tl.admit_t), 4) for tl in loop.timeline]}, rows "
+              f"{[tl.rows_used for tl in loop.timeline]} ({recycled} recycled), TTFT "
+              f"{[round(float(s.ttft_s), 4) for s in loop.sessions]}, configs {[s.configs for s in loop.sessions]}")
+        occupancy = [m for _, m in loop.gen_occupancy]
+        widths = {w: occupancy.count(w) for w in sorted(set(occupancy))}
+        print(f"open loop generation: {loop.n_gen_tokens} tokens in {loop.n_gen_steps} stacked steps "
+              f"(widths {widths}), "
+              f"wall {loop.wall_gen_s:.4f} s, {1e3 * loop.wall_gen_s / loop.n_gen_steps:.2f} ms a step, "
+              f"{loop.n_gen_tokens / loop.wall_gen_s:.4g} tokens per wall s; {exact} of {loop.n_gen_tokens} tokens "
+              f"are the batch-1 oracle's argmax, the rest within {worst_gen:.3g} of its best logit")
+
+        # ---- 4. the row primitives and K3, on pools this phase owns, at full width
+        def k3_at(pool, what):
+            # K3 as decode_step_rows calls it (kv_len = length + 1, a full
+            # row's past the capacity) on one layer of the pool
+            mid = pool.kv_k.shape[0] // 2
+            k, v = pool.kv_k[mid], pool.kv_v[mid]
+            q = torch.randn((k.shape[0], cfg.n_heads, cfg.d_head), generator=qgen, device=dev).to(k.dtype)
+            kv_len = (pool.length + 1).to(torch.int32)
+            exact = (q.float(), k.float(), v.float())
+            with uncounted():
+                # off the card the wrapper is the plain version, whose bf16
+                # weights K3 does not round to: it runs on the f32 inputs
+                got = ops.decode_attention(*((q, k, v) if dev.type == "cuda" else exact), kv_len)
+            want = decode_attention_plain(*exact, kv_len)
+            x = ops.bf16_ulp_excess(got, want, **ops.BF16_TOL["decode_attention"])
+            require(x <= 1, f"K3 on the {what} is {x:.3g} times its tolerance off its plain version")
+            print(f"K3 on the {what}: q {tuple(q.shape)} vs cache {tuple(k.shape)}, kv_len {kv_len.tolist()}: "
+                  f"{x:.3g} of its tolerance")
+
+        qgen = torch.Generator(device=dev)
+        qgen.manual_seed(SEED + 8)
+        pool = wave.caches.clone()
+        snap = engine.save_row(pool, 0, n_ctx)
+        pool = engine.reset_rows(pool, [1])
+        require(pool.length[1].item() == 0 and not pool.kv_k[:, 1].any(), "reset_rows left row 1 dirty")
+        pool = engine.restore_row(pool, snap, 1)
+        require(torch.equal(pool.kv_k[:, 1], pool.kv_k[:, 0]) and torch.equal(pool.kv_v[:, 1], pool.kv_v[:, 0])
+                and pool.length[1].item() == pool.length[0].item() == n_ctx,
+                "save_row -> reset_rows -> restore_row is not bit-exact")
+        # ragged inactive rows: the restored one at the context, the middle
+        # ones mid-context (their next slot holds a real token), the last at
+        # length == capacity
+        last = pool.length.shape[0] - 1
+        length = pool.length.clone()
+        length[2:last] = n_ctx // 2 + 1
+        length[last] = cap
+        pool = pool._replace(length=length)
+        kept = [(pool.kv_k[:, r].clone(), pool.kv_v[:, r].clone()) for r in range(1, last + 1)]
+        lengths = pool.length.tolist()
+        tok = np.zeros((last + 1, 1), np.int32)
+        tok[0, 0] = first
+        active = np.zeros(last + 1, bool)
+        active[0] = True
+        for _ in range(2):
+            _, pool = engine.decode_step_rows(tok, pool, active)
+        for r, (k, v) in enumerate(kept, start=1):
+            require(torch.equal(pool.kv_k[:, r], k) and torch.equal(pool.kv_v[:, r], v),
+                    f"decode_step_rows changed inactive row {r} (length {lengths[r]} of {cap})")
+        require(pool.length.tolist() == [lengths[0] + 2] + lengths[1:], f"lengths {pool.length.tolist()}")
+        del kept
+        k3_at(pool, f"{last + 1}-row pool")
+        del pool
+        laps.lap("row primitives")
+
+        # wall time of a stacked step as gen_step runs it (the step, then
+        # the logits read), at each width of a pool of ``rows`` rows
+        pool = Caches(wave.caches.kv_k[:, :rows].clone(), wave.caches.kv_v[:, :rows].clone(),
+                      wave.caches.length[:rows].clone())
+        n_ctx_len = pool.length.clone()
+        samples = min(STEP_SAMPLES, cap - n_ctx - 1)
+        per_width = {}
+        for w in range(1, rows + 1):
+            pool = pool._replace(length=n_ctx_len.clone())
+            tok = np.full((rows, 1), first, np.int32)
+            active = np.arange(rows) < w
+            dts = []
+            for _ in range(samples + 1):  # the first is a warm-up
+                t0 = time.perf_counter()
+                logits, pool = engine.decode_step_rows(tok, pool, active)
+                logits[:, -1].float().cpu().numpy()
+                dts.append(time.perf_counter() - t0)
+            per_width[w] = round(1e3 * sum(dts[1:]) / samples, 2)
+        pool.length[rows - 1] = cap
+        k3_at(pool, f"{rows}-row pool")
+        del pool
+        laps.lap(f"step times at widths 1..{rows}")
+        solo = ContinuousScheduler(engine, contention=ContentionModel(IDEAL_CONTENTION)).run(
+            [request(generation=GenerationSpec(n_tokens=gen_tokens, first_token=first))])
+        got = solo.timeline[0].tokens_out
+        want = engine.generate_with_kv(solo.sessions[0].caches, torch.tensor([first], device=dev), gen_tokens)[0]
+        require(got == want.tolist(), f"N = 1 continuous generation {got} != generate_with_kv's {want.tolist()}")
+        laps.lap(f"N = 1 generation, {gen_tokens} tokens, and its oracle")
+        print(f"stacked step wall ms by width on a {rows}-row pool ({samples} steps each, logits read): {per_width}")
+        print(f"row primitives: save -> reset -> restore bit-exact, inactive rows (one at length {cap} = capacity) "
+              f"untouched by decode_step_rows, N = 1 generation equals generate_with_kv's {gen_tokens} tokens")
+        print("serving steps ms:", laps.ms)
+    return {"wave": wave, "continuous": cont, "open_loop": loop, "step_ms": per_width}
 
 
 def main() -> int:
@@ -864,11 +1142,17 @@ def main() -> int:
 
     # ------------------------------------------------------------- 7 session
     ops.reset_launch_counts()
-    drive_session_path(cfg, stored, phase=lambda name: Phase(name, phase_ms))
+    sessioned = drive_session_path(cfg, stored, phase=lambda name: Phase(name, phase_ms))
     paths["session"] = ops.launch_counts()
 
+    # ------------------------------------------------------------- 8 serving
+    ops.reset_launch_counts()
+    drive_serving_path(cfg, stored, sessioned, phase=lambda name: Phase(name, phase_ms))
+    paths["serving"] = ops.launch_counts()
+
     # --------------------------------------------------------------- summary
-    runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS}
+    runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
+            "serving": SERVING_KERNELS}
     require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")
     for path, counts in paths.items():
         print(f"launches on the {path} path:", counts)

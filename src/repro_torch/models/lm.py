@@ -5,8 +5,9 @@ Layers run as a Python loop over the stacked per-layer weights (leading
 
   * ``param_plan`` / ``init_params``
   * ``prefill(cfg, params, batch, pad_to=)``   — logits + caches (K4)
-  * ``prefill_extend(cfg, params, tokens, caches)`` — TEXT-chunk recompute
-    on top of loaded KV (plain attention, as in the reference)
+  * ``prefill_extend(cfg, params, tokens, caches[, widths])`` — TEXT-chunk
+    recompute on top of loaded KV (plain attention, as in the reference),
+    optionally width-masked per row
   * ``decode_step(cfg, params, tokens, caches)`` — one-token step (K3)
 
 ``prefill_extend`` and ``decode_step`` update ``caches`` *in place*: the
@@ -212,7 +213,7 @@ def masked_window_update(cache, new, start: int, width: int, window: Optional[in
         cache[start_c + lo:start_c + hi] = new[lo - shift:hi - shift].to(cache.dtype)
 
 
-def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches):
+def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches, widths=None):
     """Compute KV for a text chunk *given* earlier chunks' KV (paper fn. 6:
     the LLM recomputes a text-format chunk based on the previous chunks'
     received-and-decoded KV).
@@ -220,6 +221,15 @@ def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches):
     tokens: (B, Tc).  Writes the chunk's K/V at each row's ``length`` (the
     start clamped as ``dynamic_update_slice`` clamps it) into ``caches`` in
     place; returns (last logits, caches with length advanced by Tc).
+
+    ``widths`` (optional, (B,) ints in [0, Tc]) masks the per-row cache
+    write: row ``b`` commits only its first ``widths[b]`` tokens, through
+    :func:`masked_window_update`, and its length advances by ``widths[b]``.
+    This is how the concurrent scheduler coalesces different requests' TEXT
+    recomputes into one padded batched call — a row with width 0 keeps its
+    K/V and length bit for bit (its logits are garbage and must be
+    ignored).  The window starts are read from ``length`` once, on the host.
+    ``widths=None`` keeps the full-width write path.
     """
     _check_family(cfg)
     dev = caches.kv_k.device
@@ -228,13 +238,23 @@ def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches):
     cache_len = caches.length
     x = _embed_tokens(cfg, params, tokens)
     positions = cache_len[:, None] + torch.arange(Tc, dtype=torch.int32, device=dev)[None]
+    if widths is None:
+        def write(cache, new):
+            write_at(cache, new, cache_len)
+    else:
+        widths = [int(w) for w in torch.as_tensor(widths).tolist()]
+        starts = cache_len.tolist()
+
+        def write(cache, new):
+            for b, (s, w) in enumerate(zip(starts, widths)):
+                masked_window_update(cache[b], new[b], s, w)
     for l in range(cfg.n_layers):
         p = _layer(params, l)
         kc, vc = caches.kv_k[l], caches.kv_v[l]
         hn = apply_norm(cfg.norm, p["ln1"], x)
         q, k, v, k_pre = _project_qkv(cfg, p["attn"], hn, positions)
-        write_at(kc, k_pre if cfg.prerope_kv_cache else k, cache_len)
-        write_at(vc, v, cache_len)
+        write(kc, k_pre if cfg.prerope_kv_cache else k)
+        write(vc, v)
         if cfg.prerope_kv_cache:
             S = kc.shape[1]
             pos_grid = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
@@ -246,7 +266,10 @@ def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches):
         attn_out = o.reshape(B, Tc, cfg.n_heads * cfg.d_head).to(wo.dtype) @ wo
         x = _mlp_residual(cfg, p, x + attn_out, hn)
     logits = _logits(cfg, params, x[:, -1:])
-    return logits, caches._replace(length=cache_len + Tc)
+    if widths is None:
+        return logits, caches._replace(length=cache_len + Tc)
+    adv = torch.tensor(widths, dtype=cache_len.dtype, device=dev)
+    return logits, caches._replace(length=cache_len + adv)
 
 
 def decode_step(cfg: ArchConfig, params, tokens, caches: Caches):

@@ -9,17 +9,30 @@ chunk KV (the streamer's recompute fallback, paper §5.3 fn. 6) — and the
 cache insertions that land decoded codec runs (``decode_to_cache`` for one
 request, ``insert_runs`` for several requests' rows in one call).
 
+One Engine serves many concurrent context loads and generations: the
+schedulers in ``serving.scheduler`` allocate a batch-of-requests cache (one
+row per live session) and drive the batched entry points — ``insert_runs``,
+``prefill_extend_rows`` (different requests' TEXT recomputes in one
+width-masked forward), ``prefill_extend_gather`` (the same for a few rows,
+gathered), ``decode_step_rows`` (every generating row's next token in one
+forward, inactive rows bit-preserved) — and the row-pool primitives
+``save_row``, ``restore_row`` and ``reset_rows``.
+
 The engine runs on one device, the CUDA card unless ``device`` names
 another; the model's attention and the codec's reconstruction go through
 the hand-written kernels there.
 
 Cache ownership.  ``decode_to_cache`` and ``insert_runs`` write into the
 caller's cache tensors *in place* (the reference donates those buffers, so
-its callers already cannot reuse them).  ``generate_with_kv``,
-``logits_with_kv`` and ``prefill_extend`` leave the caller's cache as it
-was — the reference computes them functionally and callers reuse a prefill
-cache across calls — by cloning it once at entry and updating the clone in
-place.
+its callers already cannot reuse them).  So do the batch-of-requests
+methods ``restore_row``, ``reset_rows``, ``prefill_extend_rows``,
+``prefill_extend_gather`` and ``decode_step_rows``: their caller is a
+scheduler that owns its pool cache.  Each returns the caches with a new
+``length`` tensor.  ``save_row`` returns a copy (``kv_layout.RowSnapshot``).
+``generate_with_kv``, ``logits_with_kv`` and ``prefill_extend`` leave the
+caller's cache as it was — the reference computes them functionally and
+callers reuse a prefill cache across calls — by cloning it once at entry
+and updating the clone in place.
 """
 from __future__ import annotations
 
@@ -38,6 +51,17 @@ __all__ = ["Engine"]
 
 
 class Engine:
+    # Shard-aware row addressing: this engine is a single shard, so the
+    # global row space and the local one coincide.  The schedulers consult
+    # these to size caches (``cache_rows``) and to place rows into per-shard
+    # contention and transport domains.
+    n_shards: int = 1
+
+    def cache_rows(self, n: int) -> int:
+        """Smallest cache batch >= ``n`` this engine can allocate (rounded
+        up to a whole number of row shards)."""
+        return -(-int(n) // self.n_shards) * self.n_shards
+
     def __init__(self, cfg: ArchConfig, params, cache_capacity: int = 4096, device=None):
         self.cfg = cfg
         self.params = params
@@ -158,6 +182,136 @@ class Engine:
             [int(r) for r in rows], [int(s) for s in starts], [int(t) for t in run_tokens],
         )
         return caches._replace(kv_k=k, kv_v=v, length=ln)
+
+    # ------------------------------------------------------------------
+    # Row-pool support (continuous admission / preemption)
+    # ------------------------------------------------------------------
+
+    def save_row(self, caches: Caches, row: int, n_tokens: int) -> kv_layout.RowSnapshot:
+        """Snapshot the first ``n_tokens`` realized tokens of one cache row
+        (suspending a preempted session).  The snapshot owns copies, so the
+        pool cache may be recycled freely afterwards."""
+        n_rows = caches.kv_k.shape[1]
+        if not 0 <= int(row) < n_rows:
+            raise ValueError(
+                f"save_row: row {row} out of range for a {n_rows}-row cache"
+            )
+        if not 0 <= int(n_tokens) <= self.capacity:
+            raise ValueError(
+                f"save_row: {n_tokens} tokens out of range for capacity "
+                f"{self.capacity}"
+            )
+        return kv_layout.save_row(caches, int(row), int(n_tokens))
+
+    def restore_row(self, caches: Caches, snapshot: kv_layout.RowSnapshot, row: int) -> Caches:
+        """Write a suspended session's snapshot into (possibly another)
+        ``row`` of the pool cache, in place; the row then reads exactly as
+        it did at suspension (length included)."""
+        n_rows = caches.kv_k.shape[1]
+        if not 0 <= int(row) < n_rows:
+            raise ValueError(
+                f"restore_row: row {row} out of range for a {n_rows}-row cache"
+            )
+        if snapshot.n_tokens > self.capacity:
+            raise ValueError(
+                f"restore_row: snapshot of {snapshot.n_tokens} tokens exceeds "
+                f"cache capacity {self.capacity}"
+            )
+        k, v, ln = kv_layout.restore_row(
+            caches.kv_k, caches.kv_v, caches.length, snapshot.kv_k, snapshot.kv_v, int(row)
+        )
+        return caches._replace(kv_k=k, kv_v=v, length=ln)
+
+    def reset_rows(self, caches: Caches, rows: Sequence[int]) -> Caches:
+        """Zero recycled rows (K/V and length) in place before new tenants
+        take them — a recycled row must be indistinguishable from a fresh
+        cache's row."""
+        n_rows = caches.kv_k.shape[1]
+        if any(not 0 <= int(r) < n_rows for r in rows):
+            raise ValueError(
+                f"reset_rows: rows {list(rows)} out of range for a "
+                f"{n_rows}-row cache"
+            )
+        k, v, ln = kv_layout.reset_rows(caches.kv_k, caches.kv_v, caches.length, rows)
+        return caches._replace(kv_k=k, kv_v=v, length=ln)
+
+    def prefill_extend_rows(self, tokens, caches: Caches, widths) -> Tuple[torch.Tensor, Caches]:
+        """Coalesced TEXT recompute: one padded, width-masked batched
+        ``prefill_extend`` over the batch-of-requests cache, in place.
+
+        ``tokens`` is (B, Tc) with each participating row's text chunk (rows
+        with ``widths[b] == 0`` carry padding and are untouched — garbage
+        logits, no cache write, no length advance).  Each row writes at its
+        *own* ``caches.length[b]`` offset.
+        """
+        return lm.prefill_extend(self.cfg, self.params, tokens, caches, widths=widths)
+
+    def prefill_extend_gather(self, tokens, caches: Caches, rows) -> Tuple[torch.Tensor, Caches]:
+        """Compact coalesced TEXT recompute for a *subset* of cache rows.
+
+        Gathers rows ``rows`` of the batch-of-requests cache into a
+        sub-batch (a copy), runs the full-width ``prefill_extend`` on it
+        (``tokens`` is (len(rows), Tc), one text chunk per gathered row) and
+        writes the updated rows back in place.  Same semantics as
+        :meth:`prefill_extend_rows`, but compute scales with the
+        participating rows instead of the full batch.
+        """
+        n_rows = caches.kv_k.shape[1]
+        if any(not 0 <= int(r) < n_rows for r in rows):
+            raise ValueError(
+                f"prefill_extend_gather: rows {list(rows)} out of range for "
+                f"a {n_rows}-row cache"
+            )
+        idx = torch.as_tensor([int(r) for r in rows], dtype=torch.long, device=self.device)
+        sub = Caches(kv_k=caches.kv_k[:, idx], kv_v=caches.kv_v[:, idx], length=caches.length[idx])
+        logits, sub = lm.prefill_extend(self.cfg, self.params, tokens, sub)
+        caches.kv_k[:, idx] = sub.kv_k
+        caches.kv_v[:, idx] = sub.kv_v
+        length = caches.length.clone()
+        length[idx] = sub.length
+        return logits, caches._replace(length=length)
+
+    def decode_step_rows(self, tokens, caches: Caches, active) -> Tuple[torch.Tensor, Caches]:
+        """Stacked generation step: all generating rows' next token in one
+        forward over the batch-of-requests cache, in place.
+
+        ``tokens`` is (B, 1) with each generating row's current token (rows
+        with ``active[b] == False`` carry padding); ``active`` is (B,) bool.
+        Each active row attends over its own realized prefix (per-row
+        ``caches.length[b]`` offsets), writes its token's K/V at that offset
+        and advances its length by one; inactive rows' K/V and length stay
+        bit for bit as they were.  Returns (logits (B, 1, V), caches) —
+        inactive rows' logits are garbage.
+
+        ``lm.decode_step`` writes every row's token at its length, clamped
+        onto the last slot of a full row, so the slot each row would be
+        written at is saved before the step and put back for the inactive
+        rows after it (B slots a layer; no host sync).  Active rows must
+        have ``length < capacity`` before the step; callers validate this
+        when scheduling generation.
+        """
+        n_rows = caches.kv_k.shape[1]
+        tokens = torch.as_tensor(tokens, device=self.device).to(torch.long)
+        if tuple(tokens.shape) != (n_rows, 1):
+            raise ValueError(
+                f"decode_step_rows: tokens shape {tuple(tokens.shape)} != "
+                f"({n_rows}, 1) for a {n_rows}-row cache"
+            )
+        active = torch.as_tensor(active, device=self.device).to(torch.bool)
+        if tuple(active.shape) != (n_rows,):
+            raise ValueError(
+                f"decode_step_rows: active shape {tuple(active.shape)} != "
+                f"({n_rows},) for a {n_rows}-row cache"
+            )
+        rows = torch.arange(n_rows, device=self.device)
+        slot = caches.length.to(torch.long).clamp(0, caches.kv_k.shape[2] - 1)
+        saved_k = caches.kv_k[:, rows, slot]
+        saved_v = caches.kv_v[:, rows, slot]
+        logits, new = lm.decode_step(self.cfg, self.params, tokens, caches)
+        keep = ~active[None, :, None, None]
+        new.kv_k[:, rows, slot] = torch.where(keep, saved_k, new.kv_k[:, rows, slot])
+        new.kv_v[:, rows, slot] = torch.where(keep, saved_v, new.kv_v[:, rows, slot])
+        return logits, new._replace(length=torch.where(active, new.length, caches.length))
 
     # ------------------------------------------------------------------
     # Cost model hooks (used by the streaming simulator)

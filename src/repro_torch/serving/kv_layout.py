@@ -1,13 +1,31 @@
 """Bridges between the serving engine's KV cache and the codec's
-(L, 2, T, C) tensor layout, plus cache allocation helpers.
+(L, 2, T, C) tensor layout, the row-pool primitives of the schedulers, and
+cache allocation helpers.
 
 The reference writes through ``dynamic_update_slice`` into donated buffers;
 here the insertions update the cache tensors *in place* (slice assignment),
 with the same clamping: a window whose start overhangs the capacity is
 shifted back inside it rather than raising or being dropped.
+
+Views and copies.  The reference's arrays are immutable, so its slices are
+snapshots; here the pool cache is written in place, so each function states
+what it returns:
+
+  * ``insert_codec_run``, ``insert_codec_runs``, ``restore_row`` and
+    ``reset_rows`` write the given ``kv_k``/``kv_v`` in place and return a
+    *new* ``length`` tensor (the caller's is left as it was);
+  * ``save_row`` returns a :class:`RowSnapshot` that owns copies — later
+    writes to the pool cache cannot change it;
+  * ``extract_row`` returns *views* of one row: a later in-place write to
+    that row of the pool cache shows through, so a caller that keeps the
+    row past such a write takes ``.clone()`` of it (the continuous
+    scheduler does, when a load finishes and its row goes on generating
+    or to the next tenant);
+  * ``caches_to_codec_kv`` returns a new f32 tensor.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -21,6 +39,11 @@ __all__ = [
     "codec_kv_to_caches",
     "insert_codec_run",
     "insert_codec_runs",
+    "RowSnapshot",
+    "save_row",
+    "restore_row",
+    "reset_rows",
+    "extract_row",
     "alloc_caches",
     "kv_cache_bytes",
 ]
@@ -86,6 +109,76 @@ def insert_codec_runs(
                              start, T, window=t_max)
         length[row] = torch.clamp_min(length[row], int(start) + T)
     return kv_k, kv_v, length
+
+
+@dataclasses.dataclass
+class RowSnapshot:
+    """A suspended session's realized KV: the first ``n_tokens`` tokens of
+    its cache row, copied out (the snapshot owns its tensors, so later
+    in-place writes to the pool cache cannot change it).  Restored —
+    possibly into a *different* row — by :func:`restore_row`."""
+
+    kv_k: torch.Tensor  # (L, T, Hkv, Dh)
+    kv_v: torch.Tensor  # (L, T, Hkv, Dh)
+    n_tokens: int
+
+
+def save_row(caches: Caches, row: int, n_tokens: int) -> RowSnapshot:
+    """Snapshot (copy) the realized prefix of one request's cache row; the
+    exact bytes come back through :func:`restore_row`."""
+    n = int(n_tokens)
+    return RowSnapshot(
+        kv_k=caches.kv_k[:, row, :n].clone(),
+        kv_v=caches.kv_v[:, row, :n].clone(),
+        n_tokens=n,
+    )
+
+
+def restore_row(
+    kv_k: torch.Tensor,  # (L, B, cap, Hkv, Dh) pool cache, updated in place
+    kv_v: torch.Tensor,
+    length: torch.Tensor,  # (B,) int32
+    k_row: torch.Tensor,  # (L, T, Hkv, Dh) saved tokens (RowSnapshot.kv_k)
+    v_row: torch.Tensor,
+    row: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Write a suspended session's saved tokens at ``[0, T)`` of ``row``
+    and set its length to ``T``.  The row must have been reset (length 0)
+    before: the pool hands out recycled rows zeroed."""
+    T = k_row.shape[1]
+    kv_k[:, row, :T] = k_row.to(kv_k.dtype)
+    kv_v[:, row, :T] = v_row.to(kv_v.dtype)
+    length = length.clone()
+    length[row] = T
+    return kv_k, kv_v, length
+
+
+def reset_rows(
+    kv_k: torch.Tensor,  # (L, B, cap, Hkv, Dh) pool cache, updated in place
+    kv_v: torch.Tensor,
+    length: torch.Tensor,  # (B,) int32
+    rows: Sequence[int],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Zero recycled rows (K/V and length) before a new session takes them.
+
+    A recycled row must look exactly like a row of a fresh
+    :func:`alloc_caches` cache — the length reset matters doubly because
+    run insertion advances length monotonically, so a stale tenant's length
+    would corrupt the new tenant's offsets.
+    """
+    rows = [int(r) for r in rows]
+    kv_k[:, rows] = 0
+    kv_v[:, rows] = 0
+    length = length.clone()
+    length[rows] = 0
+    return kv_k, kv_v, length
+
+
+def extract_row(caches: Caches, row: int) -> Caches:
+    """One request's batch-1 *view* of a batch-of-requests cache (no copy;
+    see the module docstring)."""
+    sl = slice(row, row + 1)
+    return Caches(kv_k=caches.kv_k[:, sl], kv_v=caches.kv_v[:, sl], length=caches.length[sl])
 
 
 def caches_to_codec_kv(caches: Caches, batch_index: int, n_tokens: int) -> torch.Tensor:

@@ -321,8 +321,8 @@ class SessionTask:
     :meth:`step` advances one chunk and returns the work items whose inputs
     are now fully resolved (possibly none while the double buffer fills).
     The caller decides *how* to execute them: ``ServeSession`` runs each
-    immediately; a multi-request scheduler (the reference's; not yet in the
-    port) batches items from many tasks.
+    immediately; the multi-request schedulers (``serving.scheduler``) batch
+    items from many tasks.
 
     ``compute_scale`` (optional callable) is the live contention hook: the
     clock stretches this task's charged decode/recompute seconds — and the
@@ -346,8 +346,8 @@ class SessionTask:
     everything realized so far — timelines, policy state, the segmenter's
     half-filled buffer — carried across untouched.  The *cache* side of a
     suspension (saving/restoring the realized row prefix) belongs to the
-    caller — the reference's continuous scheduler, not yet in the port,
-    does it with ``Engine.save_row``/``restore_row``.
+    caller — ``serving.scheduler.ContinuousScheduler`` does it with
+    ``Engine.save_row``/``restore_row``.
     """
 
     def __init__(
@@ -1112,8 +1112,7 @@ class ServeSession:
     clock + segmenter) and serving cache, and executes the task's work items
     one at a time.  For N concurrent loads sharing one Engine, hand the
     session(s) to a scheduler that executes the same work items batched
-    across requests (the reference's ``ConcurrentScheduler``; not yet in
-    the port).
+    across requests (``serving.scheduler.ConcurrentScheduler``).
     """
 
     def __init__(

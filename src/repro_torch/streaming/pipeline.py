@@ -146,6 +146,31 @@ class ContentionModel:
         v = self._interp(self.gen_factors, n)
         return self.factor(n) if v is None else v
 
+    # -- per-shard variants ------------------------------------------------
+    #
+    # With the batch-of-requests cache's rows split over S shards, the N
+    # live sessions contend only *within* their shard, so the per-session
+    # slowdown reads the measured curve at the even-spread per-shard width
+    # ceil(N / S).  The schedulers call these on every engine; at S = 1
+    # (the port's only engine so far) each reduces exactly to its
+    # unsharded reading.
+
+    @staticmethod
+    def _per_shard(n_active: int, n_shards: int) -> int:
+        s = max(int(n_shards), 1)
+        return -(-max(int(n_active), 1) // s)
+
+    def factor_sharded(self, n_active: int, n_shards: int) -> float:
+        """Decode slowdown with ``n_active`` sessions spread evenly over
+        ``n_shards`` row shards."""
+        return self.factor(self._per_shard(n_active, n_shards))
+
+    def text_factor_sharded(self, n_active: int, n_shards: int) -> float:
+        return self.text_factor(self._per_shard(n_active, n_shards))
+
+    def gen_factor_sharded(self, n_active: int, n_shards: int) -> float:
+        return self.gen_factor(self._per_shard(n_active, n_shards))
+
 
 @dataclasses.dataclass
 class ChunkTimeline:

@@ -1,7 +1,7 @@
 """``chip_smoke.py`` off the card: it refuses to run without one, and its
-main path (phases 4-5), store path (phase 6) and session path (phase 7) run
-at a tiny size on the CPU through the kernels' plain versions (no launch
-counted)."""
+main path (phases 4-5), store path (phase 6), session path (phase 7) and
+serving path (phase 8) run at a tiny size on the CPU through the kernels'
+plain versions (no launch counted)."""
 import contextlib
 import importlib.util
 import io
@@ -69,19 +69,44 @@ def test_chip_smoke_store_path_runs_on_cpu_at_tiny_size(rehearsal, stored):
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
 
 
-def test_chip_smoke_session_path_runs_on_cpu_at_tiny_size(rehearsal, stored):
-    """Phase 7 on phase 6's tiny store: the clean session reproduces the
-    plan and its cache, the faulted one recovers through a resumed prefix
-    (the script fails otherwise), and the clean cache generates."""
+@pytest.fixture(scope="module")
+def sessioned(rehearsal, stored):
     smoke, cfg = rehearsal[:2]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         got = smoke.drive_session_path(cfg, stored[0], gen_tokens=8)
-    out = out.getvalue()
+    return got, out.getvalue()
+
+
+def test_chip_smoke_session_path_runs_on_cpu_at_tiny_size(rehearsal, sessioned):
+    """Phase 7 on phase 6's tiny store: the clean session reproduces the
+    plan and its cache, the faulted one recovers through a resumed prefix
+    (the script fails otherwise), and the clean cache generates."""
+    smoke = rehearsal[0]
+    got, out = sessioned
     assert "session (clean): configs [0, " in out and "-1, -1], TTFT" in out and "session realized decode rate" in out
     assert "session (faulted" in out and "session steps ms" in out
     faulted = got["faulted"]
     assert faulted.status == "ok" and faulted.n_retries > 0 and faulted.salvaged_bytes > 0
     assert abs(faulted.salvaged_bytes + faulted.refetched_bytes - faulted.wire_bytes) < 1e-6
     assert got["tokens"].shape == (1, 8)
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_serving_path_runs_on_cpu_at_tiny_size(rehearsal, stored, sessioned):
+    """Phase 8 on phase 6's tiny store and phase 7's clean session: the wave
+    decides and caches as the session, the continuous loop at t = 0 equals
+    the wave, the open loop recycles rows and stacks generation steps, and
+    the row primitives round-trip (the script fails otherwise)."""
+    smoke, cfg = rehearsal[:2]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = smoke.drive_serving_path(cfg, stored[0], sessioned[0], gen_tokens=8)
+    out = out.getvalue()
+    assert "serving wave: 4 requests, configs [0, " in out and "stacked decode rate" in out
+    assert "continuous at t = 0" in out and "open loop generation: 32 tokens" in out
+    assert "row primitives: save -> reset -> restore bit-exact" in out and "serving steps ms" in out
+    loop = got["open_loop"]
+    assert loop.n_rows == 2 and all(tl.n_tokens_out == 8 for tl in loop.timeline)
+    assert max(m for _, m in loop.gen_occupancy) == 2 and set(got["step_ms"]) == {1, 2}
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
