@@ -77,12 +77,40 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            tokens.  It prints the stacked decode rate beside phase 7's and
            the wall ms of a stacked step (with its logits read) at widths 1
            and 2 on a 2-row pool.
+9. launcher the port's serving launcher, ``repro_torch.launch.serve.run``
+           (``python -m repro_torch.launch.serve``), with ``--full-width`` at
+           ``--ctx-len 3072``, three times (each draws its weights, prefills
+           the context (K4), profiles it and stores it at every level (K5)):
+           A. a closed wave of four on the sim transport and the flat store
+              with ``--check-sim``: every request must make the simulator's
+              decisions, and every request's cache must equal ``materialize``
+              of its configs under phase 7's rules (lossy within K1's rule,
+              TEXT within ``TEXT_BATCH_REL`` relative);
+           B. waves of two over TCP on the tiered store (cold tier on disk,
+              hot tier half a context's bytes) pinned to level 1 (K1), with
+              server-side truncation faults and ``--retry 3``: no request may
+              fail, faults must be injected and the cold tier used; the
+              fault seed truncates chunk 0's first fetch and no chunk's fetch
+              more than twice in the attempts four requests can make, so no
+              interleaving of the waves' attempts can exhaust a chunk's
+              retries;
+           C. an open loop of four Poisson arrivals on two rows pinned to
+              level 0 (K2) with ``--preempt`` at the default margin and an SLO
+              every load misses, and ``--generate 16`` at a virtual step
+              long enough that loads land while the other row generates:
+              both rows must be busy at once, some arrival must preempt a
+              load (and it must resume), some generation step must stack
+              both rows (K3), and every request's cache must equal
+              ``materialize`` of its configs (level 0 bit for bit).
+           The ``materialize`` checks' launches are not counted.  It prints
+           each run's lines, the chunks compared by kind, C's tokens per
+           wall second and the phase's wall time.
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5, then zeroed before each of phases 6, 7 and 8 and read after it; the run
-fails if a kernel that a path runs was not launched in it (all six on the
-serve + text and store paths; K1, K2 and K3 on the session and serving
-paths).  The last line is ``{"ok": true, "device": {...}}``; the line
+5, then zeroed before each of phases 6, 7, 8 and 9 and read after it; the
+run fails if a kernel that a path runs was not launched in it (all six on
+the serve + text and store paths; K1, K2 and K3 on the session and serving
+paths; K1-K5 on the launcher path).  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels, with launches summed over the paths.  Needs
 one CUDA card; exits 2 with no result when there is none.
 """
@@ -91,6 +119,7 @@ import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -127,6 +156,7 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     kv_quant_plain,
     vector_width,
 )
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.lm import Caches  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
@@ -141,6 +171,7 @@ from repro_torch.streaming import (  # noqa: E402
     ContentionModel,
     FaultPlan,
     FaultyTransport,
+    FetchPlan,
     KVStore,
     NetworkModel,
     RetryPolicy,
@@ -195,6 +226,25 @@ STEP_SAMPLES = 8
 ALL_KERNELS = tuple(ops.KERNELS)
 SESSION_KERNELS = ("kv_dequant_tokens", "kv_lossless_tokens", "decode_attention")
 SERVING_KERNELS = SESSION_KERNELS
+LAUNCHER_KERNELS = SESSION_KERNELS + ("flash_attention", "kv_quant")
+# phase 9: the launcher's context, B's fault rate and attempts, C's arrivals
+LAUNCH_CTX = 3072
+LAUNCH_REQUESTS = 4
+LAUNCH_TRUNCATE_P = 0.3
+LAUNCH_RETRY = 3
+# B's keyed truncation draws hit chunk 0's first level-1 fetch and no chunk's
+# fetches more than LAUNCH_RETRY - 1 times among the 12 attempts the server
+# can count for it, so no interleaving of the waves' attempts exhausts a
+# chunk's retries (tests/test_torch_smoke.py checks this for the seed)
+LAUNCH_FAULT_SEED = 1864
+LAUNCH_RATE = 50.0  # Poisson arrivals per second of C's open loop
+# C's SLO is below any load's fetch time at either size, so every load is
+# doomed and the arrivals that find both rows busy preempt; each token's
+# virtual step stretches a request's generation over seconds, longer than
+# the gaps between two loads landing, so the two rows' steps stack
+LAUNCH_SLO_MS = 20.0
+LAUNCH_GEN = 16
+LAUNCH_GEN_STEP_MS = 500.0
 
 
 class Phase:
@@ -763,6 +813,123 @@ def drive_serving_path(cfg, stored, sessioned, phase=lambda name: contextlib.nul
     return {"wave": wave, "continuous": cont, "open_loop": loop, "step_ms": per_width}
 
 
+def match_materialize(run, results, what, ctx_len):
+    """Holds each result's cache to ``streamer.materialize`` of its own
+    configs on ``run``'s engine and store, under phase 7's rules: level 0
+    bit for bit, lossy levels within K1's rule, TEXT within
+    ``TEXT_BATCH_REL`` relative.  The launches these decodes make are not
+    counted.  Returns the chunks compared by kind and the worst TEXT
+    error."""
+    streamer, engine = run["streamer"], run["engine"]
+    metas = streamer.store.meta("ctx")
+    k1_tol = ops.BF16_TOL["kv_dequant_tokens"]
+    kinds, worst_text = {"level 0": 0, "lossy": 0, "TEXT": 0}, 0.0
+    with uncounted():
+        for r, res in enumerate(results):
+            plan = FetchPlan(context_id="ctx", result=res.stream_result(), metas=metas)
+            mat = streamer.materialize(plan, engine, run["tokens"])
+            require(res.caches.length.tolist() == mat.length.tolist() == [ctx_len],
+                    f"{what}: request {r}'s length {res.caches.length.tolist()}, materialize's "
+                    f"{mat.length.tolist()}")
+            for m, c in zip(metas, res.configs):
+                sl = slice(m.start, m.end)
+                x = torch.stack([res.caches.kv_k[:, 0, sl], res.caches.kv_v[:, 0, sl]])
+                y = torch.stack([mat.kv_k[:, 0, sl], mat.kv_v[:, 0, sl]])
+                where = f"{what}: request {r}'s chunk {m.chunk_idx}"
+                if c == 0:
+                    require(torch.equal(x, y), f"{where} (level 0) differs from materialize's")
+                    kinds["level 0"] += 1
+                elif c != TEXT:
+                    e = ops.bf16_ulp_excess(x, y, **k1_tol)
+                    require(e <= 1, f"{where} (level {c}) is {e:.3g} times K1's rule off materialize's")
+                    kinds["lossy"] += 1
+                else:
+                    rel = ((x.float() - y.float()).norm() / y.float().norm()).item()
+                    require(rel <= TEXT_BATCH_REL, f"{where} (TEXT) is {rel:.3g} off materialize's (relative)")
+                    kinds["TEXT"] += 1
+                    worst_text = max(worst_text, rel)
+    return kinds, worst_text
+
+
+def drive_launcher_path(dev, phase=lambda name: contextlib.nullcontext(), ctx_len=LAUNCH_CTX, full_width=True):
+    """Phase 9: the port's serving launcher as a user runs it.
+
+    Three ``serve.run`` calls (A: a checked wave on the sim transport, B:
+    TCP on the tiered store under faults, C: an open loop that preempts and
+    generates; see the module docstring).  ``full_width`` adds
+    ``--full-width``; the port's tests run it without, at ``.tiny()`` and a
+    small ``ctx_len``, on the CPU.
+    """
+    base = ["--ctx-len", str(ctx_len), "--requests", str(LAUNCH_REQUESTS), "--device", str(dev)]
+    base += ["--full-width"] if full_width else []
+    with phase("launcher"):
+        laps = Laps(dev)
+        # ---- A: a wave of four on the sim transport, held to the simulator
+        print("launcher A:", " ".join(base + ["--concurrency", "4", "--check-sim"]))
+        a = serve.run(base + ["--concurrency", "4", "--check-sim"])
+        laps.lap("A")
+        require(a["sim_match"] == {r: True for r in range(LAUNCH_REQUESTS)},
+                f"A: the requests' decisions against the simulator's: {a['sim_match']}")
+        require(all(w.n_failed == 0 for w in a["waves"]), "A: a request failed")
+        kinds, worst_text = match_materialize(a, a["sessions"], "A", ctx_len)
+        laps.lap("A: materialize check")
+        print(f"launcher A: {LAUNCH_REQUESTS} requests made the simulator's decisions "
+              f"({[s.configs for s in a['sessions']]}) and equal materialize of their configs "
+              f"(chunks compared: {kinds}; TEXT within {worst_text:.3g} relative)")
+
+        # ---- B: TCP, tiered store with a cold tier on disk, faults, retries
+        hot = a["store"].storage_bytes("ctx") // 2
+        with tempfile.TemporaryDirectory(prefix="cachegen-cold-") as cold:
+            argv = base + ["--concurrency", "2", "--store", "tiered", "--store-dir", cold, "--hot-bytes", str(hot),
+                           "--transport", "tcp", "--tcp-pace-gbps", "10", "--retry", str(LAUNCH_RETRY),
+                           "--fault-truncate", str(LAUNCH_TRUNCATE_P), "--fault-seed", str(LAUNCH_FAULT_SEED),
+                           "--fixed-level", "1"]
+            print("launcher B:", " ".join(argv))
+            b = serve.run(argv)
+        laps.lap("B")
+        tc, srv = b["tier_counters"], b["tcp_server"]
+        n_chunks = len(b["streamer"].store.meta("ctx"))
+        require(all(w.n_failed == 0 for w in b["waves"]), "B: a request failed")
+        require(srv["n_injected_faults"] > 0, "B: the server injected no fault")
+        require(tc["cold_hits"] + tc["demotions"] > 0, f"B: the cold tier was not used: {tc}")
+        require(all(s.configs == [1] * n_chunks for s in b["sessions"]), "B: a chunk left level 1")
+        retries = sum(s.n_retries for s in b["sessions"])
+        print(f"launcher B: hot tier {hot} bytes; {retries} retries, "
+              f"{sum(s.n_resumes for s in b['sessions'])} resumes, "
+              f"{sum(s.salvaged_bytes for s in b['sessions']):.0f} salvaged bytes; server {srv}; "
+              f"client {b['tcp_client']}")
+
+        # ---- C: an open loop on two rows that preempts and generates
+        argv = base + ["--arrivals", f"poisson:{LAUNCH_RATE}", "--rows", "2", "--slo-ms", str(LAUNCH_SLO_MS),
+                       "--preempt", "--generate", str(LAUNCH_GEN), "--gen-step-ms", str(LAUNCH_GEN_STEP_MS),
+                       "--fixed-level", "0"]
+        print("launcher C:", " ".join(argv))
+        c = serve.run(argv)
+        laps.lap("C")
+        loop = c["open_loop"]
+        require(loop.n_failed == 0, "C: a request failed")
+        require(max(n for _, n in loop.occupancy) == 2, "C: the two rows were never busy at once")
+        require(loop.n_preemptions > 0 and loop.n_resumes == loop.n_preemptions,
+                f"C: {loop.n_preemptions} preemptions, {loop.n_resumes} resumes")
+        require([tl.n_tokens_out for tl in loop.timeline] == [LAUNCH_GEN] * LAUNCH_REQUESTS,
+                f"C: tokens out {[tl.n_tokens_out for tl in loop.timeline]}")
+        peak_gen = max(n for _, n in loop.gen_occupancy)
+        require(peak_gen == 2, f"C: no generation step stacked both rows (widest {peak_gen})")
+        rows = sorted({r for tl in loop.timeline for r in tl.rows_used})
+        require(rows == [0, 1], f"C: rows used {rows}")
+        require(any(line.startswith(f"[generation tokens={LAUNCH_GEN * LAUNCH_REQUESTS}]") for line in c["lines"]),
+                "C: no generation line")
+        kinds_c, _ = match_materialize(c, loop.sessions, "C", ctx_len)
+        laps.lap("C: materialize check")
+        stacked = sum(1 for _, n in loop.gen_occupancy if n == 2)
+        print(f"launcher C: {loop.n_preemptions} preemptions; {loop.n_gen_tokens} tokens in {loop.n_gen_steps} "
+              f"steps ({stacked} of width 2), {loop.n_gen_tokens / loop.wall_gen_s:.4g} tokens per wall s, "
+              f"{1e3 * loop.wall_gen_s / loop.n_gen_steps:.2f} ms a step; every request equals materialize of "
+              f"its configs (chunks compared: {kinds_c})")
+        print("launcher steps ms:", laps.ms)
+    return {"A": a, "B": b, "C": c}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1150,9 +1317,14 @@ def main() -> int:
     drive_serving_path(cfg, stored, sessioned, phase=lambda name: Phase(name, phase_ms))
     paths["serving"] = ops.launch_counts()
 
+    # ------------------------------------------------------------ 9 launcher
+    ops.reset_launch_counts()
+    drive_launcher_path(dev, phase=lambda name: Phase(name, phase_ms))
+    paths["launcher"] = ops.launch_counts()
+
     # --------------------------------------------------------------- summary
     runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
-            "serving": SERVING_KERNELS}
+            "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS}
     require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")
     for path, counts in paths.items():
         print(f"launches on the {path} path:", counts)

@@ -14,18 +14,22 @@ the reference's without the ``msgpack`` package:
 * lists/tuples: fixarray, array16, array32;
 * ``None``, ``False``, ``True``.
 
+The TCP transport's request and response-header frames (maps of strings,
+integers, booleans, ``None`` and lists of them) fall in the same subset.
+
 :class:`Reader` decodes the same subset from a byte buffer and reports byte
 offsets (:meth:`Reader.tell`), which the segment index needs.  Anything it
 cannot parse — an unknown type byte, a truncated object — raises
 :class:`IntegrityError`: to the serving layer a blob that does not parse is
-indistinguishable from a corrupted one.
+indistinguishable from a corrupted one.  :func:`unpackb` reads one whole
+frame and, like ``msgpack.unpackb``, refuses bytes left after its object.
 """
 from __future__ import annotations
 
 import struct
 from typing import Any, List
 
-__all__ = ["IntegrityError", "Reader", "packb"]
+__all__ = ["IntegrityError", "Reader", "packb", "unpackb"]
 
 
 class IntegrityError(ValueError):
@@ -185,3 +189,16 @@ class Reader:
     def skip(self) -> None:
         """Advance past one object."""
         self.read()
+
+
+def unpackb(buf: bytes) -> Any:
+    """``msgpack.unpackb(buf, raw=False)`` for the supported subset: one
+    object filling ``buf`` exactly.  Bytes after it raise
+    :class:`IntegrityError`, as ``msgpack`` raises ``ExtraData``."""
+    reader = Reader(buf)
+    obj = reader.read()
+    if reader.tell() != len(buf):
+        raise IntegrityError(
+            f"msgpack frame holds {len(buf) - reader.tell()} bytes after its object"
+        )
+    return obj

@@ -655,6 +655,14 @@ class PreemptionPolicy:
       one row back and forth at a single virtual instant (the multi-row
       pools of the mesh-sharded engine make this case the norm).
 
+    Likewise a *loading* session that took its row by preempting another is
+    not evictable at the instant it took the row, only once its clock has
+    moved past it.  Without this guard two doomed loads evict each other at
+    one virtual instant without end, each waiter still inside its SLO and
+    each resumed fetch still landing past it.  The reference scheduler has
+    no such guard (it runs into ``MAX_PREEMPTIONS`` there, and evicts such
+    a load at once in chains that do end): a deliberate divergence.
+
     ``gen_slo`` additionally makes a *generating* session eligible (under
     either victim rule) once it has already missed its per-token SLO
     (``GenerationSpec.gen_slo_s``, realized TPOT over the limit) on a token
@@ -918,6 +926,9 @@ class ContinuousScheduler:
 
         tasks: List[Optional[SessionTask]] = [None] * len(requests)
         snaps: Dict[int, object] = {}  # request idx -> RowSnapshot
+        # request idx -> the instant its load took a row by preemption: it
+        # is not evictable at that instant
+        took_by_preemption: Dict[int, float] = {}
         acct = [_SessionAccount() for _ in requests]
         timeline = [
             RequestTimeline(index=i, arrival_t=float(r.start_t))
@@ -1184,6 +1195,8 @@ class ContinuousScheduler:
                         preempt_t = max(head_ready, t.next_fetch_t)
                         if end <= t.deadline_t + policy.margin_s:
                             continue  # fetch lands within the SLO: keep it
+                        if preempt_t <= took_by_preemption.get(row_owner[t.row], float("-inf")):
+                            continue  # took its row by preemption at this instant
                         if (
                             policy.require_waiting_headroom
                             and preempt_t >= head_deadline
@@ -1228,6 +1241,8 @@ class ContinuousScheduler:
                         preempt_gen(victim.obj, victim.preempt_t)
                     else:
                         preempt(victim.obj, victim.preempt_t)
+                    if head_idx not in parked_gen:
+                        took_by_preemption[head_idx] = victim.preempt_t
                     admit(head_idx, head_ready)
             if not live and not generating:
                 continue  # admission above is guaranteed to make progress

@@ -40,6 +40,7 @@ from repro_torch.streaming.storage import (  # noqa: F401
     KVStore,
     MemoryBackend,
     StorageBackend,
+    TieredKVStore,
     chain_hashes,
     split_chunks,
     token_payloads,
@@ -59,6 +60,8 @@ from repro_torch.streaming.transport import (  # noqa: F401
     RetryPolicy,
     Salvage,
     SimTransport,
+    TcpStoreServer,
+    TcpTransport,
     Transport,
     as_completed,
     classify_failure,

@@ -25,6 +25,7 @@ tensor is touched.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import threading
 import zlib
@@ -32,7 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.streaming.storage import KVStore, StorageBackend, _missing
+from repro_torch.streaming.storage import KVStore, StorageBackend, TieredKVStore, _missing
 from repro_torch.streaming.transport import (
     ChunkLevels,
     FetchError,
@@ -224,8 +225,19 @@ def with_faulty_backend(store: KVStore, plan: FaultPlan) -> KVStore:
     clean store — faults corrupt bytes, not the catalog.  The view's
     ``backend`` is the :class:`FaultyBackend` (injection counters).
 
-    The port has only the flat store; the reference also wraps a tiered
-    store's cold tier here, which comes with the tiered store."""
+    Tiered stores (``TieredKVStore``) get their *cold* tier wrapped: the
+    plan models durable-storage rot, and the in-process hot tier masks it —
+    a fault only reaches a reader whose entry is not (or no longer) hot,
+    which is exactly the eviction x faults surface.  The view shares the
+    clean store's index state (metadata, refcounts, LRU), so reads/evictions
+    through either object see one store; use the view's ``cold`` attribute
+    (the :class:`FaultyBackend`) for injection counters.  Note the plan's
+    keys are *hash* strings here, not context ids — draws stay deterministic
+    per (hash, level), independent of which context reads the blob."""
+    if isinstance(store, TieredKVStore):
+        out = copy.copy(store)  # shares _meta/_refcount/_hash_levels/_hot_lru
+        out.cold = out.backend = FaultyBackend(store.cold, plan)
+        return out
     out = KVStore(store.tables, backend=FaultyBackend(store.backend, plan))
     out._meta = store._meta
     return out

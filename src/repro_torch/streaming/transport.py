@@ -12,7 +12,7 @@ The fetch layer split:
   * ``NetworkModel`` (streaming/network.py) — the virtual-clock link model,
     used by the offline simulator and by :class:`SimTransport`'s pacing.
 
-Two transports:
+Three transports:
 
   * :class:`LocalTransport` — direct storage read, no link.  Timing is
     host wall time; the offline ``materialize`` default.
@@ -23,15 +23,22 @@ Two transports:
     virtual-clock simulator runs.  A SimTransport-backed session therefore
     makes exactly the simulator's per-chunk decisions while its fetches,
     hedges and cancellations are genuinely concurrent I/O.
+  * :class:`TcpTransport` — a real socket link to a
+    :class:`TcpStoreServer` fronting a ``KVStore`` (length-prefixed frames,
+    optional server-side pacing + keyed straggler stalls).  Timing is
+    measured off the wire, so the session's throughput estimator sees an
+    actual link.
 
 Hedging is transport-level I/O, not clock arithmetic: pass
-``hedge_after_s`` to :meth:`Transport.fetch_run` and :class:`SimTransport`
-issues a duplicate attempt after that delay, uses the winner's bytes,
-*cancels* the loser (its paced read stops), and reports the loser's
-transferred bytes as ``duplicate_bytes``.
+``hedge_after_s`` to :meth:`Transport.fetch_run` and the transport issues
+a duplicate attempt after that delay, uses the winner's bytes,
+*cancels* the loser (sim: its paced read stops; tcp: its socket is closed
+mid-stream), and reports the loser's transferred bytes as
+``duplicate_bytes``.
 
-Worker threads only read, slice and checksum ``bytes``; no CUDA tensor
-crosses a thread — decodes and cache writes stay on the caller's thread.
+Worker threads (and the TCP server's threads) only read, slice, send and
+checksum ``bytes``; no CUDA tensor crosses a thread — decodes and cache
+writes stay on the caller's thread.
 
 Failure model.  A fetch can fail five ways, and each maps to one
 :func:`classify_failure` kind a retry loop acts on:
@@ -62,16 +69,33 @@ metadata (``FetchResult.seg_index``).  A cancelled attempt returns a
 offset, and the index — which ``SegmentIndex.verified_prefix`` resolves
 into complete CRC-verified segments plus a resume offset.  Transports
 advertise the capability with a ``supports_range`` class attribute.
+
+Versioned range-request frame (tcp).  Request: one msgpack frame
+``{cid, chunks, straggle, attempt[, hashes][, range: [offset, length|0]]
+[, want_idx: true]}``; ``length 0`` means to-end.  Response header:
+``{ok, sizes[, total, idx]}`` (or ``{ok: false, error}``) — ``total`` (the
+full blob length) and ``idx`` (the segment index, wire form) are present
+only when the request carried ``range``/``want_idx``.  Version tolerance is
+by omission on both sides: an old server ignores the extra request keys and
+streams the whole blob (the client detects the missing ``total`` and treats
+the response as a whole-blob fetch from offset 0); an old client never
+sends them.  Frames are packed and parsed by the port's own msgpack subset
+(``core/_msgpack.py``), byte for byte as ``msgpack.packb`` packs them; a
+frame that does not parse, or holds bytes after its object, is malformed.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
+import socket
+import struct
 import threading
 import time
 from typing import List, Optional, Protocol, Sequence, Tuple, runtime_checkable
 
+from repro_torch.core import _msgpack
 from repro_torch.core.bitstream import IntegrityError, SegmentIndex, segment_index
-from repro_torch.streaming.network import NetworkModel
+from repro_torch.streaming.network import NetworkModel, keyed_straggler_delay
 from repro_torch.streaming.storage import KVStore
 
 __all__ = [
@@ -82,10 +106,14 @@ __all__ = [
     "RetryPolicy",
     "Salvage",
     "SimTransport",
+    "TcpStoreServer",
+    "TcpTransport",
     "Transport",
     "as_completed",
     "classify_failure",
 ]
+
+logger = logging.getLogger(__name__)
 
 ChunkLevels = Sequence[Tuple[int, int]]  # [(chunk_idx, level), ...]
 
@@ -751,3 +779,704 @@ class SimTransport:
 
     def close(self) -> None:
         pass
+
+
+# ---------------------------------------------------------------------------
+# TcpTransport: a real socket link
+# ---------------------------------------------------------------------------
+
+_LEN = struct.Struct(">I")
+
+
+def _recv_exact(sock: socket.socket, n: int, counter=None) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        part = sock.recv(min(65536, n - len(buf)))
+        if not part:
+            raise ConnectionError("peer closed mid-frame")
+        buf += part
+        if counter is not None:
+            counter[0] += len(part)
+    return bytes(buf)
+
+
+def _send_frame(sock: socket.socket, payload: bytes) -> None:
+    sock.sendall(_LEN.pack(len(payload)) + payload)
+
+
+def _recv_frame(sock: socket.socket, counter=None) -> bytes:
+    (n,) = _LEN.unpack(_recv_exact(sock, _LEN.size, counter))
+    return _recv_exact(sock, n, counter)
+
+
+def _recv_frame_into(sock: socket.socket, counter, buf: bytearray) -> bytes:
+    """Receive one frame, appending payload bytes to ``buf`` *as they
+    arrive* — a stream severed mid-frame leaves its realized prefix in
+    ``buf`` for salvage instead of losing it inside the exception."""
+    (n,) = _LEN.unpack(_recv_exact(sock, _LEN.size, counter))
+    start = len(buf)
+    while len(buf) - start < n:
+        part = sock.recv(min(65536, n - (len(buf) - start)))
+        if not part:
+            raise ConnectionError("peer closed mid-frame")
+        buf += part
+        if counter is not None:
+            counter[0] += len(part)
+    return bytes(buf[start:start + n])
+
+
+class TcpStoreServer:
+    """Length-prefixed socket server fronting a :class:`KVStore`.
+
+    Request: one msgpack frame ``{cid, chunks: [[ci, lvl], ...], straggle,
+    attempt}``, optionally carrying ``hashes: [key | nil, ...]`` aligned
+    with ``chunks`` — when the fronted store is content-addressed
+    (``TieredKVStore``), a non-nil hash key is served directly via
+    ``get_by_hash`` (two tenants sharing a document prefix hit the same
+    blob without the server consulting either tenant's catalog); nil
+    entries and flat stores fall back to the ``(cid, chunk, level)`` path.
+    Optional ``range: [offset, length|0]`` and ``want_idx: true`` request
+    keys (see the module docstring) slice the single blob and attach its
+    segment index + full length to the response header — old clients never
+    send them, old servers ignore them.  Connections are persistent: the
+    server loops serving requests until the client closes at a frame
+    boundary (clean goodbye, not a dropped connection).
+    Response: one msgpack header frame ``{ok, sizes[, total, idx] | error}``
+    followed by each blob as a raw frame.  ``tier_stats()`` snapshots the
+    fronted store's per-tier hit/miss/demotion counters (empty for a flat
+    store) — the multi-tenant deployment's observability surface.  ``pace_gbps`` throttles the blob
+    stream into timed slices (an actual paced link, not a sleep-at-the-end
+    model); ``straggler_p`` injects a keyed Pareto stall per
+    ``(chunk_idx, attempt)`` before the payload — the same
+    ``keyed_straggler_delay`` the virtual-clock model draws from, so a
+    hedged client (attempt 1, ``straggle=False``) escapes exactly the
+    stalls the simulator's hedge escapes.
+
+    Connection-failure accounting: every accepted connection increments
+    ``n_connections``; a connection that dies mid-exchange (client gone,
+    socket error) increments ``n_dropped_connections``; a request frame that
+    does not parse increments ``n_malformed``.  The most recent reasons are
+    kept in ``last_errors`` (bounded) and logged at debug level — a flaky
+    peer is observable on the server object, not silently swallowed.
+
+    ``fault_plan`` (``streaming/faults.FaultPlan``) injects server-side
+    chaos per request: a "drop" severs the stream mid-frame (header + half
+    the first blob, then close), a "stall" sleeps past the client's timeout,
+    a "corrupt" flips payload bytes before sending, a "truncate" delivers a
+    valid payload prefix then severs (the salvageable partial delivery the
+    resume path exists for).  ``n_injected_faults`` counts them.
+    """
+
+    def __init__(
+        self,
+        store: KVStore,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        *,
+        pace_gbps: Optional[float] = None,
+        straggler_p: float = 0.0,
+        straggler_scale_s: float = 0.1,
+        straggler_alpha: float = 1.5,
+        seed: int = 0,
+        fault_plan=None,
+    ):
+        self.store = store
+        self.pace_gbps = pace_gbps
+        self.straggler_p = straggler_p
+        self.straggler_scale_s = straggler_scale_s
+        self.straggler_alpha = straggler_alpha
+        self.seed = seed
+        self.fault_plan = fault_plan
+        self.n_connections = 0
+        self.n_dropped_connections = 0
+        self.n_malformed = 0
+        self.n_injected_faults = 0
+        self.last_errors: List[str] = []  # bounded, most recent last
+        self._attempt_counts: dict = {}  # (cid, chunk, level) -> tries seen
+        self._stats_lock = threading.Lock()
+        self._live_conns: set = set()  # persistent conns to sever on close()
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(64)
+        self.address: Tuple[str, int] = self._sock.getsockname()[:2]
+        self._closing = threading.Event()
+        self._thread = threading.Thread(target=self._accept_loop, daemon=True)
+        self._thread.start()
+
+    # -- server internals --------------------------------------------------
+
+    def _accept_loop(self) -> None:
+        while not self._closing.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return  # listener closed
+            threading.Thread(
+                target=self._serve_conn, args=(conn,), daemon=True
+            ).start()
+
+    def _note_error(self, reason: str) -> None:
+        with self._stats_lock:
+            self.last_errors.append(reason)
+            del self.last_errors[:-16]
+        logger.debug("tcp store server: %s", reason)
+
+    def _draw_fault(self, cid, chunks):
+        """One injected fault decision per request (first chunk keys it)."""
+        if self.fault_plan is None or not chunks:
+            return None, 0
+        ci, lvl = chunks[0]
+        with self._stats_lock:
+            attempt = self._attempt_counts.get((cid, ci, lvl), 0)
+            self._attempt_counts[(cid, ci, lvl)] = attempt + 1
+        return self.fault_plan.draw(cid, ci, lvl, attempt), attempt
+
+    def _serve_conn(self, conn: socket.socket) -> None:
+        with self._stats_lock:
+            self.n_connections += 1
+            self._live_conns.add(conn)
+        try:
+            with conn:
+                # persistent connection: serve requests until the client
+                # closes cleanly at a frame boundary (connection reuse —
+                # a retrying session does not re-pay connection setup)
+                while self._serve_one(conn):
+                    pass
+        except (ConnectionError, OSError, ValueError) as e:
+            if self._closing.is_set():
+                return  # shutdown severed us, not the peer
+            # client gone (a cancelled hedge loser, a dropped peer) — the
+            # request is over, but the event is counted and attributable
+            with self._stats_lock:
+                self.n_dropped_connections += 1
+            self._note_error(f"connection dropped mid-exchange: {e!r}")
+            return
+        finally:
+            with self._stats_lock:
+                self._live_conns.discard(conn)
+
+    def _serve_one(self, conn: socket.socket) -> bool:
+        """Serve one request; False ends the connection (cleanly or after
+        an injected sever fault)."""
+        # clean EOF at a frame boundary is the reuse protocol's goodbye,
+        # not a dropped connection
+        first = conn.recv(1)
+        if not first:
+            return False
+        try:
+            n = _LEN.unpack(first + _recv_exact(conn, _LEN.size - 1))[0]
+            req = _msgpack.unpackb(_recv_exact(conn, n))
+            cid = req["cid"]
+            chunks = [(int(c), int(lv)) for c, lv in req["chunks"]]
+            hashes = req.get("hashes")
+            if hashes is not None and len(hashes) != len(chunks):
+                raise ValueError(
+                    f"hashes length {len(hashes)} != chunks "
+                    f"length {len(chunks)}"
+                )
+            rng = req.get("range")
+            want_idx = bool(req.get("want_idx"))
+            if rng is not None and len(chunks) != 1:
+                raise ValueError("range request must name exactly one chunk")
+        except ConnectionError:
+            raise  # peer vanished mid-request frame
+        except Exception as e:
+            with self._stats_lock:
+                self.n_malformed += 1
+            self._note_error(f"malformed request frame: {e!r}")
+            return False
+        get_by_hash = getattr(self.store, "get_by_hash", None)
+        if hashes is None or not callable(get_by_hash):
+            hashes = [None] * len(chunks)
+        try:
+            blobs = [
+                get_by_hash(h, lvl)
+                if h is not None
+                else self.store.get_kv(cid, ci, lvl)
+                for h, (ci, lvl) in zip(hashes, chunks)
+            ]
+        except KeyError as e:
+            _send_frame(conn, _msgpack.packb(
+                {"ok": False, "error": str(e.args[0])}
+            ))
+            return True
+        # range/index view of the (single) blob — computed before fault
+        # injection so a corrupt fault damages the *delivered* bytes while
+        # the index still describes the canonical blob (the client's
+        # verified_prefix then catches the corruption segment-by-segment)
+        header: dict = {"ok": True}
+        if rng is not None or want_idx:
+            header["total"] = len(blobs[0]) if len(blobs) == 1 else 0
+            if want_idx and len(blobs) == 1:
+                header["idx"] = segment_index(blobs[0]).to_wire()
+            if rng is not None:
+                off, end = _clamp_range(
+                    (int(rng[0]), int(rng[1]) if len(rng) > 1 else None),
+                    len(blobs[0]),
+                )
+                blobs = [blobs[0][off:end]]
+        fault, attempt = self._draw_fault(cid, chunks)
+        if fault is not None:
+            with self._stats_lock:
+                self.n_injected_faults += 1
+            self._note_error(
+                f"injected {fault.kind} fault for {cid!r} chunks {chunks}"
+            )
+            if fault.kind == "stall":
+                time.sleep(fault.delay_s)
+            elif fault.kind == "corrupt":
+                blobs = [
+                    self.fault_plan.corrupt_bytes(b, cid, ci, lvl, attempt)
+                    for b, (ci, lvl) in zip(blobs, chunks)
+                ]
+        header["sizes"] = [len(b) for b in blobs]
+        _send_frame(conn, _msgpack.packb(header))
+        if fault is not None and fault.kind == "drop":
+            # sever mid-frame: length prefix + half the payload, then the
+            # connection closes — the client sees ConnectionError
+            half = blobs[0][: max(len(blobs[0]) // 2, 1)]
+            conn.sendall(_LEN.pack(len(blobs[0])) + half)
+            return False
+        if fault is not None and fault.kind == "truncate":
+            # deliver a *valid prefix* then sever: the adversarial input
+            # the resume path must salvage (drop's bytes are mid-frame
+            # garbage to the framing layer; truncate's parse as segments)
+            frac = self.fault_plan.truncate_fraction(
+                cid, chunks[0][0], chunks[0][1], attempt
+            )
+            k = max(1, int(len(blobs[0]) * frac))
+            conn.sendall(_LEN.pack(len(blobs[0])) + blobs[0][:k])
+            return False
+        if req.get("straggle", True) and self.straggler_p > 0:
+            key_chunk = chunks[0][0] if chunks else 0
+            stall = keyed_straggler_delay(
+                self.seed, key_chunk, int(req.get("attempt", 0)),
+                p=self.straggler_p, scale_s=self.straggler_scale_s,
+                alpha=self.straggler_alpha,
+            )
+            if stall > 0:
+                time.sleep(stall)
+        for blob in blobs:
+            self._send_paced(conn, blob)
+        return True
+
+    def _send_paced(self, conn: socket.socket, blob: bytes) -> None:
+        conn.sendall(_LEN.pack(len(blob)))
+        if not self.pace_gbps:
+            conn.sendall(blob)
+            return
+        # timed slices: ~5 ms of link time each, so cancellation (client
+        # closing its socket) lands mid-stream, not between blobs
+        bytes_per_s = self.pace_gbps * 1e9 / 8.0
+        slice_bytes = max(1, int(bytes_per_s * 0.005))
+        sent = 0
+        t0 = time.perf_counter()
+        while sent < len(blob):
+            part = blob[sent : sent + slice_bytes]
+            conn.sendall(part)
+            sent += len(part)
+            target = sent / bytes_per_s
+            lag = target - (time.perf_counter() - t0)
+            if lag > 0:
+                time.sleep(lag)
+
+    def tier_stats(self) -> dict:
+        """Per-tier hit/miss/demotion counters of the fronted store
+        (``{}`` when the store is flat — no tiers, nothing to report)."""
+        counters = getattr(self.store, "tier_counters", None)
+        return dict(counters()) if callable(counters) else {}
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def close(self) -> None:
+        self._closing.set()
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        # persistent connections would otherwise outlive the server — a
+        # pooled client socket must go stale when its server goes away
+        with self._stats_lock:
+            live = list(self._live_conns)
+        for conn in live:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def __enter__(self) -> "TcpStoreServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class _TcpAttempt:
+    def __init__(self):
+        self.sock: Optional[socket.socket] = None
+        self.counter = [0]  # bytes received (mutable cell for _recv_exact)
+        self.blobs: Optional[List[bytes]] = None
+        self.error: Optional[BaseException] = None
+        self.finished = threading.Event()
+        self.cancelled = False
+        self.pooled = False  # sock was checked out of the reuse pool
+        # salvage state: payload bytes of a single-chunk fetch accumulate
+        # here as frames drain, so a severed stream leaves its realized
+        # prefix behind instead of vanishing with the exception
+        self.blob_buf = bytearray()
+        self.seg_index: Optional[SegmentIndex] = None
+        self.range_offset = 0
+        self.range_total = 0
+
+    @property
+    def bytes_read(self) -> int:
+        return self.counter[0]
+
+    def cancel(self) -> None:
+        self.cancelled = True
+        if self.sock is not None:
+            try:
+                self.sock.close()  # real cancellation: the stream dies now
+            except OSError:
+                pass
+
+
+class _TcpHandle(FetchHandle):
+    def __init__(self, attempts: List[_TcpAttempt], context_id=None, chunk_levels=None):
+        super().__init__(context_id, chunk_levels)
+        self._attempts = attempts
+
+    def salvage_at(self, at_t: Optional[float] = None) -> Optional[Salvage]:
+        # wall-clock transport: "now" is the only observable instant, so
+        # at_t is advisory — the realized prefix is whatever has actually
+        # drained off the socket into the primary attempt's buffer
+        a = self._attempts[0]
+        if not a.blob_buf:
+            return None
+        return Salvage(
+            data=bytes(a.blob_buf),
+            offset=a.range_offset,
+            total=a.range_total,
+            index=a.seg_index,
+            nbytes_wire=float(len(a.blob_buf)),
+        )
+
+    def _abort(self) -> None:
+        for a in self._attempts:
+            a.cancel()
+
+
+class TcpTransport:
+    """Client for :class:`TcpStoreServer` with a connection-reuse pool.
+
+    Each attempt runs on its own socket, but sockets whose exchange ends
+    cleanly (frame-aligned) return to a pool and serve the next attempt —
+    a retrying session no longer re-pays TCP setup per retry.  A pooled
+    socket that went stale while idle is replaced by a fresh dial and the
+    request replayed once (``n_reconnects``); sockets severed mid-stream
+    (faults, cancellation, hedging losers) are closed, never pooled.
+    ``tier_stats()`` reports the dial/reuse/reconnect counters.
+
+    Timing is measured on the wire — ``end_t = start_t + wall`` and the
+    observed throughput is realized bytes over realized seconds, so a
+    session running over this transport estimates bandwidth from an actual
+    link.  Hedging is an actual race: a second connection is opened
+    ``hedge_after_s`` (real seconds) after the first if it hasn't finished,
+    the first completion wins, and the loser's socket is closed mid-stream
+    (``duplicate_bytes`` = the loser's realized byte counter).
+
+    ``hash_lookup`` (optional, ``(context_id, chunk_idx) -> key | None``) is
+    the client-side manifest for a content-addressed server: when it yields
+    keys, the request frame carries them as ``hashes`` and the server reads
+    by ``(hash, level)`` instead of the per-context catalog.  A lookup that
+    answers None (or raises) for a chunk falls back to the context-keyed
+    path for that entry — old servers ignore the extra field entirely.
+    """
+
+    realtime = True  # handles resolve on actual link time
+    supports_range = True
+
+    def __init__(
+        self,
+        host: str,
+        port: int,
+        *,
+        connect_timeout_s: float = 5.0,
+        io_timeout_s: float = 30.0,
+        hash_lookup=None,
+    ):
+        self.host = host
+        self.port = port
+        self.connect_timeout_s = connect_timeout_s
+        self.io_timeout_s = io_timeout_s
+        self.hash_lookup = hash_lookup
+        # connection reuse: sockets whose exchange completed cleanly are
+        # pooled for the next attempt instead of re-paying TCP setup
+        self._pool: List[socket.socket] = []
+        self._pool_lock = threading.Lock()
+        self.n_connects = 0  # fresh sockets dialed
+        self.n_reconnects = 0  # stale pooled socket -> fresh dial + replay
+        self.n_pool_reuses = 0  # attempts served on a pooled socket
+
+    # -- connection pool ---------------------------------------------------
+
+    def _checkout(self) -> Tuple[socket.socket, bool]:
+        """A socket to run one request on: pooled if available, else a
+        fresh dial.  Returns ``(sock, was_pooled)``."""
+        with self._pool_lock:
+            if self._pool:
+                self.n_pool_reuses += 1
+                return self._pool.pop(), True
+            self.n_connects += 1
+        sock = socket.create_connection(
+            (self.host, self.port), timeout=self.connect_timeout_s
+        )
+        sock.settimeout(self.io_timeout_s)
+        return sock, False
+
+    def _checkin(self, sock: socket.socket) -> None:
+        with self._pool_lock:
+            self._pool.append(sock)
+
+    def tier_stats(self) -> dict:
+        """Client-side connection counters (mirrors the server's
+        observability surface): fresh dials, pooled reuses, and reconnects
+        forced by a stale pooled socket."""
+        with self._pool_lock:
+            return {
+                "n_connects": self.n_connects,
+                "n_reconnects": self.n_reconnects,
+                "n_pool_reuses": self.n_pool_reuses,
+            }
+
+    def _hashes_for(
+        self, context_id: str, chunk_levels: List[Tuple[int, int]]
+    ) -> Optional[List[Optional[str]]]:
+        if self.hash_lookup is None:
+            return None
+        hashes: List[Optional[str]] = []
+        for ci, _lvl in chunk_levels:
+            try:
+                hashes.append(self.hash_lookup(context_id, ci))
+            except Exception:
+                hashes.append(None)
+        return hashes if any(h is not None for h in hashes) else None
+
+    @staticmethod
+    def for_server(server: TcpStoreServer, **kw) -> "TcpTransport":
+        return TcpTransport(server.address[0], server.address[1], **kw)
+
+    def _run_attempt(
+        self,
+        attempt: _TcpAttempt,
+        context_id: str,
+        chunk_levels: List[Tuple[int, int]],
+        attempt_idx: int,
+        notify: Optional[threading.Event] = None,
+        byte_range: Optional[Tuple[int, Optional[int]]] = None,
+        resumable: bool = False,
+    ) -> None:
+        clean = False
+        try:
+            try:
+                self._exchange(
+                    attempt, context_id, chunk_levels, attempt_idx,
+                    byte_range, resumable,
+                )
+            except (ConnectionError, OSError):
+                # a pooled socket may have gone stale while idle (server
+                # restarted, keepalive lapsed): if the failure hit before
+                # any response bytes arrived, dial fresh and replay once
+                if not (attempt.pooled and attempt.counter[0] == 0
+                        and not attempt.cancelled):
+                    raise
+                with self._pool_lock:
+                    self.n_reconnects += 1
+                try:
+                    attempt.sock.close()
+                except OSError:
+                    pass
+                attempt.sock = None
+                attempt.pooled = False
+                self._exchange(
+                    attempt, context_id, chunk_levels, attempt_idx,
+                    byte_range, resumable,
+                )
+            clean = True
+        except BaseException as e:
+            attempt.error = e
+        finally:
+            if attempt.sock is not None:
+                if clean and not attempt.cancelled:
+                    self._checkin(attempt.sock)  # reusable: frame-aligned
+                else:
+                    try:
+                        attempt.sock.close()
+                    except OSError:
+                        pass
+            attempt.finished.set()
+            if notify is not None:
+                notify.set()
+
+    def _exchange(
+        self,
+        attempt: _TcpAttempt,
+        context_id: str,
+        chunk_levels: List[Tuple[int, int]],
+        attempt_idx: int,
+        byte_range: Optional[Tuple[int, Optional[int]]],
+        resumable: bool,
+    ) -> None:
+        sock, pooled = self._checkout()
+        attempt.sock = sock
+        attempt.pooled = pooled
+        if attempt.cancelled:
+            # cancel() landed while we were connecting (sock was None,
+            # nothing to close then) — abort before requesting anything,
+            # or the "cancelled" loser would stream the whole payload
+            raise FetchError("attempt cancelled before request")
+        req = {
+            "cid": context_id,
+            "chunks": [list(c) for c in chunk_levels],
+            "straggle": attempt_idx == 0,
+            "attempt": attempt_idx,
+        }
+        hashes = self._hashes_for(context_id, chunk_levels)
+        if hashes is not None:
+            req["hashes"] = hashes
+        single = len(chunk_levels) == 1
+        if byte_range is not None and single:
+            off, ln = byte_range
+            req["range"] = [int(off), int(ln) if ln else 0]
+        if (resumable or byte_range is not None) and single:
+            req["want_idx"] = True
+        _send_frame(sock, _msgpack.packb(req))
+        header = _msgpack.unpackb(_recv_frame(sock, attempt.counter))
+        if not header.get("ok"):
+            raise KeyError(header.get("error", "storage error"))
+        if "idx" in header:
+            attempt.seg_index = SegmentIndex.from_wire(header["idx"])
+        if "total" in header:
+            attempt.range_total = int(header["total"])
+            if byte_range is not None:
+                attempt.range_offset = int(byte_range[0])
+        # a pre-range server ignored the request keys and is streaming the
+        # whole blob: "total" absent -> the payload starts at offset 0
+        if single:
+            blobs = [
+                _recv_frame_into(sock, attempt.counter, attempt.blob_buf)
+                for _ in header["sizes"]
+            ]
+        else:
+            blobs = [
+                _recv_frame(sock, attempt.counter) for _ in header["sizes"]
+            ]
+        attempt.blobs = blobs
+
+    def fetch_run(
+        self,
+        context_id: str,
+        chunk_levels: ChunkLevels,
+        *,
+        start_t: float = 0.0,
+        hedge_after_s: Optional[float] = None,
+        byte_range: Optional[Tuple[int, Optional[int]]] = None,
+        resumable: bool = False,
+    ) -> FetchHandle:
+        chunk_levels = list(chunk_levels)
+        if byte_range is not None and len(chunk_levels) != 1:
+            raise ValueError("byte-range fetch is single-chunk only")
+        if byte_range is not None:
+            hedge_after_s = None  # a resumed suffix is never hedged
+        primary = _TcpAttempt()
+        attempts = [primary]
+        handle = _TcpHandle(attempts, context_id, chunk_levels)
+
+        def coordinate():
+            t0 = time.perf_counter()
+            any_finished = threading.Event()
+            threading.Thread(
+                target=self._run_attempt,
+                args=(primary, context_id, chunk_levels, 0, any_finished,
+                      byte_range, resumable),
+                daemon=True,
+            ).start()
+            hedge: Optional[_TcpAttempt] = None
+            if hedge_after_s is not None:
+                if not primary.finished.wait(hedge_after_s):
+                    if handle.done():  # cancelled while primary connected
+                        primary.cancel()
+                        return
+                    hedge = _TcpAttempt()
+                    attempts.append(hedge)
+                    threading.Thread(
+                        target=self._run_attempt,
+                        args=(hedge, context_id, chunk_levels, 1, any_finished,
+                              byte_range, resumable),
+                        daemon=True,
+                    ).start()
+                    if handle.done():  # cancel() raced the hedge spawn
+                        hedge.cancel()
+            # race: first attempt to finish with blobs wins
+            contenders = [a for a in attempts]
+            winner: Optional[_TcpAttempt] = None
+            while winner is None:
+                winner = next(
+                    (a for a in contenders
+                     if a.finished.is_set() and a.blobs is not None),
+                    None,
+                )
+                if winner is not None:
+                    break
+                if all(a.finished.is_set() for a in contenders):  # all failed
+                    err = next(
+                        (a.error for a in contenders if a.error is not None),
+                        FetchError(
+                            "all fetch attempts failed",
+                            context_id=context_id,
+                            chunk_levels=chunk_levels,
+                        ),
+                    )
+                    handle._finish(None, err)
+                    return
+                any_finished.wait()
+                any_finished.clear()
+            wall = time.perf_counter() - t0
+            loser = next((a for a in attempts if a is not winner), None)
+            if loser is not None and not loser.finished.is_set():
+                loser.cancel()
+            nbytes = sum(len(b) for b in winner.blobs)
+            # single snapshot of the loser's live counter: its recv loop may
+            # still be draining buffered data as the socket dies
+            loser_read = loser.bytes_read if loser is not None else 0
+            handle._finish(FetchResult(
+                blobs=winner.blobs,
+                nbytes=nbytes,
+                start_t=start_t,
+                end_t=start_t + wall,
+                throughput_gbps=nbytes * 8.0 / max(wall, 1e-9) / 1e9,
+                hedged=winner is not primary,
+                hedge_issued=hedge is not None,
+                duplicate_bytes=float(loser_read),
+                wall_s=wall,
+                winner="primary" if winner is primary else "hedge",
+                loser_cancelled=loser.cancelled if loser is not None else False,
+                loser_bytes_read=loser_read,
+                completion_order=tuple(ci for ci, _ in chunk_levels),
+                seg_index=winner.seg_index,
+                range_offset=winner.range_offset,
+                range_total=winner.range_total,
+            ))
+
+        threading.Thread(target=coordinate, daemon=True).start()
+        return handle
+
+    def close(self) -> None:
+        with self._pool_lock:
+            pool, self._pool = self._pool, []
+        for sock in pool:
+            try:
+                sock.close()
+            except OSError:
+                pass

@@ -168,7 +168,7 @@ def build_world():
              jscheduler, jgeneration, jkv_layout, jpipeline),
     )
     return dict(
-        sides=sides, tokens=tokens, metas=metas,
+        sides=sides, tokens=tokens, metas=metas, kv=kv,
         first=np.array(jnp.argmax(jlogits[:, -1], -1), np.int32),
         u=sum(m.sizes[1] for m in metas) * 8 / 1e9,  # level-1 context in one second
     )

@@ -28,6 +28,34 @@ def _kv(seed, T):
     return (np.cumsum(steps, axis=2) + r.normal(size=(L, 2, 1, C))).astype(np.float32)
 
 
+def _counts(kind, rng, T, A):
+    if kind == "uniform":
+        return rng.integers(0, 1000, size=(T, A))
+    if kind == "peaked":  # one symbol holds the mass: rows far over 2**k
+        c = np.zeros((T, A), np.int64)
+        c[:, 0] = rng.integers(0, 10**7, size=T)
+        return c
+    if kind == "ties":  # equal remainders: the argsort order decides
+        return rng.integers(0, 3, size=(T, A)) * 100
+    if kind == "heavy-tail":
+        return (rng.pareto(1.2, size=(T, A)) * 50).astype(np.int64)
+    return np.zeros((T, A), np.int64)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "peaked", "ties", "heavy-tail", "empty"])
+@pytest.mark.parametrize("A,k", [(2, 1), (17, 5), (256, 8), (256, 11), (256, 12), (511, 10), (511, 12)])
+def test_normalize_freqs_equals_reference(kind, A, k):
+    """The fix-up computed in whole passes gives the reference loop's
+    tables exactly, rows short of and over 2**k alike, ties included."""
+    rng = np.random.default_rng(A * 100 + k)
+    for T in (1, 5, 16):
+        counts = _counts(kind, rng, T, A)
+        want = jtables.normalize_freqs(counts, k)
+        got = tables.normalize_freqs(counts, k)
+        assert got.dtype == want.dtype == np.uint32
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_rans_matches_reference_and_inverts(seed):
     r = np.random.default_rng(seed)

@@ -1,7 +1,7 @@
 """``chip_smoke.py`` off the card: it refuses to run without one, and its
-main path (phases 4-5), store path (phase 6), session path (phase 7) and
-serving path (phase 8) run at a tiny size on the CPU through the kernels'
-plain versions (no launch counted)."""
+main path (phases 4-5), store path (phase 6), session path (phase 7),
+serving path (phase 8) and launcher path (phase 9) run at a tiny size on the
+CPU through the kernels' plain versions (no launch counted)."""
 import contextlib
 import importlib.util
 import io
@@ -110,3 +110,40 @@ def test_chip_smoke_serving_path_runs_on_cpu_at_tiny_size(rehearsal, stored, ses
     assert loop.n_rows == 2 and all(tl.n_tokens_out == 8 for tl in loop.timeline)
     assert max(m for _, m in loop.gen_occupancy) == 2 and set(got["step_ms"]) == {1, 2}
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_launcher_path_runs_on_cpu_at_tiny_size():
+    """Phase 9 through the launcher at ``.tiny()`` and 256 tokens: the wave
+    makes the simulator's decisions and equals ``materialize``, the TCP
+    waves on the tiered store survive their injected faults, and the open
+    loop preempts, stacks generation steps on both rows and equals
+    ``materialize`` (the script fails otherwise); the checks' own decodes
+    leave the launch counts alone."""
+    smoke = _load_smoke()
+    smoke.ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = smoke.drive_launcher_path(torch.device("cpu"), ctx_len=256, full_width=False)
+    out = out.getvalue()
+    assert "launcher A: 4 requests made the simulator's decisions" in out
+    assert f"--fault-seed {smoke.LAUNCH_FAULT_SEED}" in out and "[serve] tcp server:" in out
+    assert "[generation tokens=64]" in out and "launcher steps ms" in out
+    assert got["B"]["tcp_server"]["n_injected_faults"] > 0
+    loop = got["C"]["open_loop"]
+    assert loop.n_gen_tokens == 64 and loop.n_preemptions > 0
+    assert max(n for _, n in loop.gen_occupancy) == 2
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_launcher_fault_seed_keeps_every_chunk_within_its_retries():
+    """B's seed truncates chunk 0's first fetch and no chunk more than
+    twice in the twelve attempts four requests can make, at the card's
+    context and at the rehearsal's."""
+    from repro_torch.streaming.storage import split_chunks
+
+    smoke = _load_smoke()
+    for ctx in (256, smoke.LAUNCH_CTX):
+        n = len(split_chunks(ctx, max(ctx // 4, 50)))
+        plan = smoke.FaultPlan(seed=smoke.LAUNCH_FAULT_SEED, truncate_p=smoke.LAUNCH_TRUNCATE_P)
+        hits = [[a for a in range(12) if plan.draw("ctx", ci, 1, a)] for ci in range(n)]
+        assert hits[0][:1] == [0] and all(len(h) <= smoke.LAUNCH_RETRY - 1 for h in hits)
