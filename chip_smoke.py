@@ -8,7 +8,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
 1. env     torch / CUDA versions and the card's name and power limit.
 2. build   compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels each kernel against its plain PyTorch version on the card, at the
-           smollm-360m main-path shapes plus ragged cases, under the bf16
+           smollm-360m main-path shapes plus ragged cases (and K1-K4 at
+           phase 10's qwen2-moe-a2.7b shapes), under the bf16
            rule of ``kernels.ops.BF16_TOL`` (K2, K5 and K6 bit for bit);
            planted faults (K1 one group's anchor off by one bin or two
            neighbouring channels swapped, K3 skipping one split, masking one
@@ -105,16 +106,52 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            The ``materialize`` checks' launches are not counted.  It prints
            each run's lines, the chunks compared by kind, C's tokens per
            wall second and the phase's wall time.
+10. moe    the MoE family, qwen2-moe-a2.7b at full width (24 layers, d 2048,
+           16/16 heads of 128, 60 routed experts top-4 and 4 shared; random
+           bf16 weights from a seed, 28.6 GB, drawn one expert layer at a
+           time), after phases 4-9's engines and caches are freed:
+           A. the engine: ``calculate_kv`` of a 3072-token context (K4, 24
+              launches; each layer's dropped slots printed), ``profile`` and
+              every level of four 768-token chunks (K5), one
+              ``decode_chunk_runs`` of a level-0 and a level-1 run (K2, K1 at
+              C = 2048) into a 2-row cache, held to the unfused
+              ``decode_chunk`` (K6, uncounted: level 0 bit for bit, level 1
+              within K1's rule); 32 greedy tokens from the fused level-0
+              cache must equal those from the oracle's (K3; the oracle's and
+              the prefill cache's generations are uncounted); one decode step
+              with the kernels must equal itself bit for bit and lie within
+              2e-2 of its largest |logit| of the same step on the plain
+              versions routed to the same experts (the layers where the plain
+              step's own router would choose otherwise are printed); its wall
+              and device ms are printed;
+           B. ``serve.run --arch qwen2-moe-a2.7b --full-width --ctx-len 3072
+              --check-sim`` three times, each freed before the next: a wave
+              of ``--requests 4 --concurrency 4`` as the simulator decides,
+              then waves of 2 pinned with ``--fixed-level 0`` and
+              ``--fixed-level 1`` (level 0 and lossy chunks load through the
+              launcher's batched decode); every request must make the
+              simulator's decisions and equal ``materialize`` of its configs
+              (level 0 bit for bit, lossy within K1's rule); each batched
+              TEXT call is replayed on a copy of its input cache and must
+              give the same bits, and each TEXT chunk must equal its replay
+              (an MoE layer's capacity is set by every row of its call, so
+              ``materialize``'s batch-1 recompute is only compared for
+              information).  The replays run inside the launcher's timed
+              calls, so B's wall times include them.
+           The kernels phase also holds K1/K2 (C = 2048), K3 and K4 to their
+           plain versions at this model's shapes, with their times.
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5, then zeroed before each of phases 6, 7, 8 and 9 and read after it; the
-run fails if a kernel that a path runs was not launched in it (all six on
-the serve + text and store paths; K1, K2 and K3 on the session and serving
-paths; K1-K5 on the launcher path).  The last line is ``{"ok": true, "device": {...}}``; the line
-before it lists the kernels, with launches summed over the paths.  Needs
+5, then zeroed before each of phases 6, 7, 8, 9 and 10 and read after it;
+the run fails if a kernel that a path runs was not launched in it (all six
+on the serve + text and store paths; K1, K2 and K3 on the session and
+serving paths; K1-K5 on the launcher and moe paths).  The last line is
+``{"ok": true, "device": {...}}``; the line before it lists the kernels,
+with launches summed over the paths.  Needs
 one CUDA card; exits 2 with no result when there is none.
 """
 import contextlib
+import gc
 import itertools
 import json
 import subprocess
@@ -157,7 +194,7 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     vector_width,
 )
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import lm, moe  # noqa: E402
 from repro_torch.models.lm import Caches  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.generation import GenerationSpec  # noqa: E402
@@ -227,6 +264,7 @@ ALL_KERNELS = tuple(ops.KERNELS)
 SESSION_KERNELS = ("kv_dequant_tokens", "kv_lossless_tokens", "decode_attention")
 SERVING_KERNELS = SESSION_KERNELS
 LAUNCHER_KERNELS = SESSION_KERNELS + ("flash_attention", "kv_quant")
+MOE_KERNELS = LAUNCHER_KERNELS  # the unfused K6 runs only in its checks
 # phase 9: the launcher's context, B's fault rate and attempts, C's arrivals
 LAUNCH_CTX = 3072
 LAUNCH_REQUESTS = 4
@@ -245,6 +283,21 @@ LAUNCH_RATE = 50.0  # Poisson arrivals per second of C's open loop
 LAUNCH_SLO_MS = 20.0
 LAUNCH_GEN = 16
 LAUNCH_GEN_STEP_MS = 500.0
+# phase 10: the MoE family at full width; its context, chunks, the lossy
+# level of its second run, the launcher's requests in its decided wave and
+# in each pinned one.  A decode step with
+# the kernels against the same step on their plain versions, routed to the
+# same experts: bf16 logits after 24 layers within the bf16 rule of the
+# reference's kernel tests, 2e-2, of the step's largest |logit| (an error
+# that enters the residual stream reaches every logit at about the same
+# absolute size)
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_CTX = 3072
+MOE_CHUNK = 768
+MOE_LOSSY = 1
+MOE_REQUESTS = 4
+MOE_PINNED = 2
+MOE_STEP_TOL = 2e-2
 
 
 class Phase:
@@ -270,16 +323,21 @@ class Phase:
 
 class Laps:
     """Host wall time between successive ``lap`` calls, each taken after the
-    device's queued work has finished, to split a phase into its steps."""
+    device's queued work has finished, to split a phase into its steps; on
+    the card also each step's peak of allocated device memory (GB)."""
 
     def __init__(self, device):
         self.device = device
-        self.ms = {}
+        self.ms, self.peak_gb = {}, {}
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         self.t = time.perf_counter()
 
     def lap(self, name):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            self.peak_gb[name] = round(torch.cuda.max_memory_allocated(self.device) / 1e9, 2)
+            torch.cuda.reset_peak_memory_stats(self.device)
         now = time.perf_counter()
         self.ms[name] = round(1e3 * (now - self.t), 1)
         self.t = now
@@ -295,6 +353,20 @@ def uncounted():
     finally:
         for name, fn in ops.KERNELS.items():
             fn.launches = held[name]
+
+
+def device_total_ms(fn, iters=3):
+    """Device time per call of ``fn``: every event of the profiler's CUDA
+    trace of ``iters`` calls (kernels, copies and fills), summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
 
 
 def require(cond, msg):
@@ -813,13 +885,17 @@ def drive_serving_path(cfg, stored, sessioned, phase=lambda name: contextlib.nul
     return {"wave": wave, "continuous": cont, "open_loop": loop, "step_ms": per_width}
 
 
-def match_materialize(run, results, what, ctx_len):
+def match_materialize(run, results, what, ctx_len, replayed=None):
     """Holds each result's cache to ``streamer.materialize`` of its own
     configs on ``run``'s engine and store, under phase 7's rules: level 0
     bit for bit, lossy levels within K1's rule, TEXT within
-    ``TEXT_BATCH_REL`` relative.  The launches these decodes make are not
-    counted.  Returns the chunks compared by kind and the worst TEXT
-    error."""
+    ``TEXT_BATCH_REL`` relative.  With ``replayed`` (phase 10: row -> start
+    -> the K/V a replayed batched TEXT call wrote there) a TEXT chunk must
+    equal its replay bit for bit instead, and its distance from
+    ``materialize``'s batch-1 recompute is only reported: an MoE layer's
+    capacity depends on every row of its call.  The launches these decodes
+    make are not counted.  Returns the chunks compared by kind and the worst
+    TEXT error (relative, against ``materialize``)."""
     streamer, engine = run["streamer"], run["engine"]
     metas = streamer.store.meta("ctx")
     k1_tol = ops.BF16_TOL["kv_dequant_tokens"]
@@ -845,7 +921,11 @@ def match_materialize(run, results, what, ctx_len):
                     kinds["lossy"] += 1
                 else:
                     rel = ((x.float() - y.float()).norm() / y.float().norm()).item()
-                    require(rel <= TEXT_BATCH_REL, f"{where} (TEXT) is {rel:.3g} off materialize's (relative)")
+                    if replayed is None:
+                        require(rel <= TEXT_BATCH_REL, f"{where} (TEXT) is {rel:.3g} off materialize's (relative)")
+                    else:
+                        require(torch.equal(x, replayed[r][m.start]),
+                                f"{where} (TEXT) differs from its batched call replayed")
                     kinds["TEXT"] += 1
                     worst_text = max(worst_text, rel)
     return kinds, worst_text
@@ -928,6 +1008,324 @@ def drive_launcher_path(dev, phase=lambda name: contextlib.nullcontext(), ctx_le
               f"its configs (chunks compared: {kinds_c})")
         print("launcher steps ms:", laps.ms)
     return {"A": a, "B": b, "C": c}
+
+
+@contextlib.contextmanager
+def counting_drops(drops):
+    """Appends, for each MoE layer the block runs, the slots its dispatch
+    drops for lack of capacity (a device scalar; the router is run a second
+    time to count them)."""
+    apply = lm.moe_apply
+
+    def counted(cfg, p, x):
+        drops.append(moe.dropped_slots(cfg, p, x))
+        return apply(cfg, p, x)
+
+    lm.moe_apply = counted
+    try:
+        yield
+    finally:
+        lm.moe_apply = apply
+
+
+@contextlib.contextmanager
+def routing(record=None, pinned=None, flips=None):
+    """Each MoE layer's routing, in call order: appended to ``record``, or
+    taken from ``pinned`` (the experts a recorded run chose, weighted by
+    this run's own gates), with ``flips`` counting the tokens whose own
+    top-k would have chosen other experts."""
+    route = moe.route
+    calls = iter(pinned or ())
+
+    def routed(cfg, p, x):
+        r = route(cfg, p, x)
+        if pinned is None:
+            record.append(r.topi)
+            return r
+        topi = next(calls)
+        flips.append(int((topi.sort(-1)[0] != r.topi.sort(-1)[0]).any(-1).sum()))
+        topv = r.gates.gather(-1, topi)
+        return moe.Routing(r.gates, topv / topv.sum(-1, keepdim=True).clamp_min(1e-9), topi)
+
+    moe.route = routed
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention through K3's and K4's plain versions on any
+    device: f32 arithmetic from the same inputs, the result in their dtype."""
+    saved = ops.decode_attention, ops.flash_attention
+
+    def decode(q, k, v, kv_len, *, scale=None):
+        return decode_attention_plain(q.float(), k.float(), v.float(), kv_len, scale=scale).to(q.dtype)
+
+    def flash(q, k, v, prefix_len=None, *, causal=True, scale=None):
+        return flash_attention_plain(q.float(), k.float(), v.float(), prefix_len, causal=causal,
+                                     scale=scale).to(q.dtype)
+
+    ops.decode_attention, ops.flash_attention = decode, flash
+    try:
+        yield
+    finally:
+        ops.decode_attention, ops.flash_attention = saved
+
+
+@contextlib.contextmanager
+def replaying_text(replayed):
+    """``serve.run``'s engine replays each batched TEXT call
+    (``prefill_extend_rows`` / ``prefill_extend_gather``) on a copy of its
+    input cache, uncounted, and fails unless the two give the same bits;
+    ``replayed[row][start]`` keeps the K/V each written row got."""
+
+    class ReplayEngine(serve.Engine):
+        def prefill_extend_rows(self, tokens, caches, widths):
+            return self._replay(super().prefill_extend_rows, tokens, caches, widths,
+                                [r for r, w in enumerate(np.asarray(widths)) if int(w) > 0])
+
+        def prefill_extend_gather(self, tokens, caches, rows):
+            return self._replay(super().prefill_extend_gather, tokens, caches, rows, list(rows))
+
+        def _replay(self, call, tokens, caches, arg, rows):
+            starts = caches.length.tolist()
+            copy = caches.clone()
+            logits, out = call(tokens, caches, arg)
+            with uncounted():
+                logits2, again = call(tokens, copy, arg)
+            require(torch.equal(logits, logits2) and torch.equal(out.length, again.length)
+                    and torch.equal(out.kv_k, again.kv_k) and torch.equal(out.kv_v, again.kv_v),
+                    f"a batched TEXT call on rows {rows} replayed on the same inputs gave other bits")
+            for r in rows:
+                sl = slice(starts[r], int(again.length[r]))
+                replayed.setdefault(r, {})[starts[r]] = torch.stack([again.kv_k[:, r, sl], again.kv_v[:, r, sl]])
+            return logits, out
+
+    engine = serve.Engine
+    serve.Engine = ReplayEngine
+    try:
+        yield
+    finally:
+        serve.Engine = engine
+
+
+def drive_moe_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), ctx_len=MOE_CTX,
+                   chunk=MOE_CHUNK, gen_tokens=GEN_TOKENS, launcher_ctx=MOE_CTX, full_width=True):
+    """Phase 10: the MoE family (``cfg``, qwen2-moe-a2.7b at full width on
+    the card) through the engine and the launcher.
+
+    A: seeded bf16 weights; ``calculate_kv`` of a ``ctx_len``-token context
+    (K4; each layer's dropped slots printed); ``profile`` and every level of
+    its ``chunk``-token chunks (K5); one ``decode_chunk_runs`` of a level-0
+    and a level-``MOE_LOSSY`` run (K2, K1) into a 2-row cache, held to the
+    unfused per-chunk ``decode_chunk`` (K6, uncounted): level 0 bit for bit,
+    the lossy run within K1's rule; ``gen_tokens`` greedy tokens from the
+    fused level-0 cache equal to those from the oracle's (K3; the oracle's
+    and the prefill cache's generations uncounted); one decode step with
+    the kernels against the same step on their plain versions, routed to
+    the kernel step's experts (within ``MOE_STEP_TOL``; the tokens the plain
+    step's own router would send elsewhere are counted), and against itself
+    (bit for bit), with its wall and device time.  (Off the card the
+    "kernels" are the plain versions in the inputs' dtype, whose bf16
+    attention weights differ more from the f32 plain step than K3 does.)
+    B: ``serve.run`` with ``--check-sim`` at ``launcher_ctx`` tokens
+    (``--full-width`` if ``full_width``): one wave of ``MOE_REQUESTS`` as
+    the simulator decides, then one of ``MOE_PINNED`` at level 0 and one at
+    level ``MOE_LOSSY``; every request must make the simulator's decisions
+    and equal ``materialize`` of its configs (level 0 bit for bit, lossy
+    within K1's rule, TEXT chunks bit for bit to their batched call
+    replayed), and the runs together must load level-0 and lossy chunks.
+    The port's tests run it at ``.tiny()`` on the CPU.
+    """
+    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+    k1_tol = ops.BF16_TOL["kv_dequant_tokens"]
+    on_card = dev.type == "cuda"
+    with phase("moe"):
+        laps = Laps(dev)
+        # ---- A: the engine
+        gen.manual_seed(SEED + 10)
+        params = lm.init_params(cfg, gen, dev)
+        laps.lap("init")
+        resident = sum(t.numel() * t.element_size() for t in _leaves(params))
+        peak = f"{laps.peak_gb['init']} GB" if on_card else "not measured"
+        print(f"moe: {cfg.name} weights {resident / 1e9:.2f} GB resident ({cfg.dtype}); peak allocated during "
+              f"the draw {peak}")
+        engine = Engine(cfg, params, cache_capacity=ctx_len + gen_tokens + 1, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, ctx_len), generator=gen, device=dev)
+        drops = []
+        with counting_drops(drops):
+            logits, exact = engine.calculate_kv({"tokens": tokens})
+        require(bool(torch.isfinite(logits).all()), "moe prefill logits are not finite")
+        laps.lap(f"calculate_kv {ctx_len} tokens")
+        require(len(drops) == L, f"{len(drops)} MoE layers ran, not {L}")
+        print(f"moe prefill: dropped slots by layer {[int(x) for x in drops]} of {ctx_len * cfg.moe_topk} a layer")
+        kv = caches_to_codec_kv(exact, 0, ctx_len)
+        ct = codec.profile([kv], codec.CodecConfig(), device=dev)
+        laps.lap("profile")
+        starts = list(range(0, ctx_len, chunk))
+        blobs = [codec.encode_all_levels(kv[:, :, s:s + chunk], ct, chunk_idx=j) for j, s in enumerate(starts)]
+        laps.lap(f"encode_all_levels {len(starts)} chunks")
+        fp16 = codec.kv_nbytes_fp16(L, ctx_len, Hkv * D)
+        for lvl in range(ct.config.n_levels):
+            size = sum(len(b[lvl]) for b in blobs)
+            print(f"moe level {lvl}: {size} bytes for {ctx_len} tokens ({fp16 / size:.2f}x smaller than fp16)")
+        runs = [[b[0] for b in blobs], [b[MOE_LOSSY] for b in blobs]]
+        kv_run, spans = codec.decode_chunk_runs(runs, ct, out_dtype=torch.bfloat16)
+        laps.lap("decode_chunk_runs")
+        require([n for _, n in spans] == [ctx_len, ctx_len], f"spans {spans}")
+        caches = engine.insert_runs(engine.empty_caches(2), kv_run, [0, 1], [0, 0], [ctx_len, ctx_len])
+        laps.lap("insert_runs")
+        # the unfused per-chunk oracle, and a 1-row cache of its level 0
+        oracle = engine.empty_caches(1)
+        worst = 0.0
+        with uncounted():
+            for j, s in enumerate(starts):
+                want = codec.decode_chunk(blobs[j][0], ct)
+                n = want.shape[2]
+                require(torch.equal(kv_run[:, :, s:s + n], want.to(torch.bfloat16)),
+                        f"moe chunk {j}: the fused level-0 decode is not bit-equal to decode_chunk's")
+                oracle = engine.decode_to_cache(oracle, want.to(torch.bfloat16), s)
+                lossy = codec.decode_chunk(blobs[j][MOE_LOSSY], ct)
+                x = ops.bf16_ulp_excess(kv_run[:, :, ctx_len + s:ctx_len + s + n], lossy, **k1_tol)
+                require(x <= 1, f"moe chunk {j}: level {MOE_LOSSY} is {x:.3g} times K1's rule off decode_chunk's")
+                worst = max(worst, x)
+        require(oracle.length.tolist() == [ctx_len], f"oracle length {oracle.length.tolist()}")
+        laps.lap("decode_chunk oracle")
+        err = (caches.kv_k[:, 0, :ctx_len].float() - exact.kv_k[:, 0, :ctx_len].float()).abs().max().item()
+        print(f"moe decode: level 0 bit-equal to the unfused oracle, level {MOE_LOSSY} within {worst:.3g} of K1's "
+              f"rule; max |level 0 - prefill K| {err:.4f} (8-bit quantization)")
+        fused = Caches(caches.kv_k[:, :1].clone(), caches.kv_v[:, :1].clone(), caches.length[:1].clone())
+        del caches, kv_run, kv
+        first = torch.argmax(logits[:, -1], dim=-1)
+        outs = {"fused": engine.generate_with_kv(fused, first, gen_tokens)}
+        with uncounted():  # the oracle's and the prefill cache's tokens are comparisons
+            outs.update((name, engine.generate_with_kv(c, first, gen_tokens))
+                        for name, c in (("oracle", oracle), ("prefill", exact)))
+        laps.lap(f"generate_with_kv {gen_tokens} tokens x3")
+        for o in outs.values():
+            require(o.shape == (1, gen_tokens) and ((o >= 0) & (o < cfg.padded_vocab_size)).all(),
+                    f"moe generated {o.shape} tokens out of range")
+        require((outs["fused"] == outs["oracle"]).all(),
+                f"moe greedy tokens from the fused cache {outs['fused'][0].tolist()} differ from the oracle's "
+                f"{outs['oracle'][0].tolist()}")
+        print(f"moe greedy: {gen_tokens} tokens equal from the fused and the oracle cache; agreement with the "
+              f"prefill cache's {(outs['fused'] == outs['prefill']).mean():.2%} (informational)")
+
+        # ---- one whole-model step: kernels against plain, and against itself
+        tok = first[:, None]
+
+        def step():
+            return lm.decode_step(cfg, params, tok, fused.clone())[0]
+
+        # the plain step takes the kernel step's experts: a router near tie
+        # that an ulp of attention output tips would change the function,
+        # not measure the kernels; the tokens it tips are counted, and the
+        # plain step with its own routing is reported beside
+        routes, flips = [], []
+        with uncounted():
+            with routing(record=routes):
+                a = step()
+            b = step()
+            with plain_attention():
+                with routing(pinned=routes, flips=flips):
+                    p = step()
+                free = step()
+        require(torch.equal(a, b), "the same moe decode step run twice gave other logits")
+
+        def off(z):
+            return ((a.float() - z.float()).abs().max() / (MOE_STEP_TOL * z.float().abs().max())).item()
+
+        x = off(p)
+        require(x <= 1, f"the moe step with the kernels is {x:.3g} times {MOE_STEP_TOL} of its largest |logit| off "
+                "its plain version (routing pinned)")
+        agree = int(torch.argmax(a[0, -1])) == int(torch.argmax(p[0, -1]))
+        tipped = [l for l, f in enumerate(flips) if f]
+        print(f"moe step: the plain attention would route other experts at layers {tipped}; with its own routing "
+              f"it is {off(free):.3g} of the rule off, argmax "
+              f"{'equal' if int(torch.argmax(a[0, -1])) == int(torch.argmax(free[0, -1])) else 'different'} "
+              "(informational)")
+        samples, c = [], fused.clone()
+        with uncounted():
+            for _ in range(STEP_SAMPLES + 1):  # the first is a warm-up
+                t0 = time.perf_counter()
+                z, c = lm.decode_step(cfg, params, tok, c)
+                z[:, -1].float().cpu()
+                samples.append(1e3 * (time.perf_counter() - t0))
+            # each call writes the same slot of c (its length stays)
+            dev_ms = f"{device_total_ms(lambda: lm.decode_step(cfg, params, tok, c)):.3f} ms" if on_card \
+                else "not measured"
+        del c
+        laps.lap("step checks and times")
+        print(f"moe step: logits bit-identical run twice; {x:.3g} of the {MOE_STEP_TOL} rule off the plain step "
+              f"(its experts pinned to the kernel step's), argmax {'equal' if agree else 'different'}; "
+              f"wall {sum(samples[1:]) / STEP_SAMPLES:.2f} ms a step (logits read), device {dev_ms}")
+        print("moe engine steps ms:", laps.ms)
+        if on_card:
+            print("moe engine steps' peak allocated GB:", laps.peak_gb)
+        # the codec tables are per lane (98,304 lanes at this width): tens
+        # of GB on the card, freed with the engine before the launcher
+        # profiles its own
+        del params, engine, exact, oracle, fused, logits, blobs, ct
+        if on_card:
+            torch.cuda.empty_cache()
+            print(f"moe: {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated after the engine is freed")
+
+        # ---- B: the launcher: a wave of MOE_REQUESTS as the simulator
+        # decides, then waves of MOE_PINNED pinned to level 0 and to level
+        # MOE_LOSSY, so that stored levels load through it too; each run is
+        # freed before the next draws its weights and profiles its tables
+        laps = Laps(dev)
+        base = ["--arch", MOE_ARCH, "--ctx-len", str(launcher_ctx), "--check-sim", "--device", str(dev)]
+        base += ["--full-width"] if full_width else []
+        waves = {"decided": (MOE_REQUESTS, None), "level 0": (MOE_PINNED, 0),
+                 f"level {MOE_LOSSY}": (MOE_PINNED, MOE_LOSSY)}
+        launched, totals = {}, {"level 0": 0, "lossy": 0, "TEXT": 0}
+        for name, (n_req, level) in waves.items():
+            argv = base + ["--requests", str(n_req), "--concurrency", str(n_req)]
+            argv += [] if level is None else ["--fixed-level", str(level)]
+            print(f"moe launcher {name}:", " ".join(argv))
+            replayed = {}
+            with replaying_text(replayed):
+                run = serve.run(argv)
+            laps.lap(f"serve.run {name}")
+            what = f"moe launcher {name}"
+            require(run["sim_match"] == {r: True for r in range(n_req)},
+                    f"{what}: the requests' decisions against the simulator's: {run['sim_match']}")
+            require(len(run["waves"]) == 1 and run["waves"][0].n_failed == 0, f"{what}: not one clean wave")
+            configs = [s.configs for s in run["sessions"]]
+            n_chunks = len(run["streamer"].store.meta("ctx"))
+            if level is not None:
+                require(configs == [[level] * n_chunks] * n_req, f"{what}: configs {configs}")
+            kinds, worst_text = match_materialize(run, run["sessions"], what, launcher_ctx, replayed)
+            laps.lap(f"materialize check {name}")
+            wave = run["waves"][0]
+            if level is not None:
+                require(wave.n_decode_batches > 0, f"{what}: no batched decode")
+            totals = {k: totals[k] + kinds[k] for k in totals}
+            print(f"{what}: {n_req} requests made the simulator's decisions ({configs}); "
+                  f"{wave.n_decode_batches} batched decodes, {wave.n_text_batches} batched TEXT calls replayed bit "
+                  f"for bit; every request equals materialize of its configs (chunks compared: {kinds}; TEXT chunks "
+                  f"{worst_text:.3g} relative from materialize's batch-1 recompute, informational)")
+            launched[name] = {"cfg": run["cfg"], "configs": configs, "kinds": kinds}
+            del run, replayed
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+        require(totals["level 0"] > 0 and totals["lossy"] > 0, f"moe launcher: chunks compared {totals}")
+        print("moe launcher steps ms (the serve.run laps include the TEXT calls' replays):", laps.ms)
+        if on_card:
+            print("moe launcher steps' peak allocated GB:", laps.peak_gb)
+    return {"drops": [int(x) for x in drops], "tokens": outs, "launcher": launched}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def main() -> int:
@@ -1136,8 +1534,9 @@ def main() -> int:
         # weights up to 2^-8 of flash_attention_magnitude (kernels/ops.py).
         tol4 = ops.BF16_TOL["flash_attention"]
 
-        def k4_case(B, T, prefix=None):
-            qq, kk, vv = randn(B, T, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+        def k4_case(B, T, prefix=None, heads=(Hq, Hkv, D)):
+            hq, hkv, dh = heads
+            qq, kk, vv = randn(B, T, hq, dh), randn(B, T, hkv, dh), randn(B, T, hkv, dh)
             plen = None if prefix is None else torch.tensor(prefix, dtype=torch.int32, device=dev)
             got = flash_attention_cuda(qq, kk, vv, plen)
             want = flash_attention_plain(qq.float(), kk.float(), vv.float(), plen)
@@ -1168,13 +1567,13 @@ def main() -> int:
         _, _, e4 = k4_case(2, 1024, [100, 700])
 
         def k4_timing(qq, kk, vv):
-            n = qq.shape[1]
+            n, hq, dh = qq.shape[1:]
             return dict(
                 ms=time_ms(lambda: flash_attention_cuda(qq, kk, vv)),
                 device_ms=device_ms(lambda: flash_attention_cuda(qq, kk, vv), "flash_tc_kernel"),
                 library_ms=time_ms(lambda: sdpa(qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
                                                 is_causal=True, enable_gqa=True)) if gqa_ok else None,
-                bound=bound((qq.numel() * 2 + kk.numel() + vv.numel()) * 2, 4 * D * Hq * n * (n + 1) // 2),
+                bound=bound((qq.numel() * 2 + kk.numel() + vv.numel()) * 2, 4 * dh * hq * n * (n + 1) // 2),
             )
 
         t6 = k4_timing(q6, k6, v6)
@@ -1285,6 +1684,80 @@ def main() -> int:
         )
         del d6, a6
 
+        # phase 10's shapes, qwen2-moe-a2.7b (MHA, 16 heads of 128, C =
+        # 2048): K1 and K2 over its four 768-token chunks, K3 over its 1-row
+        # cache of 3105 slots (8 layer slices, 204 MB of K/V, so every
+        # launch reads HBM) at the first generated token's kv_len, K4 over
+        # its 3072-token prefill
+        mcfg = registry.get(MOE_ARCH)
+        mL, mH, mD = mcfg.n_layers, mcfg.n_heads, mcfg.d_head
+        mC, mG = mcfg.n_kv_heads * mD, -(-MOE_CHUNK // g)
+        moe_report = {}
+        (d, a, bins), _, e1 = k1_case(4 * mL * 2, mG, torch.bfloat16, Cc=mC)
+        B = d.shape[0]
+        moe_report["kv_dequant_tokens"] = dict(
+            max_abs_err=e1,
+            ms=time_ms(lambda: kv_dequant_tokens_cuda(d, a, bins, qmax=127, out_dtype=torch.bfloat16)),
+            device_ms=device_ms(lambda: kv_dequant_tokens_cuda(d, a, bins, qmax=127, out_dtype=torch.bfloat16),
+                                "dequant_tokens_kernel"),
+            plain_ms=time_ms(lambda: kv_dequant_tokens_plain(d, a, bins, qmax=127, out_dtype=torch.bfloat16)),
+            library_ms=None,
+            bound=bound(d.numel() * 2 + a.numel() * 4 + B * 4 + B * mG * g * mC * 2, 3 * d.numel()),
+            shape=f"d_sym {tuple(d.shape)} uint16 -> bf16",
+        )
+        (d, a, s2), e1 = k2_case(4 * mL * 2, mG, torch.bfloat16, Cc=mC)
+        moe_report["kv_lossless_tokens"] = dict(
+            max_abs_err=e1,
+            ms=time_ms(lambda: kv_lossless_tokens_cuda(d, a, s2, out_dtype=torch.bfloat16)),
+            device_ms=device_ms(lambda: kv_lossless_tokens_cuda(d, a, s2, out_dtype=torch.bfloat16),
+                                "lossless_tokens_kernel"),
+            plain_ms=time_ms(lambda: kv_lossless_tokens_plain(d, a, s2, out_dtype=torch.bfloat16)),
+            library_ms=None,
+            bound=bound(d.numel() * 2 + a.numel() * 2 + s2.numel() * 4 + B * mG * g * mC * 2,
+                        2 * a.numel() + 3 * d.numel()),
+            shape=f"d_sym {tuple(d.shape)} uint16 -> bf16",
+        )
+        del d, a, bins, s2
+        m_cap = MOE_CTX + GEN_TOKENS + 1
+        mk, mv, mq = randn(8, 1, m_cap, mH, mD), randn(8, 1, m_cap, mH, mD), randn(1, mH, mD)
+        m_lens = torch.tensor([MOE_CTX + 1], dtype=torch.int32, device=dev)
+        got = decode_attention_cuda(mq, mk[0], mv[0], m_lens)
+        want = decode_attention_plain(mq.float(), mk[0].float(), mv[0].float(), m_lens)
+        x = ops.bf16_ulp_excess(got, want, **tol3)
+        require(x <= 1, f"K3 at the moe shape is {x:.3g} times its tolerance off its plain version")
+        excess["decode_attention"] = max(excess["decode_attention"], x)
+        m_it = itertools.count()
+
+        def mk3():
+            i = next(m_it) % 8
+            return decode_attention_cuda(mq, mk[i], mv[i], m_lens)
+
+        def mk3_lib():
+            i = next(m_it) % 8
+            mask = (torch.arange(m_cap, device=dev)[None, :] < m_lens[:, None])[:, None, None, :]
+            return sdpa(mq[:, :, None], mk[i].transpose(1, 2), mv[i].transpose(1, 2), attn_mask=mask)
+
+        n_tok = MOE_CTX + 1
+        moe_report["decode_attention"] = dict(
+            max_abs_err=(got.float() - want).abs().max().item(),
+            ms=time_ms(mk3, iters=40),
+            device_ms=device_ms(mk3, "decode_split_kernel", "decode_combine_kernel", iters=16),
+            plain_ms=time_ms(lambda: decode_attention_plain(mq, mk[0], mv[0], m_lens)),
+            library_ms=time_ms(mk3_lib, iters=40),
+            bound=bound(mq.numel() * 2 * 2 + n_tok * mH * mD * 2 * 2 + 4, 4 * mH * mD * n_tok),
+            shape=f"q {tuple(mq.shape)} vs cache {tuple(mk[0].shape)} bf16, kv_len {m_lens.tolist()}, "
+                  f"split {split_size(m_cap, 1, mH, torch.cuda.get_device_properties(dev).multi_processor_count)}",
+        )
+        del mk, mv
+        (mqq, mkk, mvv), _, e1 = k4_case(1, MOE_CTX, heads=(mH, mcfg.n_kv_heads, mD))
+        moe_report["flash_attention"] = dict(
+            max_abs_err=e1,
+            plain_ms=time_ms(lambda: flash_attention_plain(mqq, mkk, mvv), iters=3, warmup=1),
+            shape=f"q/k/v {tuple(mqq.shape)} bf16 causal",
+            **k4_timing(mqq, mkk, mvv),
+        )
+        del mqq, mkk, mvv
+
         require(t6["device_ms"] is not None, "the profiler holds no device time for K4 at the store shape")
         for name, r in report.items():
             require(r["device_ms"] is not None, f"the profiler holds no device time for {name}'s kernels")
@@ -1295,6 +1768,12 @@ def main() -> int:
                   f"(device time {r['device_ms']} ms)  "
                   f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']}  "
                   f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it reached)")
+        for name, r in moe_report.items():
+            require(r["device_ms"] is not None, f"the profiler holds no device time for {name} at the moe shape")
+            print(f"{name} at {MOE_ARCH}'s shape: {r['shape']}  max_abs_err {r['max_abs_err']:.3g}  kernel "
+                  f"{r['ms']:.4f} ms  (device time {r['device_ms']} ms)  plain {r['plain_ms']:.4f} ms  library "
+                  f"{r['library_ms']}  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} "
+                  f"of it reached, {r['bound'][0] / r['device_ms']:.1%} of device time)")
         del kc, vc
 
     # --------------------------------------------------------- 4 serve, 5 text
@@ -1322,9 +1801,17 @@ def main() -> int:
     drive_launcher_path(dev, phase=lambda name: Phase(name, phase_ms))
     paths["launcher"] = ops.launch_counts()
 
+    # ----------------------------------------------------------------- 10 moe
+    del served, stored, sessioned
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    drive_moe_path(registry.get(MOE_ARCH), dev, gen, phase=lambda name: Phase(name, phase_ms))
+    paths["moe"] = ops.launch_counts()
+
     # --------------------------------------------------------------- summary
     runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
-            "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS}
+            "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "moe": MOE_KERNELS}
     require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")
     for path, counts in paths.items():
         print(f"launches on the {path} path:", counts)

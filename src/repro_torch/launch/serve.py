@@ -57,9 +57,11 @@ The port against the reference launcher (``repro.launch.serve``):
   So the two CLIs print other tokens and sizes for the same flags; pass the
   reference's draw as ``params`` (``models/convert.params_from_numpy``) to
   compare them.
-* Families: the port serves the dense family only.  ``moe`` and ``vlm``
-  (which the reference also serves) exit with a message; they wait for
-  ``ROADMAP.md`` §1 item 9.
+* Families: the port serves the dense and MoE families (smollm-360m,
+  qwen2-moe-a2.7b, granite-moe-3b-a800m, ...).  ``vlm``, which the
+  reference also serves, exits with a message: paligemma-3b's head dim of
+  256 needs K3 and K4 at D = 256 (a new shared-memory plan for K4), which
+  waits for ``ROADMAP.md`` §1 item 9.
 * :func:`run` prints the lines and returns what it printed as data (see its
   docstring); :func:`main` is the command line.
 """
@@ -311,10 +313,11 @@ def run(argv: Optional[List[str]] = None, *, params=None, device=None) -> Dict[s
             f"--arch {args.arch}: serve driver supports attention families "
             "(KV-cache streaming); see DESIGN.md §Arch-applicability"
         )
-    if cfg.family != "dense":
+    if cfg.family == "vlm":
         raise SystemExit(
-            f"--arch {args.arch}: the port serves the dense family only; the "
-            f"{cfg.family} family waits for ROADMAP.md §1 item 9"
+            f"--arch {args.arch}: the port does not serve the vlm family yet: "
+            "its head dim of 256 needs K3 and K4 at D = 256, which wait for "
+            "ROADMAP.md §1 item 9"
         )
     dev = resolve_device(device if device is not None else args.device)
     lines: List[str] = []

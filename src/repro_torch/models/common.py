@@ -47,14 +47,27 @@ class Leaf:
 
 
 def _init_leaf(leaf: Leaf, generator: torch.Generator, device, dtype) -> torch.Tensor:
+    """One leaf's values, drawn in f32 and cast.  A leaf with an
+    ``"experts"`` axis under its leading (layers) axis is drawn one layer at
+    a time into the cast result, so its f32 transient is one layer's: a
+    whole qwen2-moe expert leaf would be 16.6 GB of f32.  Every other leaf
+    is one draw, so the dense configs' weights do not depend on this."""
     if leaf.init == "zeros":
         return torch.zeros(leaf.shape, dtype=dtype, device=device)
     if leaf.init == "ones":
         return torch.ones(leaf.shape, dtype=dtype, device=device)
     fan_in = leaf.shape[-2] if len(leaf.shape) >= 2 else leaf.shape[-1]
     std = leaf.scale if leaf.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(leaf.shape, generator=generator, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+
+    def draw(shape):
+        return torch.randn(shape, generator=generator, dtype=torch.float32, device=device).mul_(std)
+
+    if "experts" not in leaf.logical[1:]:
+        return draw(leaf.shape).to(dtype)
+    out = torch.empty(leaf.shape, dtype=dtype, device=device)
+    for l in range(leaf.shape[0]):
+        out[l] = draw(leaf.shape[1:])
+    return out
 
 
 def init_from_plan(plan: Dict[str, Any], generator: torch.Generator, device, dtype) -> Dict[str, Any]:

@@ -1,7 +1,11 @@
-"""Decoder LM, dense family: plan, init, prefill, chunked prefill, decode.
+"""Decoder LM, dense and MoE families: plan, init, prefill, chunked
+prefill, decode.
 
 Layers run as a Python loop over the stacked per-layer weights (leading
-``L`` axis, as in the reference's pytree).  Entry points:
+``L`` axis, as in the reference's pytree).  The MoE family's layers differ
+from the dense family's in their FFN alone (``models.moe``; the load
+balancing loss the reference sums for ``loss_fn`` is dropped here, as its
+serving entry points drop it).  Entry points:
 
   * ``param_plan`` / ``init_params``
   * ``prefill(cfg, params, batch, pad_to=)``   — logits + caches (K4)
@@ -33,6 +37,7 @@ from repro_torch.models.common import (
     norm_plan,
     rope,
 )
+from repro_torch.models.moe import moe_apply, moe_plan
 
 __all__ = [
     "Caches",
@@ -46,8 +51,9 @@ __all__ = [
 
 
 class Caches(NamedTuple):
-    """Serving caches of the dense family (the reference's ``Caches`` also
-    carries the SSM / hybrid states, which the port does not build yet)."""
+    """Serving caches of the dense and MoE families (the reference's
+    ``Caches`` also carries the SSM / hybrid states, which the port does not
+    build yet)."""
 
     kv_k: torch.Tensor  # (L, B, S, Hkv, Dh)
     kv_v: torch.Tensor
@@ -58,8 +64,8 @@ class Caches(NamedTuple):
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise ValueError(f"the port builds the dense family only, not {cfg.family}")
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the port builds the dense and MoE families only, not {cfg.family}")
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +85,10 @@ def _dense_layer_plan(cfg: ArchConfig) -> Dict[str, Any]:
     p: Dict[str, Any] = {"ln1": norm_plan(cfg.norm, cfg.d_model), "attn": attn_plan(cfg)}
     if not cfg.parallel_block:
         p["ln2"] = norm_plan(cfg.norm, cfg.d_model)
-    p["mlp"] = mlp_plan(cfg.mlp, cfg.d_model, cfg.d_ff, cfg.mlp_bias)
+    if cfg.family == "moe":
+        p["moe"] = moe_plan(cfg)
+    else:
+        p["mlp"] = mlp_plan(cfg.mlp, cfg.d_model, cfg.d_ff, cfg.mlp_bias)
     return p
 
 
@@ -117,9 +126,13 @@ def _layer(params, l: int) -> Dict[str, Any]:
 
 
 def _mlp_residual(cfg, p, x, h):
+    """The FFN half of a block; ``x`` already holds the attention output."""
     if cfg.parallel_block:
         return x + mlp_apply(cfg.mlp, p["mlp"], h)
-    return x + mlp_apply(cfg.mlp, p["mlp"], apply_norm(cfg.norm, p["ln2"], x))
+    h2 = apply_norm(cfg.norm, p["ln2"], x)
+    if cfg.family == "moe":
+        return x + moe_apply(cfg, p["moe"], h2)[0]
+    return x + mlp_apply(cfg.mlp, p["mlp"], h2)
 
 
 def _embed_tokens(cfg, params, tokens):

@@ -134,9 +134,11 @@ class Side:
         return type(self.streamer)(store, self.streamer.cfg)
 
 
-def build_world():
-    jcfg = dataclasses.replace(jregistry.get("smollm-360m").tiny(), dtype="float32")
-    cfg = dataclasses.replace(registry.get("smollm-360m").tiny(), dtype="float32")
+def build_world(arch="smollm-360m"):
+    """Both packages' sides on ``arch``'s f32 ``.tiny()`` and the
+    reference's weight draw."""
+    jcfg = dataclasses.replace(jregistry.get(arch).tiny(), dtype="float32")
+    cfg = dataclasses.replace(registry.get(arch).tiny(), dtype="float32")
     jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
     params = params_from_numpy(cfg, jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     cap = T_CTX + GEN + 4

@@ -592,6 +592,15 @@ def test_cuda_decode_attention_geometries(cuda, Hq, Hkv, D, kv_dtype):
     _check_decode(q, k, odd, lens)
 
 
+@pytest.mark.gpu
+def test_cuda_decode_attention_moe_geometry(cuda):
+    """qwen2-moe-a2.7b's decode: MHA, 16 heads of 128, a cache of 3,105
+    slots (a 3,072-token context and 32 generated tokens) at the first and
+    the last generated token's lengths, and a ragged row."""
+    q, k, v = _decode_case(cuda, 16, 3, 16, 16, 3105, 128, torch.bfloat16, torch.bfloat16)
+    _check_decode(q, k, v, torch.tensor([3073, 3104, 1000], dtype=torch.int32, device=cuda))
+
+
 # (B, Hq, Hkv, Tq, Tk, D, causal, prefix)
 CUDA_FLASH_CASES = [
     (1, 15, 5, 3072, 3072, 64, True, None),  # the serve phase's prefill
@@ -605,6 +614,7 @@ CUDA_FLASH_CASES = [
     (1, 4, 4, 130, 130, 64, False, None),  # bidirectional
     (1, 15, 5, 1000, 3072, 64, True, None),  # the decoder offset
     (1, 8, 2, 300, 300, 128, True, None),
+    (1, 16, 16, 3072, 3072, 128, True, None),  # qwen2-moe-a2.7b's prefill
     (1, 4, 2, 200, 333, 32, True, None),
 ]
 

@@ -1,7 +1,8 @@
 """``chip_smoke.py`` off the card: it refuses to run without one, and its
 main path (phases 4-5), store path (phase 6), session path (phase 7),
-serving path (phase 8) and launcher path (phase 9) run at a tiny size on the
-CPU through the kernels' plain versions (no launch counted)."""
+serving path (phase 8), launcher path (phase 9) and MoE path (phase 10) run
+at a tiny size on the CPU through the kernels' plain versions (no launch
+counted)."""
 import contextlib
 import importlib.util
 import io
@@ -147,3 +148,30 @@ def test_launcher_fault_seed_keeps_every_chunk_within_its_retries():
         plan = smoke.FaultPlan(seed=smoke.LAUNCH_FAULT_SEED, truncate_p=smoke.LAUNCH_TRUNCATE_P)
         hits = [[a for a in range(12) if plan.draw("ctx", ci, 1, a)] for ci in range(n)]
         assert hits[0][:1] == [0] and all(len(h) <= smoke.LAUNCH_RETRY - 1 for h in hits)
+
+
+def test_chip_smoke_moe_path_runs_on_cpu_at_tiny_size():
+    """Phase 10 at ``qwen2-moe-a2.7b.tiny()`` (bf16), a 256-token context
+    in 64-token chunks: the fused level-0 decode equals the unfused oracle
+    and generates its tokens, the lossy run is within K1's rule, a step
+    repeats bit for bit and agrees with its plain version, and the
+    launcher's waves (as decided, and pinned to level 0 and to a lossy
+    level) make the simulator's decisions and equal ``materialize`` with
+    their TEXT chunks equal to their batched calls replayed (the script
+    fails otherwise); nothing is counted off the card."""
+    smoke = _load_smoke()
+    smoke.ops.reset_launch_counts()
+    cfg = smoke.registry.get(smoke.MOE_ARCH).tiny()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = smoke.drive_moe_path(cfg, torch.device("cpu"), torch.Generator(device="cpu"), ctx_len=256, chunk=64,
+                                   gen_tokens=8, launcher_ctx=256, full_width=False)
+    out = out.getvalue()
+    assert "moe prefill: dropped slots by layer" in out and "moe decode: level 0 bit-equal" in out
+    assert "moe greedy: 8 tokens equal" in out and "logits bit-identical run twice" in out
+    assert "moe launcher decided: 4 requests made the simulator's decisions" in out and "moe launcher steps ms" in out
+    assert len(got["drops"]) == cfg.n_layers
+    assert [w["cfg"].family for w in got["launcher"].values()] == ["moe"] * 3
+    assert got["launcher"]["level 0"]["kinds"]["level 0"] == 2 * 4
+    assert got["launcher"][f"level {smoke.MOE_LOSSY}"]["kinds"]["lossy"] == 2 * 4
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
