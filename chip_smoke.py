@@ -9,13 +9,16 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
 2. build   compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels each kernel against its plain PyTorch version on the card, at the
            smollm-360m main-path shapes plus ragged cases (and K1-K4 at
-           phase 10's qwen2-moe-a2.7b shapes), under the bf16
+           phase 10's qwen2-moe-a2.7b shapes, K3 and K4 at phase 11's
+           paligemma-3b shapes: head dim 256, MQA 8:1, K4 with its 256-row
+           prefix, f32 cases timed), under the bf16
            rule of ``kernels.ops.BF16_TOL`` (K2, K5 and K6 bit for bit);
            planted faults (K1 one group's anchor off by one bin or two
            neighbouring channels swapped, K3 skipping one split, masking one
            key short or dropping a ragged last tile, K4 skipping one key
            tile for the last query rows or letting every query see its next
-           key, K6 one group's anchor off by one bin) must fail that rule;
+           key, K4 at D = 256 with the prefix one key short or ignored,
+           K6 one group's anchor off by one bin) must fail that rule;
            K1, K2, K5 and K6 also at C = 36 (4 channels an access) and on
            inputs misaligned by one element (V = 1); K4 is also timed at the
            store's 6144-token shape; K5 on exact half-bin deltas (half to
@@ -140,12 +143,34 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
               calls, so B's wall times include them.
            The kernels phase also holds K1/K2 (C = 2048), K3 and K4 to their
            plain versions at this model's shapes, with their times.
+11. vlm    the vlm family, paligemma-3b at full width (18 layers, d 2048,
+           8 query heads and 1 KV head of 256, geglu ff 16384, vocab
+           257,216, 256 image rows of 1152-wide patch embeddings through
+           ``frontend_proj``; random bf16 weights from a seed, 5.0 GB),
+           after phase 10's state is freed:
+           A. the engine: ``calculate_kv`` of 256 image rows and a
+              3072-token context (K4 at head dim 256 with a 256-row
+              prefix), ``profile`` and every level of its 3328 rows in
+              768-row chunks (K5), one ``decode_chunk_runs`` of a level-0
+              and a level-1 run (K2, K1 at C = 256) held to the unfused
+              ``decode_chunk`` (K6, uncounted: level 0 bit for bit, level 1
+              within K1's rule); 32 greedy tokens from the fused level-0
+              cache must equal those from the oracle's and from the prefill
+              cache's (K3 at head dim 256); one decode step with the kernels must equal itself
+              bit for bit and lie within 2e-2 of its largest |logit| of the
+              same step on the plain versions; its wall and device ms;
+           B. ``serve.run --arch paligemma-3b --full-width --ctx-len 3072
+              --check-sim`` twice: a wave of 4 as the simulator decides and
+              a wave of 2 pinned to level 1; no chunk may be TEXT (the image
+              rows have no tokens), every request must make the simulator's
+              decisions and equal ``materialize`` of its configs (level 0 bit
+              for bit, lossy within K1's rule).
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5, then zeroed before each of phases 6, 7, 8, 9 and 10 and read after it;
-the run fails if a kernel that a path runs was not launched in it (all six
-on the serve + text and store paths; K1, K2 and K3 on the session and
-serving paths; K1-K5 on the launcher and moe paths).  The last line is
+5, then zeroed before each of phases 6, 7, 8, 9, 10 and 11 and read after
+it; the run fails if a kernel that a path runs was not launched in it (all
+six on the serve + text and store paths; K1, K2 and K3 on the session and
+serving paths; K1-K5 on the launcher, moe and vlm paths).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 with launches summed over the paths.  Needs
 one CUDA card; exits 2 with no result when there is none.
@@ -298,6 +323,19 @@ MOE_LOSSY = 1
 MOE_REQUESTS = 4
 MOE_PINNED = 2
 MOE_STEP_TOL = 2e-2
+# phase 11: the vlm family at full width; its text context (after its 256
+# image rows), the chunks of its cached rows, the lossy level of its second
+# run and of the launcher's pinned wave, the requests of the decided wave
+# and of the pinned one; a decode step against its plain version under
+# phase 10's rule
+VLM_ARCH = "paligemma-3b"
+VLM_CTX = 3072
+VLM_CHUNK = 768
+VLM_LOSSY = 1
+VLM_REQUESTS = 4
+VLM_PINNED = 2
+VLM_STEP_TOL = MOE_STEP_TOL
+VLM_KERNELS = LAUNCHER_KERNELS  # the unfused K6 runs only in its checks
 
 
 class Phase:
@@ -1320,6 +1358,181 @@ def drive_moe_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), c
     return {"drops": [int(x) for x in drops], "tokens": outs, "launcher": launched}
 
 
+def drive_vlm_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), ctx_len=VLM_CTX,
+                   chunk=VLM_CHUNK, gen_tokens=GEN_TOKENS, launcher_ctx=VLM_CTX, full_width=True):
+    """Phase 11: the vlm family (``cfg``, paligemma-3b at full width on the
+    card) through the engine and the launcher.
+
+    A: seeded bf16 weights; ``calculate_kv`` of ``cfg.n_prefix_tokens``
+    image rows (seeded f32 patch embeddings through ``frontend_proj``) and a
+    ``ctx_len``-token context, the image rows attended bidirectionally (K4
+    with its prefix); ``profile`` and every level of the cached rows in
+    ``chunk``-row chunks (K5); one ``decode_chunk_runs`` of a level-0 and a
+    level-``VLM_LOSSY`` run (K2, K1) into a 2-row cache, held to the unfused
+    per-chunk ``decode_chunk`` (K6, uncounted): level 0 bit for bit, the
+    lossy run within K1's rule; ``gen_tokens`` greedy tokens from the fused
+    level-0 cache equal to those from the oracle's and from the prefill
+    cache's (K3; those two generations uncounted); one decode step with the kernels against
+    the same step on their plain versions (within ``VLM_STEP_TOL`` of its
+    largest |logit|) and against itself (bit for bit), with its wall and
+    device time.
+    B: ``serve.run --arch paligemma-3b --check-sim`` at ``launcher_ctx``
+    tokens (``--full-width`` if ``full_width``): a wave of ``VLM_REQUESTS``
+    as the simulator decides, then one of ``VLM_PINNED`` pinned to level
+    ``VLM_LOSSY``; every request must make the simulator's decisions (no
+    chunk is TEXT: the image rows have no tokens) and equal ``materialize``
+    of its configs (level 0 bit for bit, lossy within K1's rule).
+    The port's tests run it at ``.tiny()`` on the CPU.
+    """
+    L, Hkv, D, n_img = cfg.n_layers, cfg.n_kv_heads, cfg.d_head, cfg.n_prefix_tokens
+    n_rows = n_img + ctx_len
+    k1_tol = ops.BF16_TOL["kv_dequant_tokens"]
+    on_card = dev.type == "cuda"
+    with phase("vlm"):
+        laps = Laps(dev)
+        # ---- A: the engine
+        gen.manual_seed(SEED + 11)
+        params = lm.init_params(cfg, gen, dev)
+        laps.lap("init")
+        resident = sum(t.numel() * t.element_size() for t in _leaves(params))
+        print(f"vlm: {cfg.name} weights {resident / 1e9:.2f} GB resident ({cfg.dtype}), "
+              f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B parameters")
+        engine = Engine(cfg, params, cache_capacity=n_rows + gen_tokens + 1, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, ctx_len), generator=gen, device=dev)
+        patches = torch.randn((1, n_img, cfg.frontend_dim), generator=gen, device=dev)
+        logits, exact = engine.calculate_kv({"tokens": tokens, "patch_embeds": patches})
+        require(bool(torch.isfinite(logits).all()), "vlm prefill logits are not finite")
+        require(exact.length.tolist() == [n_rows], f"vlm prefill length {exact.length.tolist()}, not {n_rows}")
+        laps.lap(f"calculate_kv {n_img} + {ctx_len} rows")
+        kv = caches_to_codec_kv(exact, 0, n_rows)
+        ct = codec.profile([kv], codec.CodecConfig(), device=dev)
+        laps.lap("profile")
+        starts = list(range(0, n_rows, chunk))
+        blobs = [codec.encode_all_levels(kv[:, :, s:s + chunk], ct, chunk_idx=j) for j, s in enumerate(starts)]
+        laps.lap(f"encode_all_levels {len(starts)} chunks")
+        fp16 = codec.kv_nbytes_fp16(L, n_rows, Hkv * D)
+        for lvl in range(ct.config.n_levels):
+            size = sum(len(b[lvl]) for b in blobs)
+            print(f"vlm level {lvl}: {size} bytes for {n_rows} rows ({fp16 / size:.2f}x smaller than fp16)")
+        runs = [[b[0] for b in blobs], [b[VLM_LOSSY] for b in blobs]]
+        kv_run, spans = codec.decode_chunk_runs(runs, ct, out_dtype=torch.bfloat16)
+        laps.lap("decode_chunk_runs")
+        require([n for _, n in spans] == [n_rows, n_rows], f"spans {spans}")
+        caches = engine.insert_runs(engine.empty_caches(2), kv_run, [0, 1], [0, 0], [n_rows, n_rows])
+        laps.lap("insert_runs")
+        oracle = engine.empty_caches(1)
+        worst = 0.0
+        with uncounted():
+            for j, s in enumerate(starts):
+                want = codec.decode_chunk(blobs[j][0], ct)
+                n = want.shape[2]
+                require(torch.equal(kv_run[:, :, s:s + n], want.to(torch.bfloat16)),
+                        f"vlm chunk {j}: the fused level-0 decode is not bit-equal to decode_chunk's")
+                oracle = engine.decode_to_cache(oracle, want.to(torch.bfloat16), s)
+                lossy = codec.decode_chunk(blobs[j][VLM_LOSSY], ct)
+                x = ops.bf16_ulp_excess(kv_run[:, :, n_rows + s:n_rows + s + n], lossy, **k1_tol)
+                require(x <= 1, f"vlm chunk {j}: level {VLM_LOSSY} is {x:.3g} times K1's rule off decode_chunk's")
+                worst = max(worst, x)
+        require(oracle.length.tolist() == [n_rows], f"oracle length {oracle.length.tolist()}")
+        laps.lap("decode_chunk oracle")
+        err = (caches.kv_k[:, 0, :n_rows].float() - exact.kv_k[:, 0, :n_rows].float()).abs().max().item()
+        print(f"vlm decode: level 0 bit-equal to the unfused oracle, level {VLM_LOSSY} within {worst:.3g} of K1's "
+              f"rule; max |level 0 - prefill K| {err:.4f} (8-bit quantization)")
+        fused = Caches(caches.kv_k[:, :1].clone(), caches.kv_v[:, :1].clone(), caches.length[:1].clone())
+        del caches, kv_run, kv
+        first = torch.argmax(logits[:, -1], dim=-1)
+        outs = {"fused": engine.generate_with_kv(fused, first, gen_tokens)}
+        with uncounted():  # the oracle's and the prefill cache's tokens are comparisons
+            outs.update((name, engine.generate_with_kv(c, first, gen_tokens))
+                        for name, c in (("oracle", oracle), ("prefill", exact)))
+        laps.lap(f"generate_with_kv {gen_tokens} tokens x3")
+        for o in outs.values():
+            require(o.shape == (1, gen_tokens) and ((o >= 0) & (o < cfg.padded_vocab_size)).all(),
+                    f"vlm generated {o.shape} tokens out of range")
+        for name in ("oracle", "prefill"):
+            require((outs["fused"] == outs[name]).all(),
+                    f"vlm greedy tokens from the fused cache {outs['fused'][0].tolist()} differ from the {name} "
+                    f"cache's {outs[name][0].tolist()}")
+        print(f"vlm greedy: {gen_tokens} tokens equal from the fused, the oracle and the prefill cache")
+
+        # ---- one whole-model step: kernels against plain, and against itself
+        tok = first[:, None]
+
+        def step():
+            return lm.decode_step(cfg, params, tok, fused.clone())[0]
+
+        with uncounted():
+            a, b = step(), step()
+            with plain_attention():
+                p = step()
+        require(torch.equal(a, b), "the same vlm decode step run twice gave other logits")
+        x = ((a.float() - p.float()).abs().max() / (VLM_STEP_TOL * p.float().abs().max())).item()
+        require(x <= 1, f"the vlm step with the kernels is {x:.3g} times {VLM_STEP_TOL} of its largest |logit| "
+                "off its plain version")
+        agree = int(torch.argmax(a[0, -1])) == int(torch.argmax(p[0, -1]))
+        samples, c = [], fused.clone()
+        with uncounted():
+            for _ in range(STEP_SAMPLES + 1):  # the first is a warm-up
+                t0 = time.perf_counter()
+                z, c = lm.decode_step(cfg, params, tok, c)
+                z[:, -1].float().cpu()
+                samples.append(1e3 * (time.perf_counter() - t0))
+            # each call writes the same slot of c (its length stays)
+            dev_ms = f"{device_total_ms(lambda: lm.decode_step(cfg, params, tok, c)):.3f} ms" if on_card \
+                else "not measured"
+        del c
+        laps.lap("step checks and times")
+        print(f"vlm step: logits bit-identical run twice; {x:.3g} of the {VLM_STEP_TOL} rule off the plain step, "
+              f"argmax {'equal' if agree else 'different'}; wall {sum(samples[1:]) / STEP_SAMPLES:.2f} ms a step "
+              f"(logits read), device {dev_ms}")
+        print("vlm engine steps ms:", laps.ms)
+        if on_card:
+            print("vlm engine steps' peak allocated GB:", laps.peak_gb)
+        del params, engine, exact, oracle, fused, logits, blobs, ct
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # ---- B: the launcher: a wave of VLM_REQUESTS as the simulator
+        # decides, then a wave of VLM_PINNED pinned to level VLM_LOSSY
+        laps = Laps(dev)
+        base = ["--arch", VLM_ARCH, "--ctx-len", str(launcher_ctx), "--check-sim", "--device", str(dev)]
+        base += ["--full-width"] if full_width else []
+        waves = {"decided": (VLM_REQUESTS, None), f"level {VLM_LOSSY}": (VLM_PINNED, VLM_LOSSY)}
+        launched, totals = {}, {"level 0": 0, "lossy": 0, "TEXT": 0}
+        for name, (n_req, level) in waves.items():
+            argv = base + ["--requests", str(n_req), "--concurrency", str(n_req)]
+            argv += [] if level is None else ["--fixed-level", str(level)]
+            print(f"vlm launcher {name}:", " ".join(argv))
+            run = serve.run(argv)
+            laps.lap(f"serve.run {name}")
+            what = f"vlm launcher {name}"
+            rows = launcher_ctx + run["cfg"].n_prefix_tokens
+            require(run["sim_match"] == {r: True for r in range(n_req)},
+                    f"{what}: the requests' decisions against the simulator's: {run['sim_match']}")
+            require(len(run["waves"]) == 1 and run["waves"][0].n_failed == 0, f"{what}: not one clean wave")
+            configs = [s.configs for s in run["sessions"]]
+            require(all(TEXT not in c for c in configs), f"{what}: a TEXT chunk in {configs}")
+            n_chunks = len(run["streamer"].store.meta("ctx"))
+            if level is not None:
+                require(configs == [[level] * n_chunks] * n_req, f"{what}: configs {configs}")
+            kinds, _ = match_materialize(run, run["sessions"], what, rows)
+            laps.lap(f"materialize check {name}")
+            totals = {k: totals[k] + kinds[k] for k in totals}
+            print(f"{what}: {n_req} requests made the simulator's decisions ({configs}); "
+                  f"{run['waves'][0].n_decode_batches} batched decodes; every request equals materialize of its "
+                  f"configs (chunks compared: {kinds}); engine capacity {run['engine'].capacity} for {rows} rows")
+            launched[name] = {"cfg": run["cfg"], "configs": configs, "kinds": kinds}
+            del run
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+        require(totals["lossy"] > 0, f"vlm launcher: chunks compared {totals}")
+        print("vlm launcher steps ms:", laps.ms)
+        if on_card:
+            print("vlm launcher steps' peak allocated GB:", laps.peak_gb)
+    return {"tokens": outs, "launcher": launched}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1758,6 +1971,98 @@ def main() -> int:
         )
         del mqq, mkk, mvv
 
+        # phase 11's shapes, paligemma-3b (MQA 8:1, head dim 256, 256 image
+        # rows before a 3072-token context): K4 over its prefix-LM prefill
+        # and a B = 2 ragged case with one prefix and one causal row; K3 over
+        # its 1-row cache of 3361 slots (8 layer slices, 27 MB of K/V, read
+        # from HBM in turns) at the first generated token's kv_len and a
+        # 4-row ragged case; an f32 case of each, timed (no main path sends
+        # f32).  Planted faults of the prefix mask must fail K4's rule.
+        vcfg = registry.get(VLM_ARCH)
+        vH, vKV, vD, vP = vcfg.n_heads, vcfg.n_kv_heads, vcfg.d_head, vcfg.n_prefix_tokens
+        v_rows = vP + VLM_CTX
+        vlm_report = {}
+        (vqq, vkk, vvv), (want, mag), e1 = k4_case(1, v_rows, [vP], heads=(vH, vKV, vD))
+        # the prefix one key short (query rows below it lose key vP - 1) and
+        # the prefix ignored (plain causal: image rows lose the later image
+        # keys)
+        vq, vk, vv = vqq.float(), vkk.float(), vvv.float()
+        short = torch.tensor([vP - 1], dtype=torch.int32, device=dev)
+        controls["flash_attention at D = 256"] = {
+            name: ops.bf16_ulp_excess(f.bfloat16(), want, scale=mag, **tol4)
+            for name, f in (("prefix one key short", flash_attention_plain(vq, vk, vv, short)),
+                            ("prefix ignored", flash_attention_plain(vq, vk, vv)))}
+        require(min(controls["flash_attention at D = 256"].values()) > 1,
+                f"K4's rule misses a planted prefix fault: {controls['flash_attention at D = 256']}")
+        del want, mag, vq, vk, vv
+        _, _, e2 = k4_case(2, VLM_CTX - 72, [vP, 0], heads=(vH, vKV, vD))
+        vprefix = torch.tensor([vP], dtype=torch.int32, device=dev)
+        vq32, vk32, vv32 = vqq.float(), vkk.float(), vvv.float()
+        got = flash_attention_cuda(vq32, vk32, vv32, vprefix)
+        e32 = (got - flash_attention_plain(vq32, vk32, vv32, vprefix)).abs().max().item()
+        require(e32 <= 1e-4, f"K4 f32 at D = 256 is {e32} off its plain version")
+        n_pairs = v_rows * (v_rows + 1) // 2 + vP * (vP - 1) // 2  # causal pairs and the prefix's extra ones
+        vlm_report["flash_attention"] = dict(
+            max_abs_err=max(e1, e2),
+            ms=time_ms(lambda: flash_attention_cuda(vqq, vkk, vvv, vprefix)),
+            device_ms=device_ms(lambda: flash_attention_cuda(vqq, vkk, vvv, vprefix), "flash_tc_kernel"),
+            plain_ms=time_ms(lambda: flash_attention_plain(vqq, vkk, vvv, vprefix), iters=3, warmup=1),
+            library_ms=time_ms(lambda: sdpa(vqq.transpose(1, 2), vkk.transpose(1, 2), vvv.transpose(1, 2),
+                                            is_causal=True, enable_gqa=True)) if gqa_ok else None,
+            bound=bound((vqq.numel() * 2 + vkk.numel() + vvv.numel()) * 2, 4 * vD * vH * n_pairs),
+            f32_ms=time_ms(lambda: flash_attention_cuda(vq32, vk32, vv32, vprefix), iters=3, warmup=1),
+            shape=f"q {tuple(vqq.shape)} k/v {tuple(vkk.shape)} bf16 causal, prefix {vP}; B = 2 ragged "
+                  f"T = {VLM_CTX - 72} with prefixes [{vP}, 0]; f32 {e32:.3g} off (library: causal SDPA, no prefix)",
+        )
+        del vqq, vkk, vvv, vq32, vk32, vv32
+        v_cap = v_rows + GEN_TOKENS + 1
+        vk_c, vv_c, vq_d = randn(8, 1, v_cap, vKV, vD), randn(8, 1, v_cap, vKV, vD), randn(1, vH, vD)
+        v_lens = torch.tensor([v_rows + 1], dtype=torch.int32, device=dev)
+        err_v3 = 0.0
+        cases = [(vq_d, vk_c[0], vv_c[0], v_lens)]
+        rag_k, rag_v, rag_q = randn(4, v_cap, vKV, vD), randn(4, v_cap, vKV, vD), randn(4, vH, vD)
+        cases.append((rag_q, rag_k, rag_v, torch.tensor([v_rows + 1, 0, TILE + 1, v_cap], dtype=torch.int32,
+                                                        device=dev)))
+        for cq, ck, cv, cl in cases:
+            got = decode_attention_cuda(cq, ck, cv, cl)
+            want = decode_attention_plain(cq.float(), ck.float(), cv.float(), cl)
+            require(not got[cl == 0].float().any(), "K3 at D = 256: a row with kv_len 0 must output 0")
+            x = ops.bf16_ulp_excess(got, want, **tol3)
+            require(x <= 1, f"K3 at D = 256 is {x:.3g} times its tolerance off its plain version")
+            excess["decode_attention"] = max(excess["decode_attention"], x)
+            err_v3 = max(err_v3, (got.float() - want).abs().max().item())
+        del rag_k, rag_v, rag_q
+        vk32_c, vv32_c, vq32_d = vk_c[0].float(), vv_c[0].float(), vq_d.float()
+        e32 = (decode_attention_cuda(vq32_d, vk32_c, vv32_c, v_lens)
+               - decode_attention_plain(vq32_d, vk32_c, vv32_c, v_lens)).abs().max().item()
+        require(e32 <= 1e-4, f"K3 f32 at D = 256 is {e32} off its plain version")
+        v_it = itertools.count()
+
+        def vk3():
+            i = next(v_it) % 8
+            return decode_attention_cuda(vq_d, vk_c[i], vv_c[i], v_lens)
+
+        def vk3_lib():
+            i = next(v_it) % 8
+            mask = (torch.arange(v_cap, device=dev)[None, :] < v_lens[:, None])[:, None, None, :]
+            return sdpa(vq_d[:, :, None], vk_c[i].transpose(1, 2), vv_c[i].transpose(1, 2), attn_mask=mask,
+                        enable_gqa=True)
+
+        n_tok = v_rows + 1
+        vlm_report["decode_attention"] = dict(
+            max_abs_err=err_v3,
+            ms=time_ms(vk3, iters=40),
+            device_ms=device_ms(vk3, "decode_split_kernel", "decode_combine_kernel", iters=16),
+            plain_ms=time_ms(lambda: decode_attention_plain(vq_d, vk_c[0], vv_c[0], v_lens)),
+            library_ms=time_ms(vk3_lib, iters=40) if gqa_ok else None,
+            bound=bound(vq_d.numel() * 2 * 2 + n_tok * vKV * vD * 2 * 2 + 4, 4 * vH * vD * n_tok),
+            f32_ms=time_ms(lambda: decode_attention_cuda(vq32_d, vk32_c, vv32_c, v_lens), iters=40),
+            shape=f"q {tuple(vq_d.shape)} vs cache {tuple(vk_c[0].shape)} bf16, kv_len {v_lens.tolist()}, "
+                  f"split {split_size(v_cap, 1, vKV, torch.cuda.get_device_properties(dev).multi_processor_count)}; "
+                  f"4 ragged rows; f32 {e32:.3g} off",
+        )
+        del vk_c, vv_c, vk32_c, vv32_c
+
         require(t6["device_ms"] is not None, "the profiler holds no device time for K4 at the store shape")
         for name, r in report.items():
             require(r["device_ms"] is not None, f"the profiler holds no device time for {name}'s kernels")
@@ -1774,6 +2079,14 @@ def main() -> int:
                   f"{r['ms']:.4f} ms  (device time {r['device_ms']} ms)  plain {r['plain_ms']:.4f} ms  library "
                   f"{r['library_ms']}  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} "
                   f"of it reached, {r['bound'][0] / r['device_ms']:.1%} of device time)")
+        for name, r in vlm_report.items():
+            require(r["device_ms"] is not None, f"the profiler holds no device time for {name} at the vlm shape")
+            print(f"{name} at {VLM_ARCH}'s shape: {r['shape']}  max_abs_err {r['max_abs_err']:.3g}  kernel "
+                  f"{r['ms']:.4f} ms  (device time {r['device_ms']} ms)  plain {r['plain_ms']:.4f} ms  library "
+                  f"{r['library_ms']}  f32 kernel {r['f32_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it reached, "
+                  f"{r['bound'][0] / r['device_ms']:.1%} of device time)")
+        print(f"flash_attention at D = 256: planted faults {controls['flash_attention at D = 256']}")
         del kc, vc
 
     # --------------------------------------------------------- 4 serve, 5 text
@@ -1809,9 +2122,16 @@ def main() -> int:
     drive_moe_path(registry.get(MOE_ARCH), dev, gen, phase=lambda name: Phase(name, phase_ms))
     paths["moe"] = ops.launch_counts()
 
+    # ----------------------------------------------------------------- 11 vlm
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    drive_vlm_path(registry.get(VLM_ARCH), dev, gen, phase=lambda name: Phase(name, phase_ms))
+    paths["vlm"] = ops.launch_counts()
+
     # --------------------------------------------------------------- summary
     runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
-            "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "moe": MOE_KERNELS}
+            "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "moe": MOE_KERNELS, "vlm": VLM_KERNELS}
     require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")
     for path, counts in paths.items():
         print(f"launches on the {path} path:", counts)

@@ -27,10 +27,12 @@ from typing import Optional
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "aligned16", "load_library", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "HEAD_DIMS", "aligned16", "load_library", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+# the head dims K3's and K4's kernels are built for (their `switch (D)`)
+HEAD_DIMS = (32, 64, 128, 256)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",
@@ -151,7 +153,7 @@ def check(err: int, name: str) -> None:
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself where its base address and every stride but the last are
     multiples of 16 bytes, as the kernels' 16-byte row copies need; else a
-    contiguous copy (a head dim of 32, 64 or 128 makes that aligned)."""
+    contiguous copy (any of ``HEAD_DIMS`` makes that aligned)."""
     es = t.element_size()
     if t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in t.stride()[:-1]):
         return t

@@ -44,6 +44,13 @@
 //
 // q and the output are f32 or bf16 (a runtime flag: q is read once per
 // block, the output written once); K/V f32 or bf16 (a template parameter).
+//
+// Head dims 32, 64, 128 and 256.  The shared memory is sized once, for
+// kMaxRep query heads; at D = 256 with bf16 K/V the 3-stage ring still fits
+// (227,328 of the 232,448 bytes a block may have), with f32 K/V it would
+// need 399 KB, so that case runs a 1-stage ring (Geom::kStages): each tile
+// is loaded after every thread is done with the one before.  The merge
+// launch runs D threads, at most 8 warps.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -53,7 +60,6 @@ namespace {
 
 constexpr int kMaxRep = 16;  // query heads per KV head
 constexpr int kTile = 64;    // cache positions per tile, and threads per query head
-constexpr int kStages = 3;   // tiles in the shared-memory ring
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -115,7 +121,11 @@ struct Geom {
   static constexpr int RB = D * (int)sizeof(TKV) + 16;   // padded row bytes in shared memory
   static constexpr int TILE_B = kTile * RB;              // one K (or V) tile
   static constexpr int CPL = D / 32;                     // output columns per lane
-  static int smem(int rep) { return rep * D * 4 + 2 * rep * kTile * 4 + kStages * 2 * TILE_B; }
+  // tiles in the shared-memory ring: 3, or 1 where 3 would not fit (f32 at D = 256)
+  static constexpr int kStages = D * (int)sizeof(TKV) > 512 ? 1 : 3;
+  static constexpr int smem(int rep) {
+    return rep * D * 4 + 2 * rep * kTile * 4 + kStages * 2 * TILE_B;
+  }
 };
 
 template <typename TKV, int D>
@@ -127,6 +137,7 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
                     long long v_sb, long long v_ss, long long v_sh, int split_size,
                     float scale_log2) {
   using G = Geom<TKV, D>;
+  constexpr int kStages = G::kStages;
   extern __shared__ __align__(16) uint8_t smem[];
   const int rep = blockDim.x / kTile;
   float* q_s = (float*)smem;                        // [rep][D], scaled into log2 units
@@ -192,14 +203,24 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
   // iteration j commits one group (tile j + kStages - 1, or none), so tile j
   // is complete once at most kStages - 2 groups are pending
   for (int j = 0; j < n_tiles; ++j) {
-    if (j == 0)
-      cp_async_wait<kStages - 1>();
-    else
-      cp_async_wait<kStages - 2>();  // tile j landed for this thread's copies
-    __syncthreads();                 // ... and every thread's; q_s written; tile j-1's stage free
-    if (j > 0) {
-      if (j + kStages - 1 < n_tiles) load_tile(j + kStages - 1);
-      cp_async_commit();
+    if constexpr (kStages == 1) {
+      if (j > 0) {  // one stage: tile j goes where tile j-1 was, once every thread is done with it
+        __syncthreads();
+        load_tile(j);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      if (j == 0)
+        cp_async_wait<kStages - 1>();
+      else
+        cp_async_wait<kStages - 2>();  // tile j landed for this thread's copies
+      __syncthreads();                 // ... and every thread's; q_s written; tile j-1's stage free
+      if (j > 0) {
+        if (j + kStages - 1 < n_tiles) load_tile(j + kStages - 1);
+        cp_async_commit();
+      }
     }
     const uint8_t* kt = ring + (j % kStages) * 2 * G::TILE_B;
     const uint8_t* vt = kt + G::TILE_B;
@@ -312,7 +333,7 @@ __global__ void decode_combine_kernel(const float* __restrict__ part, const int*
                                       void* __restrict__ out, int out_bf16, int Hq, int S,
                                       int n_splits, long long n_part, int split_size, int D) {
   extern __shared__ float w_s[];  // [n_splits]
-  __shared__ float red[4];
+  __shared__ float red[8];        // one slot a warp: D <= 256 threads
   const long long bh = blockIdx.x;  // b * Hq + query head
   const int len = min(max(kv_len[bh / Hq], 0), S);
   const int n = (len + split_size - 1) / split_size;
@@ -350,6 +371,7 @@ int launch_split(const void* q, int q_bf16, const void* k, const void* v, const 
                  long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                  long long v_ss, long long v_sh, int split_size, float scale_log2,
                  cudaStream_t stream) {
+  static_assert(Geom<TKV, D>::smem(kMaxRep) <= 232448, "the ring fits a block's shared memory");
   static const cudaError_t attr = cudaFuncSetAttribute(
       decode_split_kernel<TKV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Geom<TKV, D>::smem(kMaxRep));
@@ -375,6 +397,7 @@ int launch_typed(int D, const void* q, int q_bf16, const void* k, const void* v,
     case 32: return launch_split<TKV, 32>(ARGS);
     case 64: return launch_split<TKV, 64>(ARGS);
     case 128: return launch_split<TKV, 128>(ARGS);
+    case 256: return launch_split<TKV, 256>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS

@@ -52,9 +52,19 @@
 // chunked_mha does at bf16 (it casts its weights to v's dtype), and
 // kernels/ops.py states the rule it is held to.
 //
+// Head dim 256 (paligemma-3b) has its own shared-memory plan (TcPlan): at
+// 64 keys a warpgroup its ring would need 384 KB beside the 32 KB Q panel,
+// against the 227 KB a block may have, so each warpgroup takes 32-key tiles
+// (wgmma m64n32k16 for S) and the 3-stage ring of (K, V) tile pairs holds
+// 192 KB: 230,400 B with the alignment slack.  The value product is one
+// wgmma m64n256k16 a k-step, its accumulator 128 f32 registers a thread
+// beside S's 16 and P's 8.  D <= 128 keeps its plan.
+//
 // f32 keeps the first, scalar design: one thread per query row, K/V tiles
-// of 32 keys staged through shared memory, scalar FMAs.  Nothing on the main
-// path sends f32 (the engine is bf16).
+// of 32 keys (16 at D = 256, so the static shared memory stays under 48 KB)
+// staged through shared memory, scalar FMAs; at D = 256 a thread's q and
+// accumulator rows spill to local memory.  Nothing on the main path sends
+// f32 (the engine is bf16).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -64,7 +74,6 @@ namespace {
 
 // ------------------------------------------------------------------ f32
 constexpr int kBQ = 64;  // query rows per block, one thread each
-constexpr int kBK = 32;  // keys per shared-memory tile
 
 template <int D>
 __global__ void __launch_bounds__(kBQ)
@@ -74,6 +83,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
              long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,
              long long o_sb, long long o_st, long long o_sh, int causal, int use_prefix,
              float scale) {
+  constexpr int kBK = D > 128 ? 16 : 32;  // keys per shared-memory tile
   __shared__ float Ks[kBK][D];
   __shared__ float Vs[kBK][D];
   __shared__ float Ss[kBQ][kBK + 1];
@@ -159,10 +169,22 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kWG = 2;              // warpgroups per block, one per key tile of a pair
 constexpr int kBM = 64;             // query rows per block (wgmma M)
-constexpr int kBN = 64;             // keys per warpgroup tile
-constexpr int kPair = kWG * kBN;    // keys per ring stage: one tile per warpgroup
-constexpr int kStages = 3;          // tile pairs in the shared-memory ring
 constexpr int kThreads = kWG * 128;
+
+// The bf16 kernel's shared-memory plan by head dim: the padded head dim DP,
+// the keys of a warpgroup's tile (kBN, wgmma's N for S), the keys of a ring
+// stage (kPair: one tile per warpgroup) and the stages.  D = 256 halves the
+// tile so that three stages fit beside the Q panel.
+template <int D>
+struct TcPlan {
+  static constexpr int DP = D < 64 ? 64 : D;
+  static constexpr int kBN = D > 128 ? 32 : 64;
+  static constexpr int kPair = kWG * kBN;
+  static constexpr int kStages = 3;
+  static constexpr int kSmem = kBM * DP * 2 + kStages * 2 * kPair * DP * 2 + 1024;
+  static_assert(kSmem <= 232448, "the plan fits a block's shared memory");
+  static_assert((DP / 2 + 4) * 128 * 4 <= kStages * 2 * kPair * DP * 2, "the merge fits the ring");
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -251,6 +273,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D[64 x 32] = A[64 x 16] (smem, K-major) * B[16 x 32] (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n32_zero(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D[64 x 32] += A[64 x 16] (smem, K-major) * B[16 x 32] (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // D[64 x 64] += A[64 x 16] (registers) * B[16 x 64] (smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -271,12 +311,40 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] (registers) * B[16 x 256] (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S over one k-step: N = kBN keys (the first k-step overwrites s)
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t da, uint64_t db, bool first) {
+  if constexpr (N == 32) {
+    if (first)
+      wgmma_ss_n32_zero(s, da, db);
+    else
+      wgmma_ss_n32(s, da, db);
+  } else {
+    if (first)
+      wgmma_ss_n64_zero(s, da, db);
+    else
+      wgmma_ss_n64(s, da, db);
+  }
+}
+
 template <int DP>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (DP == 64)
     wgmma_rs_n64(o, a, db);
-  else
+  else if constexpr (DP == 128)
     wgmma_rs_n128(o, a, db);
+  else
+    wgmma_rs_n256(o, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -292,7 +360,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
                 long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,
                 long long o_sb, long long o_st, long long o_sh, int causal, int use_prefix,
                 float scale_log2) {
-  constexpr int DP = D < 64 ? 64 : D;            // padded head dim in shared memory
+  using P = TcPlan<D>;
+  constexpr int DP = P::DP, kBN = P::kBN, kPair = P::kPair, kStages = P::kStages;
   constexpr uint32_t kQBytes = kBM * DP * 2;     // the Q panel
   constexpr uint32_t kKVBytes = kPair * DP * 2;  // one K (or V) tile pair
   extern __shared__ uint8_t smem_raw[];
@@ -357,17 +426,14 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
     const uint32_t sV = sK + kKVBytes;
 
     // S = Q K^T over DP / 16 k-steps (the first one overwrites s)
-    float s[32];
+    float s[kBN / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       const uint32_t koff = (uint32_t)(kk % 4) * 32;  // 16 columns into the 128-byte row
       const uint64_t da = smem_desc(sQ + (kk / 4) * kBM * 128 + koff, 16, 1024);
       const uint64_t db = smem_desc(sK + (kk / 4) * kPair * 128 + koff, 16, 1024);
-      if (kk == 0)
-        wgmma_ss_n64_zero(s, da, db);
-      else
-        wgmma_ss_n64(s, da, db);
+      wgmma_qk<kBN>(s, da, db, kk == 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -380,7 +446,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
     const bool mask = k0 + kBN > Tk || (causal && k0 + kBN - 1 > first && k0 + kBN > plen);
     float t0 = -INFINITY, t1 = -INFINITY;
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
+    for (int e = 0; e < kBN / 2; ++e) {
       if (mask) {
         const int key = k0 + 8 * (e / 4) + cq + (e % 2);
         const int pos = (e % 4) < 2 ? pos0 : pos1;
@@ -404,7 +470,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
     float r0 = 0.f, r1 = 0.f;
     uint32_t p[kBN / 16][4];
 #pragma unroll
-    for (int e = 0; e < 32; e += 2) {
+    for (int e = 0; e < kBN / 2; e += 2) {
       const bool top = (e % 4) < 2;
       const float e0 = ex2(fmaf(s[e], scale_log2, -(top ? u0 : u1)));
       const float e1 = ex2(fmaf(s[e + 1], scale_log2, -(top ? u0 : u1)));
@@ -480,9 +546,7 @@ int launch_tc(const void* q, const void* k, const void* v, const int* plen, void
               long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
               long long v_sh, long long o_sb, long long o_st, long long o_sh, int causal,
               int use_prefix, float scale, cudaStream_t stream) {
-  constexpr int DP = D < 64 ? 64 : D;
-  constexpr int smem = kBM * DP * 2 + kStages * 2 * kPair * DP * 2 + 1024;
-  static_assert((DP / 2 + 4) * 128 * 4 <= kStages * 2 * kPair * DP * 2, "the merge fits the ring");
+  constexpr int smem = TcPlan<D>::kSmem;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -509,6 +573,7 @@ int launch_f32(const void* q, const void* k, const void* v, const int* plen, voi
     case 32: FLASH(32); break;
     case 64: FLASH(64); break;
     case 128: FLASH(128); break;
+    case 256: FLASH(256); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH
@@ -540,6 +605,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 32: return launch_tc<32>(ARGS);
     case 64: return launch_tc<64>(ARGS);
     case 128: return launch_tc<128>(ARGS);
+    case 256: return launch_tc<256>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import aligned16, check, load_library
+from repro_torch.kernels._build import HEAD_DIMS, aligned16, check, load_library
 
 __all__ = ["TILE", "decode_attention_plain", "decode_attention_cuda", "split_size"]
 
@@ -80,8 +80,8 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale=None):
     S, Hkv = k.shape[1], k.shape[2]
     if Hq % Hkv or Hq // Hkv > _MAX_REP:
         raise ValueError(f"decode_attention: Hq={Hq} must be a multiple of Hkv={Hkv}, at most {_MAX_REP}x")
-    if D not in (32, 64, 128):
-        raise ValueError(f"decode_attention: head dim {D} not in (32, 64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODE or k.dtype not in _DTYPE_CODE or v.dtype != k.dtype:
         raise TypeError(f"decode_attention: dtypes q={q.dtype} k={k.dtype} v={v.dtype} not supported")
     if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (B,) or not kv_len.is_contiguous():

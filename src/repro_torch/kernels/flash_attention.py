@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import aligned16, check, load_library
+from repro_torch.kernels._build import HEAD_DIMS, aligned16, check, load_library
 
 __all__ = ["flash_attention_plain", "flash_attention_cuda", "flash_attention_magnitude"]
 
@@ -85,8 +85,8 @@ def flash_attention_cuda(
     Tk, Hkv = k.shape[1], k.shape[2]
     if Hq % Hkv:
         raise ValueError(f"flash_attention: Hq={Hq} not a multiple of Hkv={Hkv}")
-    if D not in (32, 64, 128):
-        raise ValueError(f"flash_attention: head dim {D} not in (32, 64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes q={q.dtype} k={k.dtype} v={v.dtype} not supported")
     if prefix_len is not None and (

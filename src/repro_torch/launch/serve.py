@@ -57,11 +57,18 @@ The port against the reference launcher (``repro.launch.serve``):
   So the two CLIs print other tokens and sizes for the same flags; pass the
   reference's draw as ``params`` (``models/convert.params_from_numpy``) to
   compare them.
-* Families: the port serves the dense and MoE families (smollm-360m,
-  qwen2-moe-a2.7b, granite-moe-3b-a800m, ...).  ``vlm``, which the
-  reference also serves, exits with a message: paligemma-3b's head dim of
-  256 needs K3 and K4 at D = 256 (a new shared-memory plan for K4), which
-  waits for ``ROADMAP.md`` §1 item 9.
+* Families: the dense, MoE and vlm families, as the reference (smollm-360m,
+  qwen2-moe-a2.7b, granite-moe-3b-a800m, paligemma-3b, ...).  A vlm
+  context is the model's image prefix (``n_prefix_tokens`` rows of patch
+  embeddings drawn from the context's generator after its tokens, as the
+  reference draws them) before the ``--ctx-len`` text tokens; its KV rows
+  are not 1:1 with text tokens, so the tiered store hashes their bytes, and
+  no chunk may be recomputed as TEXT.
+* Cache capacity: the reference sizes the cache at ``--ctx-len + 32 +
+  --generate`` rows, where ``.tiny()``'s 8 image rows fit in the slack; at
+  ``--full-width`` paligemma-3b's 256 do not, so there the port sizes it
+  from the cached rows (image rows included).  Without ``--full-width``
+  (and for every family but vlm) the two sizes are the same.
 * :func:`run` prints the lines and returns what it printed as data (see its
   docstring); :func:`main` is the command line.
 """
@@ -308,16 +315,10 @@ def run(argv: Optional[List[str]] = None, *, params=None, device=None) -> Dict[s
     cfg = registry.get(args.arch)
     if not args.full_width:
         cfg = cfg.tiny()
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in lm_mod.FAMILIES:
         raise SystemExit(
             f"--arch {args.arch}: serve driver supports attention families "
             "(KV-cache streaming); see DESIGN.md §Arch-applicability"
-        )
-    if cfg.family == "vlm":
-        raise SystemExit(
-            f"--arch {args.arch}: the port does not serve the vlm family yet: "
-            "its head dim of 256 needs K3 and K4 at D = 256, which wait for "
-            "ROADMAP.md §1 item 9"
         )
     dev = resolve_device(device if device is not None else args.device)
     lines: List[str] = []
@@ -330,13 +331,19 @@ def run(argv: Optional[List[str]] = None, *, params=None, device=None) -> Dict[s
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = lm_mod.init_params(cfg, gen, dev)
-    engine = Engine(cfg, params, cache_capacity=args.ctx_len + 32 + args.generate, device=dev)
+    n_cached = args.ctx_len + (cfg.n_prefix_tokens if cfg.family == "vlm" else 0)
+    capacity = (n_cached if args.full_width else args.ctx_len) + 32 + args.generate
+    engine = Engine(cfg, params, cache_capacity=capacity, device=dev)
     lm = MarkovLM(vocab_size=cfg.vocab_size, seed=0)
     rng = np.random.default_rng(0)
     tokens = lm.sample(rng, args.ctx_len)[None]
     batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.as_tensor(
+            rng.normal(size=(1, cfg.n_prefix_tokens, cfg.frontend_dim)),
+            dtype=torch.float32, device=dev,
+        )
     logits, caches = engine.calculate_kv(batch)
-    n_cached = args.ctx_len
     kv = caches_to_codec_kv(caches, 0, n_cached)
     tables = kvcodec.profile([kv], kvcodec.CodecConfig(precision=11), device=dev)
     if args.store == "tiered":
@@ -348,10 +355,11 @@ def run(argv: Optional[List[str]] = None, *, params=None, device=None) -> Dict[s
     else:
         store = KVStore(tables)
     streamer = CacheGenStreamer(store, cfg)
-    # canonical token-chain hashing: the KV rows are 1:1 with text tokens
     store.store_kv(
         "ctx", kv, chunk_tokens=max(args.ctx_len // 4, 50),
-        tokens=tokens[0].tolist(),
+        # canonical token-chain hashing when the KV rows are 1:1 with
+        # text tokens; a vlm's prefix rows aren't, so hash KV bytes there
+        tokens=tokens[0].tolist() if tokens.shape[1] == n_cached else None,
     )
     say(f"[serve] context stored: {store.storage_bytes('ctx')/1e3:.1f} KB all levels")
 

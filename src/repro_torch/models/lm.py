@@ -1,11 +1,17 @@
-"""Decoder LM, dense and MoE families: plan, init, prefill, chunked
+"""Decoder LM, dense, MoE and vlm families: plan, init, prefill, chunked
 prefill, decode.
 
 Layers run as a Python loop over the stacked per-layer weights (leading
 ``L`` axis, as in the reference's pytree).  The MoE family's layers differ
 from the dense family's in their FFN alone (``models.moe``; the load
 balancing loss the reference sums for ``loss_fn`` is dropped here, as its
-serving entry points drop it).  Entry points:
+serving entry points drop it).  The vlm family (paligemma-3b) is the dense
+decoder behind a multimodal prefix: ``prefill`` projects the batch's
+precomputed ``patch_embeds`` (the stubbed vision tower's output) through
+``frontend_proj``, puts those rows before the text tokens and attends
+bidirectionally over them (prefix-LM, K4's ``prefix_len``); the caches
+then hold the prefix rows first, and ``prefill_extend`` and
+``decode_step`` treat them as any cached rows.  Entry points:
 
   * ``param_plan`` / ``init_params``
   * ``prefill(cfg, params, batch, pad_to=)``   — logits + caches (K4)
@@ -40,6 +46,7 @@ from repro_torch.models.common import (
 from repro_torch.models.moe import moe_apply, moe_plan
 
 __all__ = [
+    "FAMILIES",
     "Caches",
     "param_plan",
     "init_params",
@@ -51,7 +58,7 @@ __all__ = [
 
 
 class Caches(NamedTuple):
-    """Serving caches of the dense and MoE families (the reference's
+    """Serving caches of the attention families (the reference's
     ``Caches`` also carries the SSM / hybrid states, which the port does not
     build yet)."""
 
@@ -63,9 +70,12 @@ class Caches(NamedTuple):
         return Caches(*(t.clone() for t in self))
 
 
+FAMILIES = ("dense", "moe", "vlm")  # the families the port builds
+
+
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"the port builds the dense and MoE families only, not {cfg.family}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"the port builds the dense, MoE and vlm families only, not {cfg.family}")
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +112,8 @@ def param_plan(cfg: ArchConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         plan["head"] = Leaf((d, V), ("embed", "vocab"))
+    if cfg.family == "vlm":
+        plan["frontend_proj"] = Leaf((cfg.frontend_dim, d), ("frontend", "embed"))
     return plan
 
 
@@ -148,6 +160,28 @@ def _logits(cfg, params, x):
     return x @ w
 
 
+def _assemble_input(cfg, params, batch):
+    """Token (+ the vlm family's image prefix) embedding: returns (x,
+    prefix_len or None).
+
+    The reference multiplies f32 patches by ``frontend_proj`` in the model's
+    dtype, which JAX promotes to an f32 product, and casts the rows to the
+    embedding's dtype; torch refuses mixed dtypes in a matmul, so the
+    promotion is written out.
+    """
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).to(torch.long)
+    x = _embed_tokens(cfg, params, tokens)
+    if cfg.family != "vlm":
+        return x, None
+    patches = torch.as_tensor(batch["patch_embeds"], device=dev)  # (B, n_img, frontend_dim)
+    ct = torch.promote_types(patches.dtype, params["frontend_proj"].dtype)
+    px = patches.to(ct) @ params["frontend_proj"].to(ct)
+    x = torch.cat([px.to(x.dtype), x], dim=1)
+    prefix_len = torch.full((x.shape[0],), patches.shape[1], dtype=torch.int32, device=dev)
+    return x, prefix_len
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -155,15 +189,17 @@ def _logits(cfg, params, x):
 
 def prefill(cfg: ArchConfig, params, batch, *, pad_to: Optional[int] = None):
     """Prefill the context; returns (last-token logits (B,1,V), Caches).
+    ``batch`` holds ``tokens`` (B, T) and, for the vlm family,
+    ``patch_embeds`` (B, n_img, frontend_dim): the caches then hold
+    ``n_img + T`` rows, the image rows first.
 
     ``pad_to``: allocate KV caches with this sequence capacity (>= T) so the
     serving engine can decode further tokens in place; each layer's K/V is
     written straight into it.
     """
     _check_family(cfg)
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device).to(torch.long)
-    x = _embed_tokens(cfg, params, tokens)
-    B, T = tokens.shape
+    x, prefix_len = _assemble_input(cfg, params, batch)
+    B, T = x.shape[:2]
     dev = x.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
     cap = pad_to or T
@@ -173,7 +209,7 @@ def prefill(cfg: ArchConfig, params, batch, *, pad_to: Optional[int] = None):
     for l in range(cfg.n_layers):
         p = _layer(params, l)
         h = apply_norm(cfg.norm, p["ln1"], x)
-        attn_out, (k, v) = attn_prefill(cfg, p["attn"], h, positions)
+        attn_out, (k, v) = attn_prefill(cfg, p["attn"], h, positions, prefix_len=prefix_len)
         kv_k[l, :, :T] = k
         kv_v[l, :, :T] = v
         x = _mlp_residual(cfg, p, x + attn_out, h)

@@ -1,8 +1,8 @@
-"""Shared set-up of the launcher parity tests (``tests/test_torch_serve.py``
-and ``tests/test_torch_serve_moe.py``): both launchers in process on the
-same flags, config, weights, prefill and calibration reports (see
-``test_torch_serve.py``'s docstring), and the masks that compare their
-printed lines."""
+"""Shared set-up of the launcher parity tests (``tests/test_torch_serve.py``,
+``tests/test_torch_serve_moe.py`` and ``tests/test_torch_serve_vlm.py``):
+both launchers in process on the same flags, config, weights, prefill and
+calibration reports (see ``test_torch_serve.py``'s docstring), and the
+masks that compare their printed lines."""
 import contextlib
 import dataclasses
 import io
@@ -68,7 +68,8 @@ def make_world(assets, monkeypatch):
         def calculate_kv(self, batch):
             logits, caches = super().calculate_kv(batch)
             jeng = JEngine(jcfg, jparams, cache_capacity=self.capacity)
-            jlogits, jc = jeng.calculate_kv({"tokens": jnp.asarray(batch["tokens"].numpy())})
+            # the vlm family's batch also holds its f32 patch embeddings
+            jlogits, jc = jeng.calculate_kv({k: jnp.asarray(v.numpy()) for k, v in batch.items()})
             want = (np.array(jlogits), np.array(jc.kv_k), np.array(jc.kv_v))
             for got, ref in zip((logits, caches.kv_k, caches.kv_v), want):
                 np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)

@@ -255,6 +255,7 @@ DECODE_CASES = [
     (3, 4, 2, 64, 32, [0, 17, 64], 32),  # GQA, an empty row, a full row
     (2, 6, 2, 96, 32, [1, 95], 32),  # rep 3, as smollm-360m
     (1, 4, 4, 32, 64, [30], 32),  # MHA
+    (2, 8, 1, 64, 256, [0, 41], 32),  # paligemma-3b: MQA 8:1, head dim 256
 ]
 
 
@@ -287,6 +288,8 @@ FLASH_CASES = [
     (1, 6, 2, 32, 64, 32, True, None, 16),  # Tq < Tk: decoder offset
     (2, 2, 1, 64, 64, 64, True, [10, 50], 16),  # prefix-LM
     (1, 2, 2, 48, 48, 32, False, None, 16),  # bidirectional
+    (1, 8, 1, 48, 48, 256, True, [16], 16),  # paligemma-3b: MQA 8:1, head dim 256, prefix-LM
+    (1, 4, 1, 32, 32, 256, True, None, 16),  # head dim 256, causal
 ]
 
 
@@ -576,6 +579,8 @@ def test_cuda_decode_attention_matches_plain(cuda, q_dtype, kv_dtype):
     (4, 4, 128, torch.bfloat16),  # MHA, D = 128
     (8, 1, 128, torch.float32),  # the largest tile ring
     (6, 2, 32, torch.float32),
+    (8, 1, 256, torch.bfloat16),  # paligemma-3b: its own 3-stage ring at D = 256
+    (8, 1, 256, torch.float32),  # the 1-stage ring
 ])
 def test_cuda_decode_attention_geometries(cuda, Hq, Hkv, D, kv_dtype):
     q, k, v = _decode_case(cuda, Hq + D, 3, Hq, Hkv, 700, D, torch.bfloat16, kv_dtype)
@@ -601,6 +606,18 @@ def test_cuda_decode_attention_moe_geometry(cuda):
     _check_decode(q, k, v, torch.tensor([3073, 3104, 1000], dtype=torch.int32, device=cuda))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention_vlm_geometry(cuda, kv_dtype):
+    """paligemma-3b's decode: MQA 8:1, head dim 256, a cache of 3,361
+    slots (256 image rows, a 3,072-token context and 32 generated tokens)
+    at the first and the last generated token's lengths, a ragged row and
+    an empty one: many splits of one KV head, merged at D + 2 floats a
+    split."""
+    q, k, v = _decode_case(cuda, 256, 4, 8, 1, 3361, 256, torch.bfloat16, kv_dtype)
+    _check_decode(q, k, v, torch.tensor([3329, 3360, 1000, 0], dtype=torch.int32, device=cuda))
+
+
 # (B, Hq, Hkv, Tq, Tk, D, causal, prefix)
 CUDA_FLASH_CASES = [
     (1, 15, 5, 3072, 3072, 64, True, None),  # the serve phase's prefill
@@ -616,6 +633,10 @@ CUDA_FLASH_CASES = [
     (1, 8, 2, 300, 300, 128, True, None),
     (1, 16, 16, 3072, 3072, 128, True, None),  # qwen2-moe-a2.7b's prefill
     (1, 4, 2, 200, 333, 32, True, None),
+    (1, 8, 1, 3328, 3328, 256, True, [256]),  # paligemma-3b's prefill: 256 image rows, 3072 tokens
+    (2, 8, 1, 1000, 1000, 256, True, [256, 0]),  # its prefix beside a causal row
+    (1, 8, 1, 300, 300, 256, True, None),
+    (1, 4, 2, 130, 200, 256, False, None),  # bidirectional, Tq < Tk
 ]
 
 

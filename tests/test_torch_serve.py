@@ -291,12 +291,6 @@ def test_parse_arrivals_matches_reference(spec, tmp_path):
     assert serve._parse_arrivals(spec, 3, 7) == want and len(want) == 3
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b"])
-def test_moe_and_vlm_exit_with_the_roadmap_item(arch):
-    with pytest.raises(SystemExit, match=r"vlm family.*head dim of 256.*D = 256.*ROADMAP\.md §1 item 9"):
-        serve.run(["--arch", arch, "--device", "cpu"])
-
-
 def test_non_attention_family_exits_like_reference():
     argv = ["--arch", "mamba2-370m"]
     with pytest.raises(SystemExit) as mine:

@@ -1,8 +1,8 @@
 """``chip_smoke.py`` off the card: it refuses to run without one, and its
 main path (phases 4-5), store path (phase 6), session path (phase 7),
-serving path (phase 8), launcher path (phase 9) and MoE path (phase 10) run
-at a tiny size on the CPU through the kernels' plain versions (no launch
-counted)."""
+serving path (phase 8), launcher path (phase 9), MoE path (phase 10) and
+vlm path (phase 11) run at a tiny size on the CPU through the kernels'
+plain versions (no launch counted)."""
 import contextlib
 import importlib.util
 import io
@@ -174,4 +174,32 @@ def test_chip_smoke_moe_path_runs_on_cpu_at_tiny_size():
     assert [w["cfg"].family for w in got["launcher"].values()] == ["moe"] * 3
     assert got["launcher"]["level 0"]["kinds"]["level 0"] == 2 * 4
     assert got["launcher"][f"level {smoke.MOE_LOSSY}"]["kinds"]["lossy"] == 2 * 4
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_vlm_path_runs_on_cpu_at_tiny_size():
+    """Phase 11 at ``paligemma-3b.tiny()`` (bf16, 8 image rows), a 256-token
+    context in 64-row chunks: the fused level-0 decode equals the unfused
+    oracle and generates its tokens and the prefill cache's, the lossy run is within K1's rule, a
+    step repeats bit for bit and agrees with its plain version, and the
+    launcher's waves (as decided, and pinned to a lossy level) make the
+    simulator's decisions without a TEXT chunk and equal ``materialize``
+    (the script fails otherwise); nothing is counted off the card."""
+    from repro_torch.streaming.storage import split_chunks
+
+    smoke = _load_smoke()
+    smoke.ops.reset_launch_counts()
+    cfg = smoke.registry.get(smoke.VLM_ARCH).tiny()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = smoke.drive_vlm_path(cfg, torch.device("cpu"), torch.Generator(device="cpu"), ctx_len=256, chunk=64,
+                                   gen_tokens=8, launcher_ctx=256, full_width=False)
+    out = out.getvalue()
+    assert "vlm decode: level 0 bit-equal" in out and "vlm greedy: 8 tokens equal from the fused, the oracle and the prefill" in out
+    assert "logits bit-identical run twice" in out and "vlm launcher steps ms" in out
+    assert "vlm launcher decided: 4 requests made the simulator's decisions" in out
+    assert [w["cfg"].family for w in got["launcher"].values()] == ["vlm"] * 2
+    n_chunks = len(split_chunks(256 + cfg.n_prefix_tokens, 64))  # the launcher's chunks: max(ctx // 4, 50)
+    assert [len(c) for c in got["launcher"]["decided"]["configs"]] == [n_chunks] * 4
+    assert got["launcher"][f"level {smoke.VLM_LOSSY}"]["kinds"]["lossy"] == 2 * n_chunks
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
