@@ -6,12 +6,16 @@
 Phases (each prints its lines; any failure raises and the exit code is not 0):
 
 1. env     torch / CUDA versions and the card's name and power limit.
-2. build   compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``.
+2. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels each kernel against its plain PyTorch version on the card, at the
            smollm-360m main-path shapes plus ragged cases (and K1-K4 at
            phase 10's qwen2-moe-a2.7b shapes, K3 and K4 at phase 11's
            paligemma-3b shapes: head dim 256, MQA 8:1, K4 with its 256-row
-           prefix, f32 cases timed), under the bf16
+           prefix, f32 cases timed; K3 and K4 at phase 12's zamba2-2.7b
+           shapes: MHA 32 x 80, K4 causal over 3,072 tokens and a B = 2
+           ragged case, K3 at kv_len 3,073 in a 3,104-slot cache and 4
+           ragged rows, f32 cases timed, the output's columns 64-79 zeroed
+           planted), under the bf16
            rule of ``kernels.ops.BF16_TOL`` (K2, K5 and K6 bit for bit);
            planted faults (K1 one group's anchor off by one bin or two
            neighbouring channels swapped, K3 skipping one split, masking one
@@ -165,17 +169,38 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
               rows have no tokens), every request must make the simulator's
               decisions and equal ``materialize`` of its configs (level 0 bit
               for bit, lossy within K1's rule).
+12. ssm, hybrid  the ssm and hybrid families at full width (random bf16
+           weights from a seed), after phase 11's state is freed, each
+           through the engine (``drive_recurrent_path``): ``calculate_kv``
+           of 3,072 tokens, 32 greedy tokens by ``generate_with_kv``, equal
+           in a second run, and one decode step after the prefill against
+           the prefill of 3,073 tokens on an f32 copy of the weights (logits
+           and states within 2e-4 of their largest |value|; the bf16
+           model's own distance is printed), a step's wall and device ms.
+           A. mamba2-370m (48 Mamba-2 layers, d 1024, 32 SSM heads of 64,
+              state 128, chunk 256, vocab 50,280; 0.84 GB): no attention, so
+              no kernel may launch; the chunked SSD scan is held to the
+              sequential recurrence at layer 0's real shapes in f32.
+           B. zamba2-2.7b (54 Mamba-2 layers, d 2560, 80 SSM heads of 64,
+              state 64, a weight-shared attention + gelu MLP block after
+              every 6 layers at MHA 32 x 80; 2.40 B parameters, 4.8 GB): the
+              prefill launches K4 9 times and the 32 tokens K3 288 times;
+              one decode step with the kernels equals itself bit for bit and
+              lies within 2e-2 of its largest |logit| of the same step on
+              their plain versions.
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5, then zeroed before each of phases 6, 7, 8, 9, 10 and 11 and read after
-it; the run fails if a kernel that a path runs was not launched in it (all
-six on the serve + text and store paths; K1, K2 and K3 on the session and
-serving paths; K1-K5 on the launcher, moe and vlm paths).  The last line is
+5, then zeroed before each of phases 6, 7, 8, 9, 10, 11, 12 A and 12 B and
+read after it; the run fails if a kernel that a path runs was not launched
+in it (all six on the serve + text and store paths; K1, K2 and K3 on the
+session and serving paths; K1-K5 on the launcher, moe and vlm paths; K3
+and K4 on the hybrid path), or if the ssm path launched any.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 with launches summed over the paths.  Needs
 one CUDA card; exits 2 with no result when there is none.
 """
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -219,7 +244,8 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     vector_width,
 )
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models import lm, mamba2, moe  # noqa: E402
+from repro_torch.models.common import apply_norm  # noqa: E402
 from repro_torch.models.lm import Caches  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.generation import GenerationSpec  # noqa: E402
@@ -336,6 +362,19 @@ VLM_REQUESTS = 4
 VLM_PINNED = 2
 VLM_STEP_TOL = MOE_STEP_TOL
 VLM_KERNELS = LAUNCHER_KERNELS  # the unfused K6 runs only in its checks
+# phase 12: the ssm and hybrid families at full width: the context, the
+# hybrid's kernels (its shared attention blocks; mamba2-370m has no
+# attention and launches none) and the rules: the bf16 steps within 2e-2 of
+# their largest |logit| (phase 10's rule), the chunked SSD scan within 2e-4
+# of the sequential recurrence's largest |value| in f32 (tests/test_kernels.py's
+# SSD rule)
+SSM_ARCH = "mamba2-370m"
+HYBRID_ARCH = "zamba2-2.7b"
+SSM_CTX = 3072
+SSM_STEP_TOL = MOE_STEP_TOL
+SSD_TOL = 2e-4
+SSM_KERNELS = ()
+HYBRID_KERNELS = ("decode_attention", "flash_attention")
 
 
 class Phase:
@@ -1533,6 +1572,174 @@ def drive_vlm_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), c
     return {"tokens": outs, "launcher": launched}
 
 
+def _ssd_layer0(cfg, params, tokens):
+    """Layer 0's SSD inputs on ``tokens``, as the prefill computes them:
+    (x, dt, A, B, C)."""
+    p = lm._layer(params, 0)
+    h = apply_norm(cfg.norm, p["ln1"], lm._embed_tokens(cfg, params, tokens))
+    return mamba2.ssd_inputs(cfg, p["mamba"], h)[1:6]
+
+
+def drive_recurrent_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), ctx_len=SSM_CTX,
+                         gen_tokens=GEN_TOKENS):
+    """Phase 12: the ssm family (A, mamba2-370m) or the hybrid family (B,
+    zamba2-2.7b), ``cfg`` at full width on the card, through the engine.
+
+    Seeded bf16 weights; ``calculate_kv`` of ``ctx_len`` tokens (the
+    hybrid: K4 once a shared-block application) and ``gen_tokens`` greedy
+    tokens by ``generate_with_kv`` (the hybrid: K3 once a token and
+    application), equal in a second, uncounted run; one decode step after
+    the prefill against the prefill of ``ctx_len + 1`` tokens at its last
+    position, on an f32 copy of the weights (logits, Mamba-2 states and the
+    step's shared K/V within ``SSD_TOL`` of their largest |value|; in bf16
+    the two differ by the model's own rounding noise, which its random
+    layers amplify past ``SSM_STEP_TOL``: printed, not held).  A
+    also holds the chunked SSD scan to the sequential recurrence at layer
+    0's real shapes in f32 (within ``SSD_TOL`` of its largest |value|); B
+    holds one decode step with the kernels to itself (bit for bit) and to
+    the same step on their plain versions (within ``SSM_STEP_TOL`` of its
+    largest |logit|).  Prints a step's wall and device ms and each step's
+    peak memory.  The port's tests run it at ``.tiny()`` on the CPU.
+    """
+    hybrid = cfg.family == "hybrid"
+    name = "hybrid" if hybrid else "ssm"
+    on_card = dev.type == "cuda"
+    cap = ctx_len + gen_tokens + 1
+    with phase(name):
+        laps = Laps(dev)
+        gen.manual_seed(SEED + (13 if hybrid else 12))
+        params = lm.init_params(cfg, gen, dev)
+        laps.lap("init")
+        resident = sum(t.numel() * t.element_size() for t in _leaves(params))
+        print(f"{name}: {cfg.name} weights {resident / 1e9:.2f} GB resident ({cfg.dtype}), "
+              f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B parameters")
+        engine = Engine(cfg, params, cache_capacity=cap, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, ctx_len + 1), generator=gen, device=dev)
+        n_apps = cfg.n_layers // cfg.shared_block_every if hybrid else 0
+        before = ops.launch_counts()
+        logits, caches = engine.calculate_kv({"tokens": tokens[:, :ctx_len]})
+        laps.lap(f"calculate_kv {ctx_len} tokens")
+        prefill_k4 = ops.launch_counts()["flash_attention"] - before["flash_attention"]
+        require(bool(torch.isfinite(logits).all()), f"{name} prefill logits are not finite")
+        require(caches.length.tolist() == [ctx_len], f"{name} prefill length {caches.length.tolist()}")
+        require(caches.kv_k is None and caches.mamba_ssm.shape[0] == cfg.n_layers,
+                f"{name} caches: kv_k {caches.kv_k is not None}, states {tuple(caches.mamba_ssm.shape)}")
+        require(bool(torch.isfinite(caches.mamba_ssm).all()), f"{name} prefill states are not finite")
+        if hybrid:
+            require(tuple(caches.shared_k.shape) == (n_apps, 1, cap, cfg.n_kv_heads, cfg.d_head),
+                    f"hybrid shared K {tuple(caches.shared_k.shape)}")
+            if on_card:
+                require(prefill_k4 == n_apps, f"hybrid prefill launched K4 {prefill_k4} times, not {n_apps}")
+        else:
+            require(caches.shared_k is None, "ssm caches hold shared K/V")
+        first = torch.argmax(logits[:, -1], dim=-1)
+        before = ops.launch_counts()
+        out = engine.generate_with_kv(caches, first, gen_tokens)
+        laps.lap(f"generate_with_kv {gen_tokens} tokens")
+        gen_k3 = ops.launch_counts()["decode_attention"] - before["decode_attention"]
+        if on_card:
+            require(gen_k3 == gen_tokens * n_apps, f"{name}: {gen_k3} K3 launches for {gen_tokens} tokens")
+        with uncounted():
+            again = engine.generate_with_kv(caches, first, gen_tokens)
+        require(out.shape == (1, gen_tokens) and ((out >= 0) & (out < cfg.padded_vocab_size)).all(),
+                f"{name} generated {out.shape} tokens out of range")
+        require((out == again).all(), f"{name}: two greedy runs gave {out[0].tolist()} and {again[0].tolist()}")
+        print(f"{name} greedy: {gen_tokens} tokens equal in two runs ({gen_k3} K3 launches, K4 {prefill_k4} in the "
+              f"prefill): {out[0].tolist()}")
+
+        # ---- prefill of T and one step against the prefill of T + 1, on an
+        # f32 copy of the weights (the chunked scan against the recurrence;
+        # in bf16 the two differ by the model's own rounding noise, which
+        # its random-weight layers amplify: printed beside it)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = _tree_map(lambda t: t.float(), params)
+        with uncounted():
+            _, c32 = lm.prefill(cfg32, params32, {"tokens": tokens[:, :ctx_len]}, pad_to=cap)
+            step, stepped = lm.decode_step(cfg32, params32, tokens[:, ctx_len:], c32)
+            longer, full = lm.prefill(cfg32, params32, {"tokens": tokens}, pad_to=cap)
+            bstep, _ = lm.decode_step(cfg, params, tokens[:, ctx_len:], caches.clone())
+            blonger, _ = lm.prefill(cfg, params, {"tokens": tokens}, pad_to=cap)
+        del params32, c32
+
+        def rel(a, b):
+            return max(((a[i].float() - b[i].float()).abs().max() / b[i].float().abs().max()).item()
+                       for i in range(a.shape[0]))
+
+        x = rel(step[:, -1], longer[:, -1]) / SSD_TOL
+        xb = rel(bstep[:, -1], blonger[:, -1]) / SSM_STEP_TOL
+        states = {"ssm": rel(stepped.mamba_ssm, full.mamba_ssm), "conv": rel(stepped.mamba_conv, full.mamba_conv)}
+        if hybrid:
+            states["shared K at T"] = rel(stepped.shared_k[:, :, ctx_len], full.shared_k[:, :, ctx_len])
+        agree = int(torch.argmax(step[0, -1])) == int(torch.argmax(longer[0, -1]))
+        print(f"{name} prefill then step (f32 weights): {x:.3g} of the {SSD_TOL} rule off the prefill of "
+              f"{ctx_len + 1} tokens, argmax {'equal' if agree else 'different'}; states' worst layer off by "
+              + ", ".join(f"{k} {v:.3g}" for k, v in states.items()) + f" of its largest |value|; in bf16 {xb:.3g} "
+              f"of the {SSM_STEP_TOL} rule")
+        require(x <= 1 and max(states.values()) <= SSD_TOL,
+                f"{name}: prefill then a step is {x:.3g} times {SSD_TOL} of its largest |logit| off the prefill of "
+                f"{ctx_len + 1} tokens (states {states})")
+        del stepped, full, longer, bstep, blonger
+        laps.lap("prefill then step check")
+
+        if not hybrid:
+            # ---- the chunked SSD scan against the recurrence at layer 0's shapes
+            ssd_in = [t.float() for t in _ssd_layer0(cfg, params, tokens[:, :ctx_len])]
+            y, h = mamba2.ssd_chunked(*ssd_in, cfg.ssm_chunk)
+            y_ref, h_ref = mamba2.ssd_sequential(*ssd_in)
+            xs_ = [((a - b).abs().max() / (SSD_TOL * b.abs().max())).item() for a, b in ((y, y_ref), (h, h_ref))]
+            require(max(xs_) <= 1, f"ssm: the chunked SSD scan is {xs_} times {SSD_TOL} of the recurrence's largest "
+                    "|value| off it")
+            print(f"ssm SSD at layer 0's shapes x {tuple(ssd_in[0].shape)}, B/C {tuple(ssd_in[3].shape)} f32, chunk "
+                  f"{cfg.ssm_chunk}: y {xs_[0]:.3g}, final state {xs_[1]:.3g} of the {SSD_TOL} rule off the "
+                  "sequential recurrence")
+            del ssd_in, y, h, y_ref, h_ref
+            laps.lap("SSD oracle")
+
+        # ---- one whole-model step: with the kernels against itself (and
+        # against their plain versions, the hybrid), and its times
+        tok = first[:, None]
+
+        def one_step():
+            return lm.decode_step(cfg, params, tok, caches.clone())[0]
+
+        with uncounted():
+            a, b = one_step(), one_step()
+            require(torch.equal(a, b), f"the same {name} decode step run twice gave other logits")
+            line = f"{name} step: logits bit-identical run twice"
+            if hybrid:
+                with plain_attention():
+                    p = one_step()
+                x = ((a.float() - p.float()).abs().max() / (SSM_STEP_TOL * p.float().abs().max())).item()
+                require(x <= 1, f"the hybrid step with the kernels is {x:.3g} times {SSM_STEP_TOL} of its largest "
+                        "|logit| off its plain version")
+                agree = int(torch.argmax(a[0, -1])) == int(torch.argmax(p[0, -1]))
+                line += f"; {x:.3g} of the {SSM_STEP_TOL} rule off the plain step, argmax " + \
+                    ("equal" if agree else "different")
+            samples, c = [], caches.clone()
+            for _ in range(STEP_SAMPLES + 1):  # the first is a warm-up
+                t0 = time.perf_counter()
+                z, c = lm.decode_step(cfg, params, tok, c)
+                z[:, -1].float().cpu()
+                samples.append(1e3 * (time.perf_counter() - t0))
+            c = caches.clone()
+            dev_ms = f"{device_total_ms(lambda: lm.decode_step(cfg, params, tok, c)):.3f} ms" if on_card \
+                else "not measured"
+        del c
+        laps.lap("step checks and times")
+        print(f"{line}; wall {sum(samples[1:]) / STEP_SAMPLES:.2f} ms a step (logits read), device {dev_ms}")
+        print(f"{name} steps ms:", laps.ms)
+        if on_card:
+            print(f"{name} steps' peak allocated GB:", laps.peak_gb)
+        del params, engine, caches, logits
+        if on_card:
+            torch.cuda.empty_cache()
+    return {"tokens": out, "prefill_k4": prefill_k4, "gen_k3": gen_k3}
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2063,6 +2270,87 @@ def main() -> int:
         )
         del vk_c, vv_c, vk32_c, vv32_c
 
+        # phase 12's shapes, zamba2-2.7b's shared attention (MHA, 32 heads
+        # of 80: the kernels' column pairs and padded panel): K4 over its
+        # 3072-token causal prefill and a B = 2 ragged case; K3 over its
+        # 1-row cache of 3104 slots (8 layer slices, 254 MB of K/V, read from
+        # HBM in turns) at the first generated token's kv_len and 4 ragged
+        # rows; an f32 case of each, timed.  Planted fault: the output's
+        # columns 64-79 zeroed (what lanes owning D / 32 columns would drop).
+        hcfg = registry.get(HYBRID_ARCH)
+        hH, hKV, hD = hcfg.n_heads, hcfg.n_kv_heads, hcfg.d_head
+        hybrid_report = {}
+        (hqq, hkk, hvv), (want, mag), e1 = k4_case(1, SSM_CTX, heads=(hH, hKV, hD))
+        tail_zeroed = want.clone()
+        tail_zeroed[..., 64:] = 0
+        controls[f"flash_attention at D = {hD}"] = {
+            "columns 64-79 zeroed": ops.bf16_ulp_excess(tail_zeroed.bfloat16(), want, scale=mag, **tol4)}
+        del want, mag, tail_zeroed
+        _, _, e2 = k4_case(2, SSM_CTX - 72, heads=(hH, hKV, hD))
+        hq32, hk32, hv32 = hqq.float(), hkk.float(), hvv.float()
+        e32 = (flash_attention_cuda(hq32, hk32, hv32) - flash_attention_plain(hq32, hk32, hv32)).abs().max().item()
+        require(e32 <= 1e-4, f"K4 f32 at D = {hD} is {e32} off its plain version")
+        hybrid_report["flash_attention"] = dict(
+            max_abs_err=max(e1, e2),
+            plain_ms=time_ms(lambda: flash_attention_plain(hqq, hkk, hvv), iters=3, warmup=1),
+            f32_ms=time_ms(lambda: flash_attention_cuda(hq32, hk32, hv32), iters=3, warmup=1),
+            shape=f"q/k/v {tuple(hqq.shape)} bf16 causal; B = 2 ragged T = {SSM_CTX - 72}; f32 {e32:.3g} off",
+            **k4_timing(hqq, hkk, hvv),
+        )
+        del hqq, hkk, hvv, hq32, hk32, hv32
+        h_cap = SSM_CTX + GEN_TOKENS
+        hk_c, hv_c, hq_d = randn(8, 1, h_cap, hKV, hD), randn(8, 1, h_cap, hKV, hD), randn(1, hH, hD)
+        h_lens = torch.tensor([SSM_CTX + 1], dtype=torch.int32, device=dev)
+        err_h3 = 0.0
+        rag_k, rag_v, rag_q = randn(4, h_cap, hKV, hD), randn(4, h_cap, hKV, hD), randn(4, hH, hD)
+        cases = [(hq_d, hk_c[0], hv_c[0], h_lens),
+                 (rag_q, rag_k, rag_v, torch.tensor([SSM_CTX + 1, 0, TILE + 1, h_cap], dtype=torch.int32,
+                                                    device=dev))]
+        for cq, ck, cv, cl in cases:
+            got = decode_attention_cuda(cq, ck, cv, cl)
+            want = decode_attention_plain(cq.float(), ck.float(), cv.float(), cl)
+            require(not got[cl == 0].float().any(), f"K3 at D = {hD}: a row with kv_len 0 must output 0")
+            x = ops.bf16_ulp_excess(got, want, **tol3)
+            require(x <= 1, f"K3 at D = {hD} is {x:.3g} times its tolerance off its plain version")
+            excess["decode_attention"] = max(excess["decode_attention"], x)
+            err_h3 = max(err_h3, (got.float() - want).abs().max().item())
+        tail_zeroed = want.clone()
+        tail_zeroed[..., 64:] = 0
+        controls[f"decode_attention at D = {hD}"] = {
+            "columns 64-79 zeroed": ops.bf16_ulp_excess(tail_zeroed.bfloat16(), want, **tol3)}
+        del rag_k, rag_v, rag_q, tail_zeroed
+        hk32_c, hv32_c, hq32_d = hk_c[0].float(), hv_c[0].float(), hq_d.float()
+        e32 = (decode_attention_cuda(hq32_d, hk32_c, hv32_c, h_lens)
+               - decode_attention_plain(hq32_d, hk32_c, hv32_c, h_lens)).abs().max().item()
+        require(e32 <= 1e-4, f"K3 f32 at D = {hD} is {e32} off its plain version")
+        h_it = itertools.count()
+
+        def hk3():
+            i = next(h_it) % 8
+            return decode_attention_cuda(hq_d, hk_c[i], hv_c[i], h_lens)
+
+        def hk3_lib():
+            i = next(h_it) % 8
+            mask = (torch.arange(h_cap, device=dev)[None, :] < h_lens[:, None])[:, None, None, :]
+            return sdpa(hq_d[:, :, None], hk_c[i].transpose(1, 2), hv_c[i].transpose(1, 2), attn_mask=mask)
+
+        n_tok = SSM_CTX + 1
+        hybrid_report["decode_attention"] = dict(
+            max_abs_err=err_h3,
+            ms=time_ms(hk3, iters=40),
+            device_ms=device_ms(hk3, "decode_split_kernel", "decode_combine_kernel", iters=16),
+            plain_ms=time_ms(lambda: decode_attention_plain(hq_d, hk_c[0], hv_c[0], h_lens)),
+            library_ms=time_ms(hk3_lib, iters=40),
+            bound=bound(hq_d.numel() * 2 * 2 + n_tok * hKV * hD * 2 * 2 + 4, 4 * hH * hD * n_tok),
+            f32_ms=time_ms(lambda: decode_attention_cuda(hq32_d, hk32_c, hv32_c, h_lens), iters=40),
+            shape=f"q {tuple(hq_d.shape)} vs cache {tuple(hk_c[0].shape)} bf16, kv_len {h_lens.tolist()}, "
+                  f"split {split_size(h_cap, 1, hKV, torch.cuda.get_device_properties(dev).multi_processor_count)}; "
+                  f"4 ragged rows; f32 {e32:.3g} off",
+        )
+        del hk_c, hv_c, hk32_c, hv32_c
+        for name in (f"flash_attention at D = {hD}", f"decode_attention at D = {hD}"):
+            require(min(controls[name].values()) > 1, f"{name}: the rule misses a planted fault: {controls[name]}")
+
         require(t6["device_ms"] is not None, "the profiler holds no device time for K4 at the store shape")
         for name, r in report.items():
             require(r["device_ms"] is not None, f"the profiler holds no device time for {name}'s kernels")
@@ -2087,6 +2375,14 @@ def main() -> int:
                   f"({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it reached, "
                   f"{r['bound'][0] / r['device_ms']:.1%} of device time)")
         print(f"flash_attention at D = 256: planted faults {controls['flash_attention at D = 256']}")
+        for name, r in hybrid_report.items():
+            require(r["device_ms"] is not None, f"the profiler holds no device time for {name} at the hybrid shape")
+            print(f"{name} at {HYBRID_ARCH}'s shape: {r['shape']}  max_abs_err {r['max_abs_err']:.3g}  kernel "
+                  f"{r['ms']:.4f} ms  (device time {r['device_ms']} ms)  plain {r['plain_ms']:.4f} ms  library "
+                  f"{r['library_ms']}  f32 kernel {r['f32_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it reached, "
+                  f"{r['bound'][0] / r['device_ms']:.1%} of device time)")
+            print(f"{name} at D = {hD}: planted faults {controls[f'{name} at D = {hD}']}")
         del kc, vc
 
     # --------------------------------------------------------- 4 serve, 5 text
@@ -2129,10 +2425,20 @@ def main() -> int:
     drive_vlm_path(registry.get(VLM_ARCH), dev, gen, phase=lambda name: Phase(name, phase_ms))
     paths["vlm"] = ops.launch_counts()
 
+    # ------------------------------------------------------ 12 ssm + hybrid
+    for arch, path in ((SSM_ARCH, "ssm"), (HYBRID_ARCH, "hybrid")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        drive_recurrent_path(registry.get(arch), dev, gen, phase=lambda name: Phase(name, phase_ms))
+        paths[path] = ops.launch_counts()
+
     # --------------------------------------------------------------- summary
     runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
-            "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "moe": MOE_KERNELS, "vlm": VLM_KERNELS}
+            "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "moe": MOE_KERNELS, "vlm": VLM_KERNELS,
+            "ssm": SSM_KERNELS, "hybrid": HYBRID_KERNELS}
     require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")
+    require(not any(paths["ssm"].values()), f"the attention-free ssm path launched kernels: {paths['ssm']}")
     for path, counts in paths.items():
         print(f"launches on the {path} path:", counts)
         for name in runs[path]:

@@ -32,7 +32,7 @@ __all__ = ["CSRC", "BUILD_DIR", "HEAD_DIMS", "aligned16", "load_library", "check
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 # the head dims K3's and K4's kernels are built for (their `switch (D)`)
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",

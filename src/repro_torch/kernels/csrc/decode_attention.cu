@@ -30,7 +30,10 @@
 //            running (m, l, acc) per tile, not per position;
 //   P V      each lane owns D/32 output columns (one 4-byte load per row at
 //            D = 64) over its warp's half of the tile's positions; the two
-//            halves are added once, at the end of the split.
+//            halves are added once, at the end of the split.  A head dim
+//            that is no multiple of 32 (80, zamba2-2.7b) gives each lane
+//            column pairs lane, lane + 32, ... below D / 2 instead (Cols),
+//            so no lane's columns run past D.
 // Every product is an f32 FMA on the CUDA cores: the work is a few flops per
 // byte, and f32 weights keep the rule of kernels/ops.py (no bf16 rounding of
 // P).  Splits wholly past kv_len exit at once and write nothing.  The split
@@ -45,12 +48,15 @@
 // q and the output are f32 or bf16 (a runtime flag: q is read once per
 // block, the output written once); K/V f32 or bf16 (a template parameter).
 //
-// Head dims 32, 64, 128 and 256.  The shared memory is sized once, for
+// Head dims 32, 64, 80, 128 and 256.  The shared memory is sized once, for
 // kMaxRep query heads; at D = 256 with bf16 K/V the 3-stage ring still fits
 // (227,328 of the 232,448 bytes a block may have), with f32 K/V it would
 // need 399 KB, so that case runs a 1-stage ring (Geom::kStages): each tile
-// is loaded after every thread is done with the one before.  The merge
-// launch runs D threads, at most 8 warps.
+// is loaded after every thread is done with the one before.  At D = 80 a
+// row is 160 bytes (bf16) or 320 (f32), ten or twenty 16-byte copies, and
+// its padded shared-memory row (176 or 336 bytes) keeps the score reads
+// free of bank conflicts.  The merge launch runs D threads rounded up to
+// whole warps (96 at D = 80), at most 8 warps.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -120,13 +126,22 @@ struct Geom {
   static constexpr int NC = D / E;                       // chunks per row
   static constexpr int RB = D * (int)sizeof(TKV) + 16;   // padded row bytes in shared memory
   static constexpr int TILE_B = kTile * RB;              // one K (or V) tile
-  static constexpr int CPL = D / 32;                     // output columns per lane
+  // output columns per lane: D / 32 consecutive ones, or (where 32 does
+  // not divide D) 2 * ceil(D / 64) in pairs 32 apart (Cols::col)
+  static constexpr bool kPairs = D % 32 != 0;
+  static constexpr int CPL = kPairs ? 2 * ((D + 63) / 64) : D / 32;
   // tiles in the shared-memory ring: 3, or 1 where 3 would not fit (f32 at D = 256)
   static constexpr int kStages = D * (int)sizeof(TKV) > 512 ? 1 : 3;
   static constexpr int smem(int rep) {
     return rep * D * 4 + 2 * rep * kTile * 4 + kStages * 2 * TILE_B;
   }
 };
+
+// the output column of a lane's c-th accumulator, and whether it is below D
+template <int D, int CPL, bool kPairs>
+__device__ __forceinline__ int lane_col(int lane, int c) {
+  return kPairs ? 2 * (lane + 32 * (c / 2)) + c % 2 : lane * CPL + c;
+}
 
 template <typename TKV, int D>
 __global__ void __launch_bounds__(kTile * kMaxRep)
@@ -272,15 +287,27 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
     {
       float pv[2][G::CPL] = {};
       const float* pw = pr + half * 32;
-      const uint8_t* vh = vt + half * 32 * G::RB + lane * G::CPL * (int)sizeof(TKV);
+      const uint8_t* vh = vt + half * 32 * G::RB;
 #pragma unroll 2
       for (int t = 0; t < 32; t += 4) {
         const float4 p4 = *reinterpret_cast<const float4*>(pw + t);
         const float w4[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
+          const TKV* row = reinterpret_cast<const TKV*>(vh + (t + u) * G::RB);
           float x[G::CPL];
-          load_f32(reinterpret_cast<const TKV*>(vh + (t + u) * G::RB), x);
+          if constexpr (G::kPairs) {
+#pragma unroll
+            for (int c = 0; c < G::CPL; c += 2) {
+              const int col = lane_col<D, G::CPL, true>(lane, c);
+              float x2[2] = {0.f, 0.f};
+              if (col < D) load_f32(row + col, x2);
+              x[c] = x2[0];
+              x[c + 1] = x2[1];
+            }
+          } else {
+            load_f32(row + lane * G::CPL, x);
+          }
 #pragma unroll
           for (int c = 0; c < G::CPL; ++c) pv[u % 2][c] = fmaf(w4[u], x[c], pv[u % 2][c]);
         }
@@ -294,11 +321,14 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
   // this split's partial for head (kvh * rep + r): (m, l) and the
   // unnormalized accumulator, the second half's sums added to the first's
   // through shared memory (q_s is free now)
-  float* o_s = q_s + r * D + lane * G::CPL;
+  float* o_s = q_s + r * D;
   __syncthreads();
   if (half == 1) {
 #pragma unroll
-    for (int c = 0; c < G::CPL; ++c) o_s[c] = o[c];
+    for (int c = 0; c < G::CPL; ++c) {
+      const int col = lane_col<D, G::CPL, G::kPairs>(lane, c);
+      if (col < D) o_s[col] = o[c];
+    }
   }
   __syncthreads();
   if (half == 0) {
@@ -307,12 +337,16 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
       part[2 * ph] = m;
       part[2 * ph + 1] = l;
     }
-    float* acc = part + 2 * n_part + ph * D + lane * G::CPL;
+    float* acc = part + 2 * n_part + ph * D;
 #pragma unroll
-    for (int c = 0; c < G::CPL; ++c) acc[c] = o[c] + o_s[c];
+    for (int c = 0; c < G::CPL; ++c) {
+      const int col = lane_col<D, G::CPL, G::kPairs>(lane, c);
+      if (col < D) acc[col] = o[c] + o_s[col];
+    }
   }
 }
 
+// over a block of whole warps (the merge rounds D up to them)
 __device__ __forceinline__ float block_reduce(float x, bool is_max, float* red) {
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) {
@@ -327,8 +361,9 @@ __device__ __forceinline__ float block_reduce(float x, bool is_max, float* red) 
   return x;
 }
 
-// merge the splits below kv_len of one (row, query head); D threads.  The
-// splits' weights exp2(m_s - M) are computed once, into shared memory
+// merge the splits below kv_len of one (row, query head); D threads
+// rounded up to whole warps, the threads past D only in the reductions.
+// The splits' weights exp2(m_s - M) are computed once, into shared memory
 __global__ void decode_combine_kernel(const float* __restrict__ part, const int* __restrict__ kv_len,
                                       void* __restrict__ out, int out_bf16, int Hq, int S,
                                       int n_splits, long long n_part, int split_size, int D) {
@@ -396,6 +431,7 @@ int launch_typed(int D, const void* q, int q_bf16, const void* k, const void* v,
   switch (D) {
     case 32: return launch_split<TKV, 32>(ARGS);
     case 64: return launch_split<TKV, 64>(ARGS);
+    case 80: return launch_split<TKV, 80>(ARGS);
     case 128: return launch_split<TKV, 128>(ARGS);
     case 256: return launch_split<TKV, 256>(ARGS);
     default: return (int)cudaErrorInvalidValue;
@@ -427,7 +463,8 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v, con
   const int err = kv_dtype == 1 ? launch_typed<__nv_bfloat16>(ARGS) : launch_typed<float>(ARGS);
 #undef ARGS
   if (err) return err;
-  decode_combine_kernel<<<B * Hq, D, n_splits * sizeof(float), s>>>((const float*)part, (const int*)kv_len, out, q_dtype,
+  const int merge_threads = (D + 31) / 32 * 32;  // whole warps for block_reduce's shuffles
+  decode_combine_kernel<<<B * Hq, merge_threads, n_splits * sizeof(float), s>>>((const float*)part, (const int*)kv_len, out, q_dtype,
                                              Hq, S, n_splits, (long long)B * Hq * n_splits,
                                              split_size, D);
   return (int)cudaGetLastError();

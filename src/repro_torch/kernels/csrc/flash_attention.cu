@@ -52,6 +52,17 @@
 // chunked_mha does at bf16 (it casts its weights to v's dtype), and
 // kernels/ops.py states the rule it is held to.
 //
+// Head dim 80 (zamba2-2.7b's shared attention) is zero-padded to DP = 128
+// in shared memory, two 64-column blocks of the 128-byte swizzle, as D = 32
+// is padded to 64: it keeps D = 128's plan (64-key tiles, 214,016 B of
+// shared memory) and its layouts.  S = Q K^T runs only the k-steps that
+// hold data (TcPlan::kSteps: 5 of 16 columns at D = 80, where the padded
+// plan would run 8); P V runs as m64n128k16 and only the first 80 output
+// columns are stored.  m64n80k16 would cut the value product's tensor work
+// by 3/8, but its MN-major V operand would end inside the second 64-column
+// swizzle atom, a layout the wgmma descriptors name only in whole atoms;
+// the padded plan keeps to the layouts the other head dims already run.
+//
 // Head dim 256 (paligemma-3b) has its own shared-memory plan (TcPlan): at
 // 64 keys a warpgroup its ring would need 384 KB beside the 32 KB Q panel,
 // against the 227 KB a block may have, so each warpgroup takes 32-key tiles
@@ -61,7 +72,8 @@
 // beside S's 16 and P's 8.  D <= 128 keeps its plan.
 //
 // f32 keeps the first, scalar design: one thread per query row, K/V tiles
-// of 32 keys (16 at D = 256, so the static shared memory stays under 48 KB)
+// of 32 keys (16 at D = 256, so the static shared memory stays under 48 KB;
+// 28,928 B at D = 80)
 // staged through shared memory, scalar FMAs; at D = 256 a thread's q and
 // accumulator rows spill to local memory.  Nothing on the main path sends
 // f32 (the engine is bf16).
@@ -171,19 +183,23 @@ constexpr int kWG = 2;              // warpgroups per block, one per key tile of
 constexpr int kBM = 64;             // query rows per block (wgmma M)
 constexpr int kThreads = kWG * 128;
 
-// The bf16 kernel's shared-memory plan by head dim: the padded head dim DP,
-// the keys of a warpgroup's tile (kBN, wgmma's N for S), the keys of a ring
-// stage (kPair: one tile per warpgroup) and the stages.  D = 256 halves the
-// tile so that three stages fit beside the Q panel.
+// The bf16 kernel's shared-memory plan by head dim: the padded head dim DP
+// (whole 64-column swizzle blocks), the k-steps of S that hold data
+// (kSteps: the columns past D are zeros), the keys of a warpgroup's tile
+// (kBN, wgmma's N for S), the keys of a ring stage (kPair: one tile per
+// warpgroup) and the stages.  D = 256 halves the tile so that three stages
+// fit beside the Q panel.
 template <int D>
 struct TcPlan {
-  static constexpr int DP = D < 64 ? 64 : D;
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int kSteps = (D + 15) / 16;
   static constexpr int kBN = D > 128 ? 32 : 64;
   static constexpr int kPair = kWG * kBN;
   static constexpr int kStages = 3;
   static constexpr int kSmem = kBM * DP * 2 + kStages * 2 * kPair * DP * 2 + 1024;
   static_assert(kSmem <= 232448, "the plan fits a block's shared memory");
   static_assert((DP / 2 + 4) * 128 * 4 <= kStages * 2 * kPair * DP * 2, "the merge fits the ring");
+  static_assert(D % 16 == 0 && kSteps * 16 <= DP, "S's k-steps cover D and stay in the panel");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -425,11 +441,12 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
     const uint32_t sK = sRing + (uint32_t)(i % kStages) * 2 * kKVBytes + wg * kBN * 128;
     const uint32_t sV = sK + kKVBytes;
 
-    // S = Q K^T over DP / 16 k-steps (the first one overwrites s)
+    // S = Q K^T over the k-steps that hold data (the first one overwrites
+    // s; the padded columns past D are zeros and add nothing)
     float s[kBN / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
+    for (int kk = 0; kk < P::kSteps; ++kk) {
       const uint32_t koff = (uint32_t)(kk % 4) * 32;  // 16 columns into the 128-byte row
       const uint64_t da = smem_desc(sQ + (kk / 4) * kBM * 128 + koff, 16, 1024);
       const uint64_t db = smem_desc(sK + (kk / 4) * kPair * 128 + koff, 16, 1024);
@@ -572,6 +589,7 @@ int launch_f32(const void* q, const void* k, const void* v, const int* plen, voi
   switch (D) {
     case 32: FLASH(32); break;
     case 64: FLASH(64); break;
+    case 80: FLASH(80); break;
     case 128: FLASH(128); break;
     case 256: FLASH(256); break;
     default: return (int)cudaErrorInvalidValue;
@@ -604,6 +622,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   switch (D) {
     case 32: return launch_tc<32>(ARGS);
     case 64: return launch_tc<64>(ARGS);
+    case 80: return launch_tc<80>(ARGS);
     case 128: return launch_tc<128>(ARGS);
     case 256: return launch_tc<256>(ARGS);
     default: return (int)cudaErrorInvalidValue;

@@ -315,7 +315,7 @@ def run(argv: Optional[List[str]] = None, *, params=None, device=None) -> Dict[s
     cfg = registry.get(args.arch)
     if not args.full_width:
         cfg = cfg.tiny()
-    if cfg.family not in lm_mod.FAMILIES:
+    if cfg.family not in lm_mod.ATTENTION_FAMILIES:
         raise SystemExit(
             f"--arch {args.arch}: serve driver supports attention families "
             "(KV-cache streaming); see DESIGN.md §Arch-applicability"

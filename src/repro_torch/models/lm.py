@@ -1,5 +1,5 @@
-"""Decoder LM, dense, MoE and vlm families: plan, init, prefill, chunked
-prefill, decode.
+"""Decoder LM, dense, MoE, vlm, ssm and hybrid families: plan, init,
+prefill, chunked prefill, decode.
 
 Layers run as a Python loop over the stacked per-layer weights (leading
 ``L`` axis, as in the reference's pytree).  The MoE family's layers differ
@@ -11,7 +11,14 @@ precomputed ``patch_embeds`` (the stubbed vision tower's output) through
 ``frontend_proj``, puts those rows before the text tokens and attends
 bidirectionally over them (prefix-LM, K4's ``prefix_len``); the caches
 then hold the prefix rows first, and ``prefill_extend`` and
-``decode_step`` treat them as any cached rows.  Entry points:
+``decode_step`` treat them as any cached rows.  The ssm family
+(mamba2-370m) stacks Mamba-2 blocks (``models.mamba2``) and carries their
+conv and SSM states instead of K/V; the hybrid family (zamba2-2.7b) runs
+``n_layers // shared_block_every`` segments of Mamba-2 layers, each
+followed by one weight-shared attention + MLP block whose K/V (one cache
+per application, ``shared_k``/``shared_v``) go through K4 and K3, then
+the remaining Mamba-2 layers.  Neither has a chunked prefill, as in the
+reference.  Entry points:
 
   * ``param_plan`` / ``init_params``
   * ``prefill(cfg, params, batch, pad_to=)``   — logits + caches (K4)
@@ -20,9 +27,10 @@ then hold the prefix rows first, and ``prefill_extend`` and
     optionally width-masked per row
   * ``decode_step(cfg, params, tokens, caches)`` — one-token step (K3)
 
-``prefill_extend`` and ``decode_step`` update ``caches`` *in place*: the
-reference returns new caches from pure functions, and the serving engine
-clones where its callers rely on the old cache staying intact.
+``prefill_extend`` and ``decode_step`` update ``caches`` *in place* (K/V,
+shared K/V and the Mamba-2 states alike): the reference returns new caches
+from pure functions, and the serving engine clones where its callers rely
+on the old cache staying intact.
 """
 from __future__ import annotations
 
@@ -43,10 +51,13 @@ from repro_torch.models.common import (
     norm_plan,
     rope,
 )
+from repro_torch.models.mamba2 import Mamba2State, mamba2_decode, mamba2_plan, mamba2_prefill
+from repro_torch.models.mamba2 import _dims as _mamba_dims
 from repro_torch.models.moe import moe_apply, moe_plan
 
 __all__ = [
     "FAMILIES",
+    "ATTENTION_FAMILIES",
     "Caches",
     "param_plan",
     "init_params",
@@ -58,24 +69,31 @@ __all__ = [
 
 
 class Caches(NamedTuple):
-    """Serving caches of the attention families (the reference's
-    ``Caches`` also carries the SSM / hybrid states, which the port does not
-    build yet)."""
+    """Serving caches, the reference's seven fields; the fields a family
+    does not use are None (the ssm family has no K/V, only the hybrid has
+    shared K/V)."""
 
-    kv_k: torch.Tensor  # (L, B, S, Hkv, Dh)
-    kv_v: torch.Tensor
+    kv_k: Optional[torch.Tensor]  # (L, B, S, Hkv, Dh)
+    kv_v: Optional[torch.Tensor]
     length: torch.Tensor  # (B,) int32
+    mamba_conv: Optional[torch.Tensor] = None  # (L, B, K-1, C)
+    mamba_ssm: Optional[torch.Tensor] = None  # (L, B, H, P, N) f32
+    shared_k: Optional[torch.Tensor] = None  # (n_apps, B, S, Hkv, Dh)  [hybrid]
+    shared_v: Optional[torch.Tensor] = None
 
     def clone(self) -> "Caches":
-        return Caches(*(t.clone() for t in self))
+        return Caches(*(None if t is None else t.clone() for t in self))
 
 
-FAMILIES = ("dense", "moe", "vlm")  # the families the port builds
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")  # the families the port builds
+# the families with a K/V cache in every layer: chunked prefill, the row
+# programs and CacheGen's codec apply to these only (as in the reference)
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise ValueError(f"the port builds the dense, MoE and vlm families only, not {cfg.family}")
+        raise ValueError(f"the port builds the {', '.join(FAMILIES)} families only, not {cfg.family}")
 
 
 # ---------------------------------------------------------------------------
@@ -102,16 +120,30 @@ def _dense_layer_plan(cfg: ArchConfig) -> Dict[str, Any]:
     return p
 
 
+def _shared_block_plan(cfg: ArchConfig) -> Dict[str, Any]:
+    return {
+        "ln1": norm_plan("rmsnorm", cfg.d_model),
+        "attn": attn_plan(cfg),
+        "ln2": norm_plan("rmsnorm", cfg.d_model),
+        "mlp": mlp_plan(cfg.mlp, cfg.d_model, cfg.d_ff, cfg.mlp_bias),
+    }
+
+
 def param_plan(cfg: ArchConfig) -> Dict[str, Any]:
     _check_family(cfg)
     d, V = cfg.d_model, cfg.padded_vocab_size
     plan: Dict[str, Any] = {
         "embed": Leaf((V, d), ("vocab", "embed"), scale=0.02),
         "final_norm": norm_plan(cfg.norm, d),
-        "layers": _stack_plan(_dense_layer_plan(cfg), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         plan["head"] = Leaf((d, V), ("embed", "vocab"))
+    if cfg.family in ATTENTION_FAMILIES:
+        plan["layers"] = _stack_plan(_dense_layer_plan(cfg), cfg.n_layers)
+    else:
+        plan["layers"] = _stack_plan({"ln1": norm_plan(cfg.norm, d), "mamba": mamba2_plan(cfg)}, cfg.n_layers)
+    if cfg.family == "hybrid":
+        plan["shared_block"] = _shared_block_plan(cfg)
     if cfg.family == "vlm":
         plan["frontend_proj"] = Leaf((cfg.frontend_dim, d), ("frontend", "embed"))
     return plan
@@ -145,6 +177,60 @@ def _mlp_residual(cfg, p, x, h):
     if cfg.family == "moe":
         return x + moe_apply(cfg, p["moe"], h2)[0]
     return x + mlp_apply(cfg.mlp, p["mlp"], h2)
+
+
+def _shared_block_prefill(cfg, p, x, positions):
+    h = apply_norm("rmsnorm", p["ln1"], x)
+    attn_out, kv = attn_prefill(cfg, p["attn"], h, positions)
+    x = x + attn_out
+    h2 = apply_norm("rmsnorm", p["ln2"], x)
+    return x + mlp_apply(cfg.mlp, p["mlp"], h2), kv
+
+
+def _shared_block_decode(cfg, p, x, kc, vc, cache_len):
+    """The shared block for one token; writes its K/V into ``kc``/``vc``
+    (views of one application's cache) in place."""
+    h = apply_norm("rmsnorm", p["ln1"], x)
+    x = x + attn_decode(cfg, p["attn"], h, (kc, vc), cache_len)
+    h2 = apply_norm("rmsnorm", p["ln2"], x)
+    return x + mlp_apply(cfg.mlp, p["mlp"], h2)
+
+
+def _mamba_layer_prefill(cfg, params, l, x, conv, ssm):
+    """Mamba-2 layer ``l`` over the whole context; its final state goes
+    into ``conv[l]``/``ssm[l]``."""
+    p = _layer(params, l)
+    out, st = mamba2_prefill(cfg, p["mamba"], apply_norm(cfg.norm, p["ln1"], x))
+    conv[l] = st.conv
+    ssm[l] = st.ssm
+    return x + out
+
+
+def _mamba_layer_decode(cfg, params, l, x, caches: "Caches"):
+    """Mamba-2 layer ``l`` for one token, its state updated in place."""
+    p = _layer(params, l)
+    state = Mamba2State(caches.mamba_conv[l], caches.mamba_ssm[l])
+    out, st = mamba2_decode(cfg, p["mamba"], apply_norm(cfg.norm, p["ln1"], x), state)
+    caches.mamba_conv[l] = st.conv
+    caches.mamba_ssm[l] = st.ssm
+    return x + out
+
+
+def _segments(cfg):
+    """The Mamba-2 layer ranges of the ssm and hybrid families: yields
+    (first layer, end layer, the shared-block application that follows or
+    None).  The hybrid has ``n_layers // shared_block_every`` segments,
+    each followed by the shared block, then the remainder; the ssm family
+    one segment of every layer."""
+    if cfg.family == "ssm":
+        yield 0, cfg.n_layers, None
+        return
+    every = cfg.shared_block_every
+    n_segs, rem = divmod(cfg.n_layers, every)
+    for s in range(n_segs):
+        yield s * every, (s + 1) * every, s
+    if rem:
+        yield n_segs * every, cfg.n_layers, None
 
 
 def _embed_tokens(cfg, params, tokens):
@@ -203,6 +289,10 @@ def prefill(cfg: ArchConfig, params, batch, *, pad_to: Optional[int] = None):
     dev = x.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
     cap = pad_to or T
+    length = torch.full((B,), T, dtype=torch.int32, device=dev)
+    if cfg.family not in ATTENTION_FAMILIES:
+        x, caches = _prefill_recurrent(cfg, params, x, positions, cap)
+        return _logits(cfg, params, x[:, -1:]), caches._replace(length=length)
     shape = (cfg.n_layers, B, cap, cfg.n_kv_heads, cfg.d_head)
     kv_k = torch.zeros(shape, dtype=x.dtype, device=dev)
     kv_v = torch.zeros(shape, dtype=x.dtype, device=dev)
@@ -214,8 +304,32 @@ def prefill(cfg: ArchConfig, params, batch, *, pad_to: Optional[int] = None):
         kv_v[l, :, :T] = v
         x = _mlp_residual(cfg, p, x + attn_out, h)
     logits = _logits(cfg, params, x[:, -1:])
-    length = torch.full((B,), T, dtype=torch.int32, device=dev)
     return logits, Caches(kv_k=kv_k, kv_v=kv_v, length=length)
+
+
+def _prefill_recurrent(cfg, params, x, positions, cap):
+    """The ssm and hybrid families' layers over the context: returns (x,
+    caches without length).  Each Mamba-2 layer's final (conv, ssm) state
+    and each shared-block application's K/V (written into a cache of
+    ``cap`` slots, the rest zeros) are stored as they come."""
+    B, T = x.shape[:2]
+    d_in, H, P, G, N, conv_ch = _mamba_dims(cfg)
+    conv = torch.zeros((cfg.n_layers, B, cfg.ssm_conv - 1, conv_ch), dtype=x.dtype, device=x.device)
+    ssm = torch.zeros((cfg.n_layers, B, H, P, N), dtype=torch.float32, device=x.device)
+    shared_k = shared_v = None
+    if cfg.family == "hybrid":
+        shape = (cfg.n_layers // cfg.shared_block_every, B, cap, cfg.n_kv_heads, cfg.d_head)
+        shared_k = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        shared_v = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for l0, l1, app in _segments(cfg):
+        for l in range(l0, l1):
+            x = _mamba_layer_prefill(cfg, params, l, x, conv, ssm)
+        if app is not None:
+            x, (k, v) = _shared_block_prefill(cfg, params["shared_block"], x, positions)
+            shared_k[app, :, :T] = k
+            shared_v[app, :, :T] = v
+    return x, Caches(kv_k=None, kv_v=None, length=None, mamba_conv=conv, mamba_ssm=ssm,
+                     shared_k=shared_k, shared_v=shared_v)
 
 
 def _extend_mha(q, kc, vc, cache_len, n_new):
@@ -279,8 +393,13 @@ def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches, widths=None)
     K/V and length bit for bit (its logits are garbage and must be
     ignored).  The window starts are read from ``length`` once, on the host.
     ``widths=None`` keeps the full-width write path.
+
+    The ssm and hybrid families have no chunked prefill (the reference's
+    message).
     """
     _check_family(cfg)
+    if cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError(f"prefill_extend not supported for family {cfg.family}")
     dev = caches.kv_k.device
     tokens = torch.as_tensor(tokens, device=dev).to(torch.long)
     B, Tc = tokens.shape
@@ -323,15 +442,24 @@ def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches, widths=None)
 
 def decode_step(cfg: ArchConfig, params, tokens, caches: Caches):
     """One-token step.  tokens (B, 1) -> (logits (B, 1, V), caches), the
-    caches' K/V updated in place and ``length`` advanced by one."""
+    caches' K/V (shared K/V, Mamba-2 states) updated in place and
+    ``length`` advanced by one."""
     _check_family(cfg)
-    tokens = torch.as_tensor(tokens, device=caches.kv_k.device).to(torch.long)
+    tokens = torch.as_tensor(tokens, device=caches.length.device).to(torch.long)
     x = _embed_tokens(cfg, params, tokens)
     cache_len = caches.length
-    for l in range(cfg.n_layers):
-        p = _layer(params, l)
-        h = apply_norm(cfg.norm, p["ln1"], x)
-        attn_out = attn_decode(cfg, p["attn"], h, (caches.kv_k[l], caches.kv_v[l]), cache_len)
-        x = _mlp_residual(cfg, p, x + attn_out, h)
+    if cfg.family in ATTENTION_FAMILIES:
+        for l in range(cfg.n_layers):
+            p = _layer(params, l)
+            h = apply_norm(cfg.norm, p["ln1"], x)
+            attn_out = attn_decode(cfg, p["attn"], h, (caches.kv_k[l], caches.kv_v[l]), cache_len)
+            x = _mlp_residual(cfg, p, x + attn_out, h)
+    else:
+        for l0, l1, app in _segments(cfg):
+            for l in range(l0, l1):
+                x = _mamba_layer_decode(cfg, params, l, x, caches)
+            if app is not None:  # caches.shared_k[app] is a view: K3's write lands in the stack
+                x = _shared_block_decode(cfg, params["shared_block"], x, caches.shared_k[app],
+                                         caches.shared_v[app], cache_len)
     logits = _logits(cfg, params, x)
     return logits, caches._replace(length=cache_len + 1)

@@ -22,6 +22,14 @@ The engine runs on one device, the CUDA card unless ``device`` names
 another; the model's attention and the codec's reconstruction go through
 the hand-written kernels there.
 
+Families.  ``calculate_kv``, ``generate_with_kv`` and ``logits_with_kv``
+run every family the port builds (``lm.FAMILIES``: the ssm and hybrid
+families carry Mamba-2 states, the hybrid also its shared blocks' K/V).
+The chunked prefill and the row programs exist for the attention families
+only (``lm.ATTENTION_FAMILIES``), as the reference builds them
+(``src/repro/serving/engine.py``): for the others they raise its
+messages.
+
 Cache ownership.  ``decode_to_cache`` and ``insert_runs`` write into the
 caller's cache tensors *in place* (the reference donates those buffers, so
 its callers already cannot reuse them).  So do the batch-of-requests
@@ -116,7 +124,12 @@ class Engine:
     def prefill_extend(self, tokens, caches: Caches) -> Tuple[torch.Tensor, Caches]:
         """Text-chunk recompute on top of loaded KV (fallback config).
         Returns (last logits, new caches); the caller's are left unchanged."""
+        self._check_extend()
         return lm.prefill_extend(self.cfg, self.params, tokens, caches.clone())
+
+    def _check_extend(self) -> None:
+        if self.cfg.family not in lm.ATTENTION_FAMILIES:
+            raise ValueError(f"no chunked prefill for family {self.cfg.family}")
 
     def empty_caches(self, batch: int) -> Caches:
         return kv_layout.alloc_caches(self.cfg, batch, self.capacity, device=self.device)
@@ -244,6 +257,7 @@ class Engine:
         logits, no cache write, no length advance).  Each row writes at its
         *own* ``caches.length[b]`` offset.
         """
+        self._check_extend()
         return lm.prefill_extend(self.cfg, self.params, tokens, caches, widths=widths)
 
     def prefill_extend_gather(self, tokens, caches: Caches, rows) -> Tuple[torch.Tensor, Caches]:
@@ -256,6 +270,7 @@ class Engine:
         :meth:`prefill_extend_rows`, but compute scales with the
         participating rows instead of the full batch.
         """
+        self._check_extend()
         n_rows = caches.kv_k.shape[1]
         if any(not 0 <= int(r) < n_rows for r in rows):
             raise ValueError(
@@ -290,6 +305,8 @@ class Engine:
         have ``length < capacity`` before the step; callers validate this
         when scheduling generation.
         """
+        if self.cfg.family not in lm.ATTENTION_FAMILIES:
+            raise ValueError(f"no cached generation for family {self.cfg.family}")
         n_rows = caches.kv_k.shape[1]
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.long)
         if tuple(tokens.shape) != (n_rows, 1):

@@ -176,9 +176,11 @@ def reset_rows(
 
 def extract_row(caches: Caches, row: int) -> Caches:
     """One request's batch-1 *view* of a batch-of-requests cache (no copy;
-    see the module docstring)."""
+    see the module docstring): every field the family carries, the
+    Mamba-2 states and the shared blocks' K/V included."""
     sl = slice(row, row + 1)
-    return Caches(kv_k=caches.kv_k[:, sl], kv_v=caches.kv_v[:, sl], length=caches.length[sl])
+    return Caches(*(None if t is None else t[sl] if name == "length" else t[:, sl]
+                    for name, t in zip(Caches._fields, caches)))
 
 
 def caches_to_codec_kv(caches: Caches, batch_index: int, n_tokens: int) -> torch.Tensor:

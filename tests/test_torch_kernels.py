@@ -581,6 +581,9 @@ def test_cuda_decode_attention_matches_plain(cuda, q_dtype, kv_dtype):
     (6, 2, 32, torch.float32),
     (8, 1, 256, torch.bfloat16),  # paligemma-3b: its own 3-stage ring at D = 256
     (8, 1, 256, torch.float32),  # the 1-stage ring
+    (32, 32, 80, torch.bfloat16),  # zamba2-2.7b's shared attention: MHA, D = 80 (column pairs a lane)
+    (32, 32, 80, torch.float32),
+    (6, 2, 80, torch.bfloat16),  # GQA at D = 80
 ])
 def test_cuda_decode_attention_geometries(cuda, Hq, Hkv, D, kv_dtype):
     q, k, v = _decode_case(cuda, Hq + D, 3, Hq, Hkv, 700, D, torch.bfloat16, kv_dtype)
@@ -618,6 +621,17 @@ def test_cuda_decode_attention_vlm_geometry(cuda, kv_dtype):
     _check_decode(q, k, v, torch.tensor([3329, 3360, 1000, 0], dtype=torch.int32, device=cuda))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention_hybrid_geometry(cuda, kv_dtype):
+    """zamba2-2.7b's shared-block decode: MHA, 32 heads of 80, a cache of
+    3,104 slots (a 3,072-token context and 32 generated tokens) at the
+    first and the last generated token's lengths, a ragged row and an empty
+    one; the merge at 80 columns runs 96 threads."""
+    q, k, v = _decode_case(cuda, 80, 4, 32, 32, 3104, 80, torch.bfloat16, kv_dtype)
+    _check_decode(q, k, v, torch.tensor([3073, 3104, TILE + 1, 0], dtype=torch.int32, device=cuda))
+
+
 # (B, Hq, Hkv, Tq, Tk, D, causal, prefix)
 CUDA_FLASH_CASES = [
     (1, 15, 5, 3072, 3072, 64, True, None),  # the serve phase's prefill
@@ -637,6 +651,11 @@ CUDA_FLASH_CASES = [
     (2, 8, 1, 1000, 1000, 256, True, [256, 0]),  # its prefix beside a causal row
     (1, 8, 1, 300, 300, 256, True, None),
     (1, 4, 2, 130, 200, 256, False, None),  # bidirectional, Tq < Tk
+    (1, 32, 32, 3072, 3072, 80, True, None),  # zamba2-2.7b's shared-block prefill (D padded to 128)
+    (2, 32, 32, 1000, 1000, 80, True, None),
+    (1, 32, 32, 300, 300, 80, True, None),
+    (2, 6, 2, 77, 200, 80, True, [0, 150]),  # GQA, prefix-LM, Tq < Tk at D = 80
+    (1, 4, 4, 130, 130, 80, False, None),  # bidirectional
 ]
 
 

@@ -291,8 +291,11 @@ def test_parse_arrivals_matches_reference(spec, tmp_path):
     assert serve._parse_arrivals(spec, 3, 7) == want and len(want) == 3
 
 
-def test_non_attention_family_exits_like_reference():
-    argv = ["--arch", "mamba2-370m"]
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_non_attention_family_exits_like_reference(arch):
+    """The port's model runs both families, its launcher (CacheGen's
+    KV-cache streaming) serves neither, with the reference's message."""
+    argv = ["--arch", arch]
     with pytest.raises(SystemExit) as mine:
         serve.run([*argv, "--device", "cpu", "--full-width"])
     with pytest.raises(SystemExit) as theirs:

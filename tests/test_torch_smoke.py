@@ -203,3 +203,28 @@ def test_chip_smoke_vlm_path_runs_on_cpu_at_tiny_size():
     assert [len(c) for c in got["launcher"]["decided"]["configs"]] == [n_chunks] * 4
     assert got["launcher"][f"level {smoke.VLM_LOSSY}"]["kinds"]["lossy"] == 2 * n_chunks
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_chip_smoke_recurrent_path_runs_on_cpu_at_tiny_size(arch):
+    """Phase 12 at ``.tiny()`` (bf16), a 40-token context (2.5 SSD chunks):
+    greedy tokens equal in two runs, prefill then a step within the step
+    rule of the longer prefill, the chunked SSD scan within its rule of the
+    recurrence (ssm), a step that repeats bit for bit and agrees with its
+    plain version (hybrid); the script fails otherwise.  Nothing is counted
+    off the card."""
+    smoke = _load_smoke()
+    smoke.ops.reset_launch_counts()
+    cfg = smoke.registry.get(arch).tiny()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = smoke.drive_recurrent_path(cfg, torch.device("cpu"), torch.Generator(device="cpu"), ctx_len=40,
+                                         gen_tokens=8)
+    out = out.getvalue()
+    name = "hybrid" if cfg.family == "hybrid" else "ssm"
+    assert f"{name} greedy: 8 tokens equal in two runs" in out and f"{name} prefill then step" in out
+    assert "logits bit-identical run twice" in out and f"{name} steps ms" in out
+    assert ("off the plain step" in out) == (name == "hybrid")
+    assert ("ssm SSD at layer 0's shapes" in out) == (name == "ssm")
+    assert got["tokens"].shape == (1, 8)
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
