@@ -15,7 +15,12 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            shapes: MHA 32 x 80, K4 causal over 3,072 tokens and a B = 2
            ragged case, K3 at kv_len 3,073 in a 3,104-slot cache and 4
            ragged rows, f32 cases timed, the output's columns 64-79 zeroed
-           planted), under the bf16
+           planted; K4 and K3 at phase 13's seamless-m4t-large-v2 shapes:
+           MHA 16 x 64, K4 bidirectional over 2 x 3,072 frames and a ragged
+           2 x 3,000, causal over the 2 x 1,024 prompt, K3 at kv_len 1,025
+           and 1,056 in a 1,056-slot cache and 4 ragged rows, f32 cases
+           timed, a skipped key tile, a causal mask, keys read past Tk and a
+           dropped ragged tile planted), under the bf16
            rule of ``kernels.ops.BF16_TOL`` (K2, K5 and K6 bit for bit);
            planted faults (K1 one group's anchor off by one bin or two
            neighbouring channels swapped, K3 skipping one split, masking one
@@ -188,13 +193,31 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
               one decode step with the kernels equals itself bit for bit and
               lies within 2e-2 of its largest |logit| of the same step on
               their plain versions.
+13. encdec the encdec family, seamless-m4t-large-v2 at full width (24
+           encoder + 24 decoder layers, d 1024, MHA 16 x 64, gelu ff 8,192
+           with biases, layernorm, vocab 256,206 padded to 256,256,
+           ``frontend_dim`` 1,024; random bf16 weights from a seed, 1.63 B
+           parameters, 3.3 GB), after phase 12's state is freed, through
+           ``models.build(cfg)`` (``drive_encdec_path``): 2 rows of 3,072
+           f32 source-frame embeddings and a 1,024-token prompt;
+           ``prefill`` (K4 48 times: 24 bidirectional in the encoder, 24
+           causal in the decoder) and 32 greedy ``decode_step`` calls (K3
+           768 times), a second run with the same launches and tokens and
+           every kernel call in it held to its plain version; the kernel
+           path against the plain attention (logits within 2e-2, memory and
+           caches no farther from the f32 model than twice the plain path);
+           prefill then a step against the longer prefill on an f32 copy of
+           the weights (within 2e-4); ``loss_fn`` at one row (K4 48 times)
+           within 2e-3 of the plain path's; encode, prefill and step wall ms,
+           a step's device ms and each step's peak memory.
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5, then zeroed before each of phases 6, 7, 8, 9, 10, 11, 12 A and 12 B and
-read after it; the run fails if a kernel that a path runs was not launched
-in it (all six on the serve + text and store paths; K1, K2 and K3 on the
-session and serving paths; K1-K5 on the launcher, moe and vlm paths; K3
-and K4 on the hybrid path), or if the ssm path launched any.  The last line is
+5, then zeroed before each of phases 6, 7, 8, 9, 10, 11, 12 A, 12 B and 13
+and read after it; the run fails if a kernel that a path runs was not
+launched in it (all six on the serve + text and store paths; K1, K2 and K3
+on the session and serving paths; K1-K5 on the launcher, moe and vlm
+paths; K3 and K4 on the hybrid and encdec paths), or if the ssm path
+launched any.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 with launches summed over the paths.  Needs
 one CUDA card; exits 2 with no result when there is none.
@@ -218,7 +241,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import codec, quant  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import _build, ops, timing  # noqa: E402
 from repro_torch.kernels.timing import bound_ms as bound  # noqa: E402
 from repro_torch.kernels.timing import device_ms, time_ms  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -244,7 +267,7 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     vector_width,
 )
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import lm, mamba2, moe  # noqa: E402
+from repro_torch.models import build, encdec, lm, mamba2, moe  # noqa: E402
 from repro_torch.models.common import apply_norm  # noqa: E402
 from repro_torch.models.lm import Caches  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
@@ -375,6 +398,23 @@ SSM_STEP_TOL = MOE_STEP_TOL
 SSD_TOL = 2e-4
 SSM_KERNELS = ()
 HYBRID_KERNELS = ("decode_attention", "flash_attention")
+# phase 13: the encdec family at full width: rows, source frames, decoder
+# prompt and generated tokens; its kernels (the encoder's bidirectional K4,
+# the decoder's causal K4 and K3); the rules against the plain attention:
+# logits within 2e-2 of their largest |logit| (phase 10's rule), the
+# encoder memory and the caches no farther from the f32 model than twice
+# the plain path's distance from it (random bf16 layers amplify rounding:
+# both paths lie about 2% of their scale from the f32 model after 24
+# layers), the loss within 2e-3 of itself; prefill then a step against the
+# longer prefill in f32 within 2e-4 of the largest |value| (phase 12's rule)
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_BATCH = 2
+ENCDEC_SRC = 3072
+ENCDEC_PROMPT = 1024
+ENCDEC_STEP_TOL = MOE_STEP_TOL
+ENCDEC_YARDSTICK = 2.0
+ENCDEC_LOSS_TOL = 2e-3
+ENCDEC_KERNELS = ("decode_attention", "flash_attention")
 
 
 class Phase:
@@ -432,9 +472,9 @@ def uncounted():
             fn.launches = held[name]
 
 
-def device_total_ms(fn, iters=3):
-    """Device time per call of ``fn``: every event of the profiler's CUDA
-    trace of ``iters`` calls (kernels, copies and fills), summed."""
+def device_by_event(fn, iters=3):
+    """Device ms per call of ``fn`` for each event of the profiler's CUDA
+    trace of ``iters`` calls (kernels, copies and fills), largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -443,7 +483,13 @@ def device_total_ms(fn, iters=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
+    ms = {e.key: e.device_time_total / iters / 1e3 for e in prof.key_averages()}
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1]))
+
+
+def device_total_ms(fn, iters=3):
+    """Device time per call of ``fn``: every event of its CUDA trace, summed."""
+    return sum(device_by_event(fn, iters).values())
 
 
 def require(cond, msg):
@@ -1152,6 +1198,36 @@ def plain_attention():
 
 
 @contextlib.contextmanager
+def held_calls(excess):
+    """Every K3 and K4 call in the block is also computed by its plain
+    version from the same inputs in f32 and held to its kernel's bf16 rule
+    (``kernels.ops.BF16_TOL``); appends (kernel name, excess) to ``excess``.
+    The plain versions launch nothing."""
+    decode_k, flash_k = ops.decode_attention, ops.flash_attention
+
+    def decode(q, k, v, kv_len, *, scale=None):
+        out = decode_k(q, k, v, kv_len, scale=scale)
+        want = decode_attention_plain(q.float(), k.float(), v.float(), kv_len, scale=scale)
+        excess.append(("decode_attention",
+                       ops.bf16_ulp_excess(out, want, **ops.BF16_TOL["decode_attention"])))
+        return out
+
+    def flash(q, k, v, prefix_len=None, *, causal=True, scale=None):
+        out = flash_k(q, k, v, prefix_len, causal=causal, scale=scale)
+        want = flash_attention_plain(q.float(), k.float(), v.float(), prefix_len, causal=causal, scale=scale)
+        mag = flash_attention_magnitude(q, k, v, prefix_len, causal=causal, scale=scale)
+        excess.append(("flash_attention",
+                       ops.bf16_ulp_excess(out, want, scale=mag, **ops.BF16_TOL["flash_attention"])))
+        return out
+
+    ops.decode_attention, ops.flash_attention = decode, flash
+    try:
+        yield
+    finally:
+        ops.decode_attention, ops.flash_attention = decode_k, flash_k
+
+
+@contextlib.contextmanager
 def replaying_text(replayed):
     """``serve.run``'s engine replays each batched TEXT call
     (``prefill_extend_rows`` / ``prefill_extend_gather``) on a copy of its
@@ -1661,15 +1737,11 @@ def drive_recurrent_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontex
             blonger, _ = lm.prefill(cfg, params, {"tokens": tokens}, pad_to=cap)
         del params32, c32
 
-        def rel(a, b):
-            return max(((a[i].float() - b[i].float()).abs().max() / b[i].float().abs().max()).item()
-                       for i in range(a.shape[0]))
-
-        x = rel(step[:, -1], longer[:, -1]) / SSD_TOL
-        xb = rel(bstep[:, -1], blonger[:, -1]) / SSM_STEP_TOL
-        states = {"ssm": rel(stepped.mamba_ssm, full.mamba_ssm), "conv": rel(stepped.mamba_conv, full.mamba_conv)}
+        x = _rel(step[:, -1], longer[:, -1]) / SSD_TOL
+        xb = _rel(bstep[:, -1], blonger[:, -1]) / SSM_STEP_TOL
+        states = {"ssm": _rel(stepped.mamba_ssm, full.mamba_ssm), "conv": _rel(stepped.mamba_conv, full.mamba_conv)}
         if hybrid:
-            states["shared K at T"] = rel(stepped.shared_k[:, :, ctx_len], full.shared_k[:, :, ctx_len])
+            states["shared K at T"] = _rel(stepped.shared_k[:, :, ctx_len], full.shared_k[:, :, ctx_len])
         agree = int(torch.argmax(step[0, -1])) == int(torch.argmax(longer[0, -1]))
         print(f"{name} prefill then step (f32 weights): {x:.3g} of the {SSD_TOL} rule off the prefill of "
               f"{ctx_len + 1} tokens, argmax {'equal' if agree else 'different'}; states' worst layer off by "
@@ -1734,6 +1806,245 @@ def drive_recurrent_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontex
         if on_card:
             torch.cuda.empty_cache()
     return {"tokens": out, "prefill_k4": prefill_k4, "gen_k3": gen_k3}
+
+
+def _rel(a, b):
+    """max over the leading index (a row, a layer) of |a - b| over the
+    largest |b| there."""
+    a, b = a.float(), b.float()
+    return max(((a[i] - b[i]).abs().max() / b[i].abs().max()).item() for i in range(b.shape[0]))
+
+
+def drive_encdec_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), batch=ENCDEC_BATCH,
+                      src_len=ENCDEC_SRC, prompt=ENCDEC_PROMPT, gen_tokens=GEN_TOKENS, card="cpu"):
+    """Phase 13: the encdec family (``cfg``, seamless-m4t-large-v2 at full
+    width on the card) through ``models.build(cfg)``, as a user calls it.
+
+    Seeded bf16 weights; ``batch`` rows of ``src_len`` f32 source-frame
+    embeddings (the stubbed speech frontend's output) and a ``prompt``-token
+    decoder prompt.  ``prefill`` (``pad_to`` = prompt + gen_tokens; the
+    encoder's layers run K4 bidirectionally, the decoder's K4 causally) and
+    ``gen_tokens`` greedy ``decode_step`` calls (K3 once a decoder layer and
+    token), counted; a second run, uncounted, must launch as many kernels
+    and give the same tokens, with every K3 and K4 call in it held to its
+    plain version from the same inputs (``held_calls``).  Against the plain
+    attention (``plain_attention()``) on the same weights: the prefill's and
+    one step's logits within ``ENCDEC_STEP_TOL`` of their largest |logit|,
+    the encoder memory and the four K/V caches no farther (relative to each
+    row's or layer's largest |value|) from the f32 model than
+    ``ENCDEC_YARDSTICK`` times the plain path's distance; on an f32 copy of
+    the weights, ``decode_step`` after ``prefill`` of the prompt against
+    ``prefill`` of prompt + 1 tokens at its last position (logits and the
+    step's self K/V within ``SSD_TOL`` of their largest |value|).
+    ``loss_fn`` at one row (its f32 logits are 1 GB at full width), counted,
+    within ``ENCDEC_LOSS_TOL`` of the plain path's, and run again uncounted:
+    the same launches and loss, every K4 call held to its plain version.  Prints the encode,
+    prefill and step wall ms, a step's device ms and each step's peak
+    memory beside ``card``.  The port's tests run it at ``.tiny()`` on the
+    CPU.
+    """
+    on_card = dev.type == "cuda"
+    model = build(cfg)
+    cap = prompt + gen_tokens
+    counts = {}
+
+    def launched(before):
+        now = ops.launch_counts()
+        return {k: now[k] - before[k] for k in ENCDEC_KERNELS}
+
+    with phase("encdec"):
+        laps = Laps(dev)
+        gen.manual_seed(SEED + 14)
+        params = model.init_params(gen, dev)
+        laps.lap("init")
+        leaves = list(_leaves(params))
+        print(f"encdec: {cfg.name} weights {sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB "
+              f"resident ({cfg.dtype}), {sum(t.numel() for t in leaves) / 1e9:.3f} B parameters; "
+              f"{batch} rows of {src_len} source frames, a {prompt}-token prompt")
+        src = torch.randn(batch, src_len, cfg.frontend_dim, generator=gen, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt + 1), generator=gen, device=dev)
+        inputs = {"src_embeds": src, "tokens": tokens[:, :prompt]}
+
+        def generate(caches, first):
+            tok, out = first[:, None], []
+            for _ in range(gen_tokens):
+                logits, caches = model.decode_step(params, tok, caches)
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                out.append(tok)
+            return torch.cat(out, dim=1)
+
+        # ---- the path, counted: prefill, then greedy generation
+        before = ops.launch_counts()
+        logits, caches = model.prefill(params, inputs, pad_to=cap)
+        laps.lap(f"prefill {src_len} frames + {prompt} tokens")
+        counts["prefill"] = launched(before)
+        require(logits.shape == (batch, 1, cfg.padded_vocab_size) and bool(torch.isfinite(logits).all()),
+                f"encdec prefill logits {tuple(logits.shape)} are not finite")
+        require(caches.self_k.shape == (cfg.dec_layers, batch, cap, cfg.n_kv_heads, cfg.d_head)
+                and caches.cross_k.shape == (cfg.dec_layers, batch, src_len, cfg.n_kv_heads, cfg.d_head),
+                f"encdec caches: self {tuple(caches.self_k.shape)}, cross {tuple(caches.cross_k.shape)}")
+        require(caches.length.tolist() == [prompt] * batch and caches.src_len.tolist() == [src_len] * batch,
+                f"encdec prefill lengths {caches.length.tolist()}, src_len {caches.src_len.tolist()}")
+        prefilled = caches.clone()
+        first = torch.argmax(logits[:, -1], dim=-1)
+        before = ops.launch_counts()
+        out = generate(caches, first)
+        laps.lap(f"{gen_tokens} greedy steps")
+        counts["generate"] = launched(before)
+        require(caches.self_k[:, :, prompt:].float().abs().sum(-1).gt(0).all(),
+                "encdec generation left self K slots unwritten")
+        if on_card:
+            want = {"prefill": {"flash_attention": cfg.enc_layers + cfg.dec_layers, "decode_attention": 0},
+                    "generate": {"flash_attention": 0, "decode_attention": cfg.dec_layers * gen_tokens}}
+            for stage, w in want.items():
+                require(counts[stage] == w, f"encdec {stage} launched {counts[stage]}, not {w}")
+
+        # ---- a second run, uncounted: the same launches and tokens, each
+        # kernel call held to its plain version from the same inputs
+        calls = []
+        with uncounted():
+            before = ops.launch_counts()
+            with held_calls(calls) if on_card else contextlib.nullcontext():
+                logits2, caches2 = model.prefill(params, inputs, pad_to=cap)
+                again = generate(caches2, torch.argmax(logits2[:, -1], dim=-1))
+            second = launched(before)
+        del caches2
+        require(torch.equal(out, again), f"encdec: two greedy runs gave {out.tolist()} and {again.tolist()}")
+        total = {k: counts["prefill"][k] + counts["generate"][k] for k in ENCDEC_KERNELS}
+        require(second == total, f"encdec: the second run launched {second}, the first {total}")
+        worst = {}
+        for name, x in calls:
+            worst[name] = max(worst.get(name, 0.0), x)
+        require(not calls or max(worst.values()) <= 1, f"encdec: a kernel call is off its plain version: {worst}")
+        laps.lap("second run, calls held")
+        print(f"encdec greedy: {gen_tokens} tokens a row equal in two runs, launches {counts} (second run {second}); "
+              f"{len(calls)} kernel calls held to their plain versions, worst of each rule {worst}; "
+              f"tokens {out.tolist()}")
+
+        # ---- the plain attention and the f32 model on the same weights
+        tok = tokens[:, prompt:]
+        with uncounted():
+            mem = encdec.encode(cfg, params, src)
+            step, _ = model.decode_step(params, tok, prefilled.clone())
+            with plain_attention():
+                mem_p = encdec.encode(cfg, params, src)
+                logits_p, caches_p = model.prefill(params, inputs, pad_to=cap)
+                step_p, _ = model.decode_step(params, tok, caches_p.clone())
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            params32 = _tree_map(lambda t: t.float(), params)
+            m32 = build(cfg32)
+            mem32 = encdec.encode(cfg32, params32, src)
+            logits32, caches32 = m32.prefill(params32, inputs, pad_to=cap + 1)
+            step32, stepped32 = m32.decode_step(params32, tok, caches32.clone())
+            longer32, full32 = m32.prefill(params32, {"src_embeds": src, "tokens": tokens}, pad_to=cap + 1)
+        del params32
+        direct = {"prefill logits": _rel(logits, logits_p), "step logits": _rel(step, step_p)}
+        x = max(direct.values()) / ENCDEC_STEP_TOL
+        print(f"encdec kernels vs plain attention: logits {', '.join(f'{k} {v:.3g}' for k, v in direct.items())} "
+              f"of their largest |logit| ({x:.3g} of the {ENCDEC_STEP_TOL} rule)")
+        require(x <= 1, f"encdec: the kernel path's logits are {x:.3g} times {ENCDEC_STEP_TOL} off the plain path's")
+        pairs = {"memory": (mem, mem_p, mem32)}
+        for f in ("self_k", "self_v"):
+            pairs[f] = (getattr(prefilled, f)[:, :, :prompt], getattr(caches_p, f)[:, :, :prompt],
+                        getattr(caches32, f)[:, :, :prompt])
+        for f in ("cross_k", "cross_v"):
+            pairs[f] = (getattr(prefilled, f), getattr(caches_p, f), getattr(caches32, f))
+        ratios = {}
+        for name, (k_, p_, f_) in pairs.items():
+            dk, dp, dd = _rel(k_, f_), _rel(p_, f_), _rel(k_, p_)
+            ratios[name] = dk / dp if dp else (0.0 if dk == 0 else float("inf"))
+            print(f"encdec {name}: kernel path {dk:.3g}, plain path {dp:.3g} of the largest |value| off the f32 "
+                  f"model ({ratios[name]:.3g}x); kernel vs plain {dd:.3g}")
+        require(max(ratios.values()) <= ENCDEC_YARDSTICK,
+                f"encdec: the kernel path is farther from the f32 model than {ENCDEC_YARDSTICK}x the plain path: "
+                f"{ratios}")
+        tf = {"logits": _rel(step32[:, -1], longer32[:, -1]),
+              "self K at T": _rel(stepped32.self_k[:, :, prompt], full32.self_k[:, :, prompt]),
+              "self V at T": _rel(stepped32.self_v[:, :, prompt], full32.self_v[:, :, prompt])}
+        agree = bool((torch.argmax(step32[:, -1], -1) == torch.argmax(longer32[:, -1], -1)).all())
+        print(f"encdec prefill then step (f32 weights): off the prefill of {prompt + 1} tokens by "
+              + ", ".join(f"{k} {v:.3g}" for k, v in tf.items()) + f" of the largest |value| (rule {SSD_TOL}), "
+              f"argmax {'equal' if agree else 'different'}")
+        require(max(tf.values()) <= SSD_TOL, f"encdec: prefill then a step is {tf} off the longer prefill in f32")
+        del mem, mem_p, mem32, caches_p, caches32, stepped32, full32, prefilled, logits2
+        laps.lap("plain and f32 checks")
+
+        # ---- loss_fn at one row, counted, against the plain path
+        labels = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen, device=dev)
+        lbatch = {"src_embeds": src[:1], "tokens": tokens[:1, :prompt], "labels": labels}
+        before = ops.launch_counts()
+        loss, metrics = model.loss_fn(params, lbatch)
+        counts["loss_fn"] = launched(before)
+        laps.lap(f"loss_fn 1 x {prompt}")
+        with plain_attention():
+            loss_p, _ = model.loss_fn(params, lbatch)
+        xl = abs(loss.item() - loss_p.item()) / (ENCDEC_LOSS_TOL * abs(loss_p.item()))
+        require(bool(torch.isfinite(loss)) and loss.shape == () and float(metrics["aux"]) == 0.0,
+                f"encdec loss {loss} (aux {metrics['aux']})")
+        require(xl <= 1, f"encdec: loss {loss.item()} is {xl:.3g} times {ENCDEC_LOSS_TOL} off the plain path's "
+                f"{loss_p.item()}")
+        if on_card:
+            w = {"flash_attention": cfg.enc_layers + cfg.dec_layers, "decode_attention": 0}
+            require(counts["loss_fn"] == w, f"encdec loss_fn launched {counts['loss_fn']}, not {w}")
+        # a second run, uncounted: the same launches and loss, each K4 call
+        # (bidirectional and causal, at B = 1) held to its plain version
+        calls = []
+        with uncounted():
+            before = ops.launch_counts()
+            with held_calls(calls) if on_card else contextlib.nullcontext():
+                loss2, _ = model.loss_fn(params, lbatch)
+            second = launched(before)
+        require(second == counts["loss_fn"], f"encdec loss_fn: the second run launched {second}, "
+                f"the first {counts['loss_fn']}")
+        require(torch.equal(loss2, loss), f"encdec loss_fn: two runs gave {loss.item()} and {loss2.item()}")
+        worst = {}
+        for name, x in calls:
+            worst[name] = max(worst.get(name, 0.0), x)
+        require(not calls or max(worst.values()) <= 1, f"encdec loss_fn: a kernel call is off its plain version: "
+                f"{worst}")
+        print(f"encdec loss_fn: {loss.item():.6g} (plain attention {loss_p.item():.6g}, {xl:.3g} of the "
+              f"{ENCDEC_LOSS_TOL} rule), launches {counts['loss_fn']}; second run {second}, {len(calls)} kernel "
+              f"calls held to their plain versions, worst of each rule {worst}")
+        laps.lap("loss_fn plain check")
+
+        # ---- wall times (warm) and a step's device time
+        samples = {}
+        with uncounted():
+            for name, fn in (("encode", lambda: encdec.encode(cfg, params, src)),
+                             ("prefill", lambda: model.prefill(params, inputs, pad_to=cap)[0])):
+                for i in range(3):  # the first is a warm-up
+                    t0 = time.perf_counter()
+                    fn()[:, -1].float().cpu()
+                    if i:
+                        samples.setdefault(name, []).append(1e3 * (time.perf_counter() - t0))
+            # steps at the first generated token's position: ``caches`` still
+            # has length = prompt (``generate`` rebinds its own), so each step
+            # reads prompt + 1 keys and rewrites slot ``prompt`` with what the
+            # first greedy step wrote there
+            step_ms, c = [], caches
+            for i in range(STEP_SAMPLES + 1):  # the first is a warm-up
+                t0 = time.perf_counter()
+                z, _ = model.decode_step(params, first[:, None], c)
+                z[:, -1].float().cpu()
+                if i:
+                    step_ms.append(1e3 * (time.perf_counter() - t0))
+            events = device_by_event(lambda: model.decode_step(params, first[:, None], c)) if on_card else {}
+            dev_ms = f"{sum(events.values()):.3f} ms" if on_card else "not measured"
+        laps.lap("times")
+        wall = {k: sum(v) / len(v) for k, v in samples.items()}
+        print(f"encdec on {card}: encode {wall['encode']:.2f} ms, prefill {wall['prefill']:.2f} ms (counted run "
+              f"{laps.ms[f'prefill {src_len} frames + {prompt} tokens']} ms) of wall; a step "
+              f"{sum(step_ms) / STEP_SAMPLES:.2f} ms of wall (logits read), {dev_ms} of device")
+        if on_card:
+            top = ", ".join(f"{timing.kernel_name(k)[:60]} {v:.3f}" for k, v in list(events.items())[:6])
+            print(f"encdec step's device ms by event on {card}, largest first: {top}")
+        print(f"encdec steps ms on {card}:", laps.ms)
+        if on_card:
+            print(f"encdec steps' peak allocated GB on {card}:", laps.peak_gb)
+        del params, caches, c, logits
+        if on_card:
+            torch.cuda.empty_cache()
+    return {"tokens": out, "counts": counts}
 
 
 def _tree_map(fn, tree):
@@ -1954,15 +2265,16 @@ def main() -> int:
         # weights up to 2^-8 of flash_attention_magnitude (kernels/ops.py).
         tol4 = ops.BF16_TOL["flash_attention"]
 
-        def k4_case(B, T, prefix=None, heads=(Hq, Hkv, D)):
+        def k4_case(B, T, prefix=None, heads=(Hq, Hkv, D), causal=True):
             hq, hkv, dh = heads
             qq, kk, vv = randn(B, T, hq, dh), randn(B, T, hkv, dh), randn(B, T, hkv, dh)
             plen = None if prefix is None else torch.tensor(prefix, dtype=torch.int32, device=dev)
-            got = flash_attention_cuda(qq, kk, vv, plen)
-            want = flash_attention_plain(qq.float(), kk.float(), vv.float(), plen)
-            mag = flash_attention_magnitude(qq, kk, vv, plen)
+            got = flash_attention_cuda(qq, kk, vv, plen, causal=causal)
+            want = flash_attention_plain(qq.float(), kk.float(), vv.float(), plen, causal=causal)
+            mag = flash_attention_magnitude(qq, kk, vv, plen, causal=causal)
             x = ops.bf16_ulp_excess(got, want, scale=mag, **tol4)
-            require(x <= 1, f"K4 is {x:.3g} times its tolerance off its plain version (T={T}, prefix={prefix})")
+            require(x <= 1, f"K4 is {x:.3g} times its tolerance off its plain version (B={B}, T={T}, "
+                    f"prefix={prefix}, causal={causal})")
             excess["flash_attention"] = max(excess.get("flash_attention", 0.0), x)
             return (qq, kk, vv), (want, mag), (got.float() - want).abs().max().item()
 
@@ -1986,14 +2298,15 @@ def main() -> int:
         _, _, e3 = k4_case(1, 3000)
         _, _, e4 = k4_case(2, 1024, [100, 700])
 
-        def k4_timing(qq, kk, vv):
-            n, hq, dh = qq.shape[1:]
+        def k4_timing(qq, kk, vv, causal=True):
+            b, n, hq, dh = qq.shape
+            pairs = n * (n + 1) // 2 if causal else n * n  # the (query, key) pairs a row computes
             return dict(
-                ms=time_ms(lambda: flash_attention_cuda(qq, kk, vv)),
-                device_ms=device_ms(lambda: flash_attention_cuda(qq, kk, vv), "flash_tc_kernel"),
+                ms=time_ms(lambda: flash_attention_cuda(qq, kk, vv, causal=causal)),
+                device_ms=device_ms(lambda: flash_attention_cuda(qq, kk, vv, causal=causal), "flash_tc_kernel"),
                 library_ms=time_ms(lambda: sdpa(qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
-                                                is_causal=True, enable_gqa=True)) if gqa_ok else None,
-                bound=bound((qq.numel() * 2 + kk.numel() + vv.numel()) * 2, 4 * dh * hq * n * (n + 1) // 2),
+                                                is_causal=causal, enable_gqa=True)) if gqa_ok else None,
+                bound=bound((qq.numel() * 2 + kk.numel() + vv.numel()) * 2, b * 4 * dh * hq * pairs),
             )
 
         t6 = k4_timing(q6, k6, v6)
@@ -2351,6 +2664,108 @@ def main() -> int:
         for name in (f"flash_attention at D = {hD}", f"decode_attention at D = {hD}"):
             require(min(controls[name].values()) > 1, f"{name}: the rule misses a planted fault: {controls[name]}")
 
+        # phase 13's shapes, seamless-m4t-large-v2 (MHA, 16 heads of 64: one
+        # query head a KV head): K4 over its encoder's bidirectional
+        # self-attention, 2 rows of 3072 frames, and a ragged 2 x 3000 (the
+        # last key tile masked at key >= Tk), f32 timed; its decoder's causal
+        # 2 x 1024 prompt; K3 over its decoder's 2-row cache of 1056 slots
+        # (8 layer slices, 69 MB of K/V, read from HBM in turns) at the first
+        # and the last generated token's kv_len, 4 ragged rows, f32 timed.
+        # Planted faults of the bidirectional path: the last 64 query rows
+        # skip the 32-key tile at 1024, a causal mask applied; in the ragged
+        # case the last tile's keys up to the next 64 read past Tk (the next
+        # row's first keys, zeros after the last row), and that tile dropped;
+        # K3's: kv_len one short, and the ragged last tile dropped.
+        ecfg = registry.get(ENCDEC_ARCH)
+        eH, eKV, eD = ecfg.n_heads, ecfg.n_kv_heads, ecfg.d_head
+        encdec_report = {}
+        drop = lambda x: torch.cat([x[:, :1024], x[:, 1024 + 32:]], dim=1).float()  # noqa: E731
+        (eqq, ekk, evv), (want, mag), e1 = k4_case(ENCDEC_BATCH, ENCDEC_SRC, heads=(eH, eKV, eD), causal=False)
+        eq, ek, ev = eqq.float(), ekk.float(), evv.float()
+        skipped = want.clone()
+        skipped[:, -64:] = flash_attention_plain(eq[:, -64:], drop(ekk), drop(evv), causal=False)
+        faults = {"tile skipped": skipped, "causal mask applied": flash_attention_plain(eq, ek, ev)}
+        (rq, rk, rv), (rwant, rmag), e2 = k4_case(ENCDEC_BATCH, ENCDEC_SRC - 72, heads=(eH, eKV, eD), causal=False)
+        n_pad, n_full = -(ENCDEC_SRC - 72) % 64, (ENCDEC_SRC - 72) // 64 * 64
+
+        def past(x):  # each row's keys followed by the next row's first n_pad keys
+            nxt = torch.cat([x[1:, :n_pad], x.new_zeros(1, n_pad, *x.shape[2:])])
+            return torch.cat([x, nxt], dim=1).float()
+
+        controls["flash_attention bidirectional"] = {
+            name: ops.bf16_ulp_excess(f.bfloat16(), want, scale=mag, **tol4) for name, f in faults.items()}
+        for name, (fk, fv) in ((f"{n_pad} keys past Tk seen", (past(rk), past(rv))),
+                               ("ragged last tile dropped", (rk[:, :n_full].float(), rv[:, :n_full].float()))):
+            controls["flash_attention bidirectional"][name] = ops.bf16_ulp_excess(
+                flash_attention_plain(rq.float(), fk, fv, causal=False).bfloat16(), rwant, scale=rmag, **tol4)
+        del want, mag, skipped, faults, rq, rk, rv, rwant, rmag
+        _, _, e3 = k4_case(ENCDEC_BATCH, ENCDEC_PROMPT, heads=(eH, eKV, eD))
+        e32 = (flash_attention_cuda(eq, ek, ev, causal=False)
+               - flash_attention_plain(eq, ek, ev, causal=False)).abs().max().item()
+        require(e32 <= 1e-4, f"K4 f32 bidirectional is {e32} off its plain version")
+        encdec_report["flash_attention"] = dict(
+            max_abs_err=max(e1, e2, e3),
+            plain_ms=time_ms(lambda: flash_attention_plain(eqq, ekk, evv, causal=False), iters=3, warmup=1),
+            f32_ms=time_ms(lambda: flash_attention_cuda(eq, ek, ev, causal=False), iters=3, warmup=1),
+            shape=f"q/k/v {tuple(eqq.shape)} bf16 bidirectional; B = 2 ragged T = {ENCDEC_SRC - 72}; the decoder's "
+                  f"({ENCDEC_BATCH},{ENCDEC_PROMPT},{eH},{eD}) causal; f32 {e32:.3g} off (library: SDPA, is_causal=False)",
+            **k4_timing(eqq, ekk, evv, causal=False),
+        )
+        del eqq, ekk, evv, eq, ek, ev
+        e_cap = ENCDEC_PROMPT + GEN_TOKENS
+        ek_c, ev_c = randn(8, ENCDEC_BATCH, e_cap, eKV, eD), randn(8, ENCDEC_BATCH, e_cap, eKV, eD)
+        eq_d = randn(ENCDEC_BATCH, eH, eD)
+        e_lens = torch.tensor([ENCDEC_PROMPT + 1, e_cap], dtype=torch.int32, device=dev)
+        err_e3 = 0.0
+        rag_k, rag_v, rag_q = randn(4, e_cap, eKV, eD), randn(4, e_cap, eKV, eD), randn(4, eH, eD)
+        cases = [(rag_q, rag_k, rag_v, torch.tensor([ENCDEC_PROMPT + 1, 0, TILE + 1, e_cap], dtype=torch.int32,
+                                                    device=dev)),
+                 (eq_d, ek_c[0], ev_c[0], e_lens)]
+        for cq, ck, cv, cl in cases:
+            got = decode_attention_cuda(cq, ck, cv, cl)
+            want = decode_attention_plain(cq.float(), ck.float(), cv.float(), cl)
+            require(not got[cl == 0].float().any(), "K3 at MHA 16 x 64: a row with kv_len 0 must output 0")
+            x = ops.bf16_ulp_excess(got, want, **tol3)
+            require(x <= 1, f"K3 at MHA 16 x 64 is {x:.3g} times its tolerance off its plain version")
+            excess["decode_attention"] = max(excess["decode_attention"], x)
+            err_e3 = max(err_e3, (got.float() - want).abs().max().item())
+        ekf, evf = ek_c[0].float(), ev_c[0].float()  # want is the main lengths'
+        controls["decode_attention at MHA 16 x 64"] = {
+            name: ops.bf16_ulp_excess(decode_attention_plain(eq_d.float(), ekf, evf, lens).bfloat16(), want, **tol3)
+            for name, lens in (("kv_len - 1", e_lens - 1), ("last tile dropped", e_lens // TILE * TILE))}
+        del rag_k, rag_v, rag_q
+        eq32_d = eq_d.float()
+        e32 = (decode_attention_cuda(eq32_d, ekf, evf, e_lens)
+               - decode_attention_plain(eq32_d, ekf, evf, e_lens)).abs().max().item()
+        require(e32 <= 1e-4, f"K3 f32 at MHA 16 x 64 is {e32} off its plain version")
+        e_it = itertools.count()
+
+        def ek3():
+            i = next(e_it) % 8
+            return decode_attention_cuda(eq_d, ek_c[i], ev_c[i], e_lens)
+
+        def ek3_lib():
+            i = next(e_it) % 8
+            mask = (torch.arange(e_cap, device=dev)[None, :] < e_lens[:, None])[:, None, None, :]
+            return sdpa(eq_d[:, :, None], ek_c[i].transpose(1, 2), ev_c[i].transpose(1, 2), attn_mask=mask)
+
+        n_tok = int(e_lens.sum())
+        encdec_report["decode_attention"] = dict(
+            max_abs_err=err_e3,
+            ms=time_ms(ek3, iters=40),
+            device_ms=device_ms(ek3, "decode_split_kernel", "decode_combine_kernel", iters=16),
+            plain_ms=time_ms(lambda: decode_attention_plain(eq_d, ek_c[0], ev_c[0], e_lens)),
+            library_ms=time_ms(ek3_lib, iters=40),
+            bound=bound(eq_d.numel() * 2 * 2 + n_tok * eKV * eD * 2 * 2 + ENCDEC_BATCH * 4, 4 * eH * eD * n_tok),
+            f32_ms=time_ms(lambda: decode_attention_cuda(eq32_d, ekf, evf, e_lens), iters=40),
+            shape=f"q {tuple(eq_d.shape)} vs cache {tuple(ek_c[0].shape)} bf16, kv_len {e_lens.tolist()}, split "
+                  f"{split_size(e_cap, ENCDEC_BATCH, eKV, torch.cuda.get_device_properties(dev).multi_processor_count)}"
+                  f"; 4 ragged rows; f32 {e32:.3g} off",
+        )
+        del ek_c, ev_c, ekf, evf
+        for name in ("flash_attention bidirectional", "decode_attention at MHA 16 x 64"):
+            require(min(controls[name].values()) > 1, f"{name}: the rule misses a planted fault: {controls[name]}")
+
         require(t6["device_ms"] is not None, "the profiler holds no device time for K4 at the store shape")
         for name, r in report.items():
             require(r["device_ms"] is not None, f"the profiler holds no device time for {name}'s kernels")
@@ -2383,6 +2798,15 @@ def main() -> int:
                   f"({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it reached, "
                   f"{r['bound'][0] / r['device_ms']:.1%} of device time)")
             print(f"{name} at D = {hD}: planted faults {controls[f'{name} at D = {hD}']}")
+        for name, r in encdec_report.items():
+            require(r["device_ms"] is not None, f"the profiler holds no device time for {name} at the encdec shape")
+            print(f"{name} at {ENCDEC_ARCH}'s shape: {r['shape']}  max_abs_err {r['max_abs_err']:.3g}  kernel "
+                  f"{r['ms']:.4f} ms  (device time {r['device_ms']} ms)  plain {r['plain_ms']:.4f} ms  library "
+                  f"{r['library_ms']}  f32 kernel {r['f32_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it reached, "
+                  f"{r['bound'][0] / r['device_ms']:.1%} of device time)")
+        for name in ("flash_attention bidirectional", "decode_attention at MHA 16 x 64"):
+            print(f"{name}: planted faults {controls[name]}")
         del kc, vc
 
     # --------------------------------------------------------- 4 serve, 5 text
@@ -2433,10 +2857,17 @@ def main() -> int:
         drive_recurrent_path(registry.get(arch), dev, gen, phase=lambda name: Phase(name, phase_ms))
         paths[path] = ops.launch_counts()
 
+    # -------------------------------------------------------------- 13 encdec
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    drive_encdec_path(registry.get(ENCDEC_ARCH), dev, gen, phase=lambda name: Phase(name, phase_ms), card=smi)
+    paths["encdec"] = ops.launch_counts()
+
     # --------------------------------------------------------------- summary
     runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
             "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "moe": MOE_KERNELS, "vlm": VLM_KERNELS,
-            "ssm": SSM_KERNELS, "hybrid": HYBRID_KERNELS}
+            "ssm": SSM_KERNELS, "hybrid": HYBRID_KERNELS, "encdec": ENCDEC_KERNELS}
     require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")
     require(not any(paths["ssm"].values()), f"the attention-free ssm path launched kernels: {paths['ssm']}")
     for path, counts in paths.items():

@@ -10,6 +10,11 @@ launch counters, so a run can show that its path went through them.
 ``bf16_ulp_excess`` with ``BF16_TOL`` is the one rule by which a kernel with
 bf16 output is held against its plain version (K2, K5 and K6 are held bit
 for bit).
+
+K3 and K4 have no backward: their kernels write into fresh buffers outside
+autograd, so on the card a call with grad enabled and an input that
+requires grad raises instead of returning a result whose gradient would
+silently be zero.  Their plain versions differentiate as any PyTorch code.
 """
 from __future__ import annotations
 
@@ -142,14 +147,24 @@ def kv_dequant(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
     return fn(d_sym, anchors, bins, qmax=qmax, out_dtype=out_dtype)
 
 
+def _no_backward(name: str, *inputs: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it with grad disabled "
+                           "(torch.no_grad()) or on inputs that do not require grad")
+
+
 def decode_attention(q, k, v, kv_len, *, scale=None):
     """K3: q (B, Hq, D) vs cache k/v (B, S, Hkv, D); see ``kernels.decode_attention``."""
-    fn = decode_attention_cuda if _on_card(q) else decode_attention_plain
-    return fn(q, k, v, kv_len, scale=scale)
+    if not _on_card(q):
+        return decode_attention_plain(q, k, v, kv_len, scale=scale)
+    _no_backward("decode_attention", q, k, v)
+    return decode_attention_cuda(q, k, v, kv_len, scale=scale)
 
 
 def flash_attention(q, k, v, prefix_len: Optional[torch.Tensor] = None, *,
                     causal: bool = True, scale=None):
     """K4: q (B, Tq, Hq, D) vs k/v (B, Tk, Hkv, D); see ``kernels.flash_attention``."""
-    fn = flash_attention_cuda if _on_card(q) else flash_attention_plain
-    return fn(q, k, v, prefix_len, causal=causal, scale=scale)
+    if not _on_card(q):
+        return flash_attention_plain(q, k, v, prefix_len, causal=causal, scale=scale)
+    _no_backward("flash_attention", q, k, v)
+    return flash_attention_cuda(q, k, v, prefix_len, causal=causal, scale=scale)

@@ -1,4 +1,4 @@
-"""Attention layer (dense families): plan, prefill and one-token decode.
+"""Attention layer: plan, prefill, one-token decode and cross-attention.
 
   * prefill: ``attn_prefill`` → K4 (``kernels.ops.flash_attention``) on the
     card, its plain version (the reference's q-chunked ``chunked_mha``) on
@@ -6,6 +6,12 @@
   * decode: ``attn_decode`` writes the new token into the cache in place and
     runs K3 (``kernels.ops.decode_attention``) over the cache, read in its
     native ``(B, S, Hkv, Dh)`` layout;
+  * cross-attention (the encdec family's decoder against the encoder
+    memory): ``memory_kv`` and ``cross_attn_prefill``, with no RoPE and no
+    mask but the memory's length.  The reference computes it in plain jnp
+    (``chunked_mha``, ``_decode_mha_plain``), outside any Pallas kernel, so
+    the port runs K4's and K3's plain versions, which are those functions,
+    on every device;
   * GQA throughout (n_kv_heads <= n_heads).
 
 There is no mesh in this package yet, so the reference's sequence-parallel
@@ -19,9 +25,17 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models.common import Leaf, rope
 
-__all__ = ["attn_plan", "attn_prefill", "attn_decode", "write_at"]
+__all__ = [
+    "attn_plan",
+    "attn_prefill",
+    "attn_decode",
+    "write_at",
+    "cross_attn_prefill",
+    "memory_kv",
+]
 
 
 def attn_plan(cfg: ArchConfig) -> Dict[str, Leaf]:
@@ -121,3 +135,29 @@ def attn_decode(
     o = ops.decode_attention(q[:, 0], kc_read, vc, kv_len)
     out = o.reshape(B, 1, cfg.n_heads * cfg.d_head)
     return out.to(p["wo"].dtype) @ p["wo"]
+
+
+def memory_kv(cfg: ArchConfig, p, mem: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project encoder memory (B, S, d) once into cross-attention K/V, each
+    (B, S, Hkv, Dh): no RoPE."""
+    B, S, _ = mem.shape
+    k = mem @ p["wk"]
+    v = mem @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k.reshape(B, S, cfg.n_kv_heads, cfg.d_head), v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+
+
+def cross_attn_prefill(cfg: ArchConfig, p, x: torch.Tensor, mem_kv) -> torch.Tensor:
+    """Decoder states (B, T, d) against the memory's K/V: every query sees
+    every memory row (no mask, no RoPE), through K4's plain version (the
+    reference's ``chunked_mha``; its query chunk bounds memory only);
+    returns (B, T, d)."""
+    B, T, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, T, cfg.n_heads, cfg.d_head)
+    k, v = mem_kv
+    o = flash_attention_plain(q, k, v, causal=False)
+    return o.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"]

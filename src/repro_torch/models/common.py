@@ -27,6 +27,7 @@ __all__ = [
     "rope",
     "mlp_plan",
     "mlp_apply",
+    "softmax_cross_entropy",
 ]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -188,3 +189,22 @@ def mlp_apply(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.T
         h = F.gelu(maybe_bias(x @ p["w_up"], "b_up"), approximate="tanh")
         return maybe_bias(h @ p["w_down"], "b_down")
     raise ValueError(f"unknown mlp {kind}")
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over masked positions, in f32.  logits (..., V), labels (...)."""
+    logits = logits.to(torch.float32)
+    labels = torch.as_tensor(labels, device=logits.device).to(torch.long)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = torch.as_tensor(mask, device=logits.device).to(torch.float32)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

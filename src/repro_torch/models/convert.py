@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import DTYPES
-from repro_torch.models.lm import param_plan
+from repro_torch.models.model import build
 
 __all__ = ["params_from_numpy"]
 
@@ -36,6 +36,7 @@ def params_from_numpy(
     cfg: ArchConfig, tree: Dict[str, Any], device, dtype: Optional[torch.dtype] = None
 ) -> Dict[str, Any]:
     """Numpy parameter tree -> tensors on ``device`` in ``dtype`` (default
-    ``cfg.dtype``), checked leaf by leaf against :func:`lm.param_plan`."""
+    ``cfg.dtype``), checked leaf by leaf against the family's plan
+    (``build(cfg).param_plan()``)."""
     dtype = DTYPES[cfg.dtype] if dtype is None else dtype
-    return _convert(tree, param_plan(cfg), torch.device(device), dtype, "")
+    return _convert(tree, build(cfg).param_plan(), torch.device(device), dtype, "")

@@ -3,13 +3,14 @@ prefill, chunked prefill, decode.
 
 Layers run as a Python loop over the stacked per-layer weights (leading
 ``L`` axis, as in the reference's pytree).  The MoE family's layers differ
-from the dense family's in their FFN alone (``models.moe``; the load
-balancing loss the reference sums for ``loss_fn`` is dropped here, as its
-serving entry points drop it).  The vlm family (paligemma-3b) is the dense
-decoder behind a multimodal prefix: ``prefill`` projects the batch's
-precomputed ``patch_embeds`` (the stubbed vision tower's output) through
-``frontend_proj``, puts those rows before the text tokens and attends
-bidirectionally over them (prefix-LM, K4's ``prefix_len``); the caches
+from the dense family's in their FFN alone (``models.moe``; its load
+balancing loss is summed over the layers by ``loss_fn`` and dropped by the
+serving entry points, as in the reference).  The vlm family
+(paligemma-3b) is the dense decoder behind a multimodal prefix:
+``prefill`` projects the batch's precomputed ``patch_embeds`` (the
+stubbed vision tower's output) through ``frontend_proj``, puts those rows
+before the text tokens and attends bidirectionally over them (prefix-LM,
+K4's ``prefix_len``); the caches
 then hold the prefix rows first, and ``prefill_extend`` and
 ``decode_step`` treat them as any cached rows.  The ssm family
 (mamba2-370m) stacks Mamba-2 blocks (``models.mamba2``) and carries their
@@ -21,6 +22,8 @@ the remaining Mamba-2 layers.  Neither has a chunked prefill, as in the
 reference.  Entry points:
 
   * ``param_plan`` / ``init_params``
+  * ``loss_fn(cfg, params, batch)`` — the training loss, forward only (K4
+    on the card has no backward)
   * ``prefill(cfg, params, batch, pad_to=)``   — logits + caches (K4)
   * ``prefill_extend(cfg, params, tokens, caches[, widths])`` — TEXT-chunk
     recompute on top of loaded KV (plain attention, as in the reference),
@@ -50,6 +53,7 @@ from repro_torch.models.common import (
     mlp_plan,
     norm_plan,
     rope,
+    softmax_cross_entropy,
 )
 from repro_torch.models.mamba2 import Mamba2State, mamba2_decode, mamba2_plan, mamba2_prefill
 from repro_torch.models.mamba2 import _dims as _mamba_dims
@@ -61,6 +65,7 @@ __all__ = [
     "Caches",
     "param_plan",
     "init_params",
+    "loss_fn",
     "prefill",
     "prefill_extend",
     "decode_step",
@@ -155,13 +160,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> Dict[str
     return init_from_plan(param_plan(cfg), generator, device, DTYPES[cfg.dtype])
 
 
-def _layer(params, l: int) -> Dict[str, Any]:
-    """Layer ``l``'s slice of the stacked per-layer weights (views)."""
+def _layer(params, l: int, stack: str = "layers") -> Dict[str, Any]:
+    """Layer ``l``'s slice of the stacked per-layer weights ``params[stack]``
+    (views)."""
 
     def take(node):
         return {k: take(v) if isinstance(v, dict) else v[l] for k, v in node.items()}
 
-    return take(params["layers"])
+    return take(params[stack])
 
 
 # ---------------------------------------------------------------------------
@@ -170,13 +176,16 @@ def _layer(params, l: int) -> Dict[str, Any]:
 
 
 def _mlp_residual(cfg, p, x, h):
-    """The FFN half of a block; ``x`` already holds the attention output."""
+    """The FFN half of a block; ``x`` already holds the attention output.
+    Returns (x, aux): the MoE layer's load-balancing loss, 0.0 for a dense
+    FFN."""
     if cfg.parallel_block:
-        return x + mlp_apply(cfg.mlp, p["mlp"], h)
+        return x + mlp_apply(cfg.mlp, p["mlp"], h), 0.0
     h2 = apply_norm(cfg.norm, p["ln2"], x)
     if cfg.family == "moe":
-        return x + moe_apply(cfg, p["moe"], h2)[0]
-    return x + mlp_apply(cfg.mlp, p["mlp"], h2)
+        out, aux = moe_apply(cfg, p["moe"], h2)
+        return x + out, aux
+    return x + mlp_apply(cfg.mlp, p["mlp"], h2), 0.0
 
 
 def _shared_block_prefill(cfg, p, x, positions):
@@ -286,25 +295,54 @@ def prefill(cfg: ArchConfig, params, batch, *, pad_to: Optional[int] = None):
     _check_family(cfg)
     x, prefix_len = _assemble_input(cfg, params, batch)
     B, T = x.shape[:2]
+    x, caches, _ = _run_layers_prefill(cfg, params, x, prefix_len, pad_to or T)
+    length = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    return _logits(cfg, params, x[:, -1:]), caches._replace(length=length)
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    """Mean next-token cross-entropy of ``batch["labels"]`` (B, T) over the
+    text positions (masked by ``batch["mask"]`` if given), forward only:
+    returns (ce + 0.01 * aux, {"ce": ce, "aux": aux}), ``aux`` the MoE
+    layers' load-balancing losses summed (0 for the other families).  The
+    vlm family's image rows are dropped before the logits."""
+    _check_family(cfg)
+    x, prefix_len = _assemble_input(cfg, params, batch)
+    x, _, aux = _run_layers_prefill(cfg, params, x, prefix_len)
+    n_prefix = x.shape[1] - batch["tokens"].shape[1]
+    logits = _logits(cfg, params, x[:, n_prefix:])
+    loss = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+
+
+def _run_layers_prefill(cfg, params, x, prefix_len, cap: Optional[int] = None):
+    """The prefill's layers over the whole input ``x`` (B, T, d): returns
+    (x, caches without length, aux).  With ``cap`` each layer's K/V is
+    written straight into caches of ``cap`` slots (the rest zeros); without,
+    the attention families keep no K/V (``caches`` is None).  ``aux`` sums
+    the MoE layers' load-balancing losses (f32)."""
+    B, T = x.shape[:2]
     dev = x.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
-    cap = pad_to or T
-    length = torch.full((B,), T, dtype=torch.int32, device=dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     if cfg.family not in ATTENTION_FAMILIES:
-        x, caches = _prefill_recurrent(cfg, params, x, positions, cap)
-        return _logits(cfg, params, x[:, -1:]), caches._replace(length=length)
-    shape = (cfg.n_layers, B, cap, cfg.n_kv_heads, cfg.d_head)
-    kv_k = torch.zeros(shape, dtype=x.dtype, device=dev)
-    kv_v = torch.zeros(shape, dtype=x.dtype, device=dev)
+        x, caches = _prefill_recurrent(cfg, params, x, positions, cap or T)
+        return x, caches, aux
+    caches = None
+    if cap is not None:
+        shape = (cfg.n_layers, B, cap, cfg.n_kv_heads, cfg.d_head)
+        caches = Caches(kv_k=torch.zeros(shape, dtype=x.dtype, device=dev),
+                        kv_v=torch.zeros(shape, dtype=x.dtype, device=dev), length=None)
     for l in range(cfg.n_layers):
         p = _layer(params, l)
         h = apply_norm(cfg.norm, p["ln1"], x)
         attn_out, (k, v) = attn_prefill(cfg, p["attn"], h, positions, prefix_len=prefix_len)
-        kv_k[l, :, :T] = k
-        kv_v[l, :, :T] = v
-        x = _mlp_residual(cfg, p, x + attn_out, h)
-    logits = _logits(cfg, params, x[:, -1:])
-    return logits, Caches(kv_k=kv_k, kv_v=kv_v, length=length)
+        if caches is not None:
+            caches.kv_k[l, :, :T] = k
+            caches.kv_v[l, :, :T] = v
+        x, aux_l = _mlp_residual(cfg, p, x + attn_out, h)
+        aux = aux + aux_l
+    return x, caches, aux
 
 
 def _prefill_recurrent(cfg, params, x, positions, cap):
@@ -432,7 +470,7 @@ def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches, widths=None)
         o = _extend_mha(q, kc_read, vc, cache_len, Tc)
         wo = p["attn"]["wo"]
         attn_out = o.reshape(B, Tc, cfg.n_heads * cfg.d_head).to(wo.dtype) @ wo
-        x = _mlp_residual(cfg, p, x + attn_out, hn)
+        x = _mlp_residual(cfg, p, x + attn_out, hn)[0]
     logits = _logits(cfg, params, x[:, -1:])
     if widths is None:
         return logits, caches._replace(length=cache_len + Tc)
@@ -453,7 +491,7 @@ def decode_step(cfg: ArchConfig, params, tokens, caches: Caches):
             p = _layer(params, l)
             h = apply_norm(cfg.norm, p["ln1"], x)
             attn_out = attn_decode(cfg, p["attn"], h, (caches.kv_k[l], caches.kv_v[l]), cache_len)
-            x = _mlp_residual(cfg, p, x + attn_out, h)
+            x = _mlp_residual(cfg, p, x + attn_out, h)[0]
     else:
         for l0, l1, app in _segments(cfg):
             for l in range(l0, l1):

@@ -437,6 +437,40 @@ def test_profiler_keys_match_kernels_by_exact_name(key, name):
     assert timing.kernel_name(key) == name
 
 
+def _expand_heads(t, rep):
+    return t.repeat_interleave(rep, dim=2).transpose(1, 2)
+
+
+def test_attention_plain_paths_differentiate():
+    """On CPU tensors the wrappers run the plain versions, which autograd
+    differentiates: K4's (bidirectional, and causal at Tq < Tk) and K3's
+    gradients equal those of ``scaled_dot_product_attention`` on the same
+    f32 inputs (GQA expanded)."""
+    r = _rng(5)
+
+    def leaf(*shape):
+        return torch.tensor(r.normal(size=shape).astype(np.float32), requires_grad=True)
+
+    q, k, v = leaf(2, 5, 4, 16), leaf(2, 7, 2, 16), leaf(2, 7, 2, 16)
+    up = torch.tensor(r.normal(size=(2, 5, 4, 16)).astype(np.float32))
+    for causal in (False, True):
+        got = torch.autograd.grad((ops.flash_attention(q, k, v, causal=causal) * up).sum(), (q, k, v))
+        mask = torch.arange(7)[None, :] <= torch.arange(5)[:, None] + 2 if causal else None
+        want = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), _expand_heads(k, 2), _expand_heads(v, 2), attn_mask=mask).transpose(1, 2)
+        want = torch.autograd.grad((want * up).sum(), (q, k, v))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    qd, lens = leaf(2, 4, 16), torch.tensor([7, 3], dtype=torch.int32)
+    got = torch.autograd.grad((ops.decode_attention(qd, k, v, lens) * up[:, 0]).sum(), (qd, k, v))
+    mask = (torch.arange(7)[None, :] < lens[:, None])[:, None, None, :]
+    want = torch.nn.functional.scaled_dot_product_attention(
+        qd[:, :, None], _expand_heads(k, 2), _expand_heads(v, 2), attn_mask=mask)[:, :, 0]
+    want = torch.autograd.grad((want * up[:, 0]).sum(), (qd, k, v))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
 def test_wrappers_count_only_kernel_launches():
     """On the CPU the plain versions run and no launch is counted."""
     ops.reset_launch_counts()
@@ -601,6 +635,43 @@ def test_cuda_decode_attention_geometries(cuda, Hq, Hkv, D, kv_dtype):
 
 
 @pytest.mark.gpu
+def test_cuda_attention_refuses_grad(cuda):
+    """K3 and K4 have no backward: with grad enabled and any input that
+    requires grad, the wrappers raise on the card; without grad they run."""
+    r = _rng(9)
+
+    def t(*shape, grad=False):
+        return _t(r.normal(size=shape).astype(np.float32)).to(cuda, torch.bfloat16).requires_grad_(grad)
+
+    q, k, v = t(1, 64, 4, 64), t(1, 64, 4, 64), t(1, 64, 4, 64)
+    qd, kc, vc = t(1, 4, 64), t(1, 128, 4, 64), t(1, 128, 4, 64)
+    lens = torch.tensor([100], dtype=torch.int32, device=cuda)
+    for grad in ("q", "k", "v"):
+        args = [x.detach().requires_grad_(name == grad) for name, x in (("q", q), ("k", k), ("v", v))]
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.flash_attention(*args, causal=False)
+        dargs = [x.detach().requires_grad_(name == grad) for name, x in (("q", qd), ("k", kc), ("v", vc))]
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.decode_attention(*dargs, lens)
+    q.requires_grad_(True)
+    qd.requires_grad_(True)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).shape == q.shape
+        assert ops.decode_attention(qd, kc, vc, lens).shape == qd.shape
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_encdec_geometry(cuda):
+    """seamless-m4t-large-v2's decoder self-attention: MHA, 16 heads of 64
+    (one query head a KV head), a cache of 1,056 slots (a 1,024-token prompt
+    and 32 generated tokens) at the first and the last generated token's
+    lengths, a ragged row and an empty one."""
+    q, k, v = _decode_case(cuda, 64, 4, 16, 16, 1056, 64, torch.bfloat16, torch.bfloat16)
+    _check_decode(q, k, v, torch.tensor([1025, 1056, TILE + 1, 0], dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
 def test_cuda_decode_attention_moe_geometry(cuda):
     """qwen2-moe-a2.7b's decode: MHA, 16 heads of 128, a cache of 3,105
     slots (a 3,072-token context and 32 generated tokens) at the first and
@@ -656,6 +727,9 @@ CUDA_FLASH_CASES = [
     (1, 32, 32, 300, 300, 80, True, None),
     (2, 6, 2, 77, 200, 80, True, [0, 150]),  # GQA, prefix-LM, Tq < Tk at D = 80
     (1, 4, 4, 130, 130, 80, False, None),  # bidirectional
+    (2, 16, 16, 3072, 3072, 64, False, None),  # seamless-m4t-large-v2's encoder: bidirectional over 3,072 frames
+    (2, 16, 16, 3000, 3000, 64, False, None),  # ragged: the last key tile masked at key >= Tk
+    (2, 16, 16, 1024, 1024, 64, True, None),  # its decoder prompt, causal
 ]
 
 

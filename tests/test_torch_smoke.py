@@ -1,8 +1,9 @@
 """``chip_smoke.py`` off the card: it refuses to run without one, and its
 main path (phases 4-5), store path (phase 6), session path (phase 7),
-serving path (phase 8), launcher path (phase 9), MoE path (phase 10) and
-vlm path (phase 11) run at a tiny size on the CPU through the kernels'
-plain versions (no launch counted)."""
+serving path (phase 8), launcher path (phase 9), MoE path (phase 10),
+vlm path (phase 11), ssm and hybrid paths (phase 12) and encdec path
+(phase 13) run at a tiny size on the CPU through the kernels' plain
+versions (no launch counted)."""
 import contextlib
 import importlib.util
 import io
@@ -227,4 +228,27 @@ def test_chip_smoke_recurrent_path_runs_on_cpu_at_tiny_size(arch):
     assert ("off the plain step" in out) == (name == "hybrid")
     assert ("ssm SSD at layer 0's shapes" in out) == (name == "ssm")
     assert got["tokens"].shape == (1, 8)
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_encdec_path_runs_on_cpu_at_tiny_size():
+    """Phase 13 at ``.tiny()`` (bf16): 2 rows of 40 source frames and a
+    24-token prompt, 8 greedy tokens equal in two runs, the kernel path
+    against the plain attention and the f32 model, prefill then a step
+    within its f32 rule of the longer prefill, ``loss_fn`` against the plain
+    path; the script fails otherwise.  Nothing is counted off the card."""
+    smoke = _load_smoke()
+    smoke.ops.reset_launch_counts()
+    cfg = smoke.registry.get("seamless-m4t-large-v2").tiny()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = smoke.drive_encdec_path(cfg, torch.device("cpu"), torch.Generator(device="cpu"), src_len=40,
+                                      prompt=24, gen_tokens=8)
+    out = out.getvalue()
+    assert "encdec greedy: 8 tokens a row equal in two runs" in out
+    for line in ("encdec kernels vs plain attention", "encdec memory: kernel path", "encdec cross_v: kernel path",
+                 "encdec prefill then step (f32 weights)", "encdec loss_fn:", "encdec on cpu:", "encdec steps ms"):
+        assert line in out, line
+    assert got["tokens"].shape == (smoke.ENCDEC_BATCH, 8)
+    assert set(got["counts"]) == {"prefill", "generate", "loss_fn"}
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
