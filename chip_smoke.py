@@ -210,38 +210,84 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            the weights (within 2e-4); ``loss_fn`` at one row (K4 48 times)
            within 2e-3 of the plain path's; encode, prefill and step wall ms,
            a step's device ms and each step's peak memory.
+14. train  training through ``repro_torch.training`` after phase 13's state
+           is freed:
+           A. smollm-360m at full width (361.8 M parameters, remat "full" as
+              registered), ``Trainer.init_or_restore(SEED + 15)`` (random bf16
+              weights, f32 moments), AdamW (lr 1e-3, warmup 4) on batches of
+              8 x 1,024 tokens of ``MarkovLM(49152, seed=2,
+              stickiness=0.6)`` seeded per step, checkpoints every 6 steps
+              (keep 2) in a temporary directory: 12 steps under
+              deterministic algorithms, each launching K4 exactly 64 times
+              (32 layers' forwards and their recomputes; the backward is the
+              plain version's VJP) and nothing else, the mean loss of the
+              last 3 below step 1's; a new ``Trainer`` over a copy of the
+              step-6 checkpoint resumes (the restored state bit for bit the
+              saved one) and runs to 12 with the same losses and final
+              parameters bit for bit; one step with its 64 K4 calls held to
+              their plain versions; the kernel path's loss within 2e-3 of
+              the plain attention's and each gradient leaf no farther from
+              the f32 model's (plain attention) than twice the plain path;
+              one ``apply_updates`` with those gradients on the card against
+              the same on the CPU (moments within 1e-6 of their scale,
+              bf16 weights within one bf16 step); a step's wall and device ms, tokens per wall second, K4's
+              forward ms against the plain VJP's within the step, the peak
+              memory, and the checkpoints' save and restore ms.
+           B. every registry arch at ``.tiny()`` in bf16: one
+              ``make_train_step``, finite, a nonzero gradient norm, the loss
+              within 2e-2 of the plain attention's; K4 launched once an
+              attention layer (the same count in two runs), none by
+              mamba2-370m.
+           C. ``python -m repro_torch.launch.train --arch smollm-360m --steps
+              20 --grad-compression --ckpt-dir <tmp>`` as a subprocess that
+              prints its kernel launches at exit: exit 0 with the loss
+              falling, K4 once an attention layer a step; again:
+              ``[trainer] resumed from step 20``, exit 0 and no launch.
+           The kernels phase also times K4 under autograd at A's shape: its
+           forward, the plain VJP and SDPA's forward + backward, and holds
+           the Function's gradients to the f32 plain version's.
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5, then zeroed before each of phases 6, 7, 8, 9, 10, 11, 12 A, 12 B and 13
-and read after it; the run fails if a kernel that a path runs was not
-launched in it (all six on the serve + text and store paths; K1, K2 and K3
-on the session and serving paths; K1-K5 on the launcher, moe and vlm
-paths; K3 and K4 on the hybrid and encdec paths), or if the ssm path
-launched any.  The last line is
+5, then zeroed before each of phases 6, 7, 8, 9, 10, 11, 12 A, 12 B, 13,
+14 A and 14 B and read after it (14 C's subprocesses count their own); the
+run fails if a kernel that a path runs was not launched in it (all six on
+the serve + text and store paths; K1, K2 and K3 on the session and serving
+paths; K1-K5 on the launcher, moe and vlm paths; K3 and K4 on the hybrid
+and encdec paths; K4 on the train, train sweep and train launcher paths),
+or if the ssm path launched any.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 with launches summed over the paths.  Needs
 one CUDA card; exits 2 with no result when there is none.
 """
 import contextlib
 import dataclasses
+import functools
 import gc
 import itertools
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# deterministic algorithms (phase 14's resume) need cuBLAS's workspace fixed
+# before the first CUDA call; on Hopper this is PyTorch's default size
+# (8 buffers of 4 MiB), so the other phases run as before
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import codec, quant  # noqa: E402
-from repro_torch.kernels import _build, ops, timing  # noqa: E402
+from repro_torch.kernels import _build, flash_attention, ops, timing  # noqa: E402
 from repro_torch.kernels.timing import bound_ms as bound  # noqa: E402
 from repro_torch.kernels.timing import device_ms, time_ms  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -254,6 +300,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda,
     flash_attention_magnitude,
     flash_attention_plain,
+    flash_attention_vjp,
 )
 from repro_torch.kernels.kvquant import (  # noqa: E402
     kv_dequant_cuda,
@@ -266,6 +313,9 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     kv_quant_plain,
     vector_width,
 )
+from repro_torch._tree import tree_flatten_with_path, tree_leaves, tree_map  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.data import MarkovLM  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build, encdec, lm, mamba2, moe  # noqa: E402
 from repro_torch.models.common import apply_norm  # noqa: E402
@@ -275,6 +325,8 @@ from repro_torch.serving.generation import GenerationSpec  # noqa: E402
 from repro_torch.serving.kv_layout import caches_to_codec_kv  # noqa: E402
 from repro_torch.serving.scheduler import ConcurrentScheduler, ContinuousScheduler, SessionRequest  # noqa: E402
 from repro_torch.serving.session import ServeSession  # noqa: E402
+from repro_torch.training import AdamWConfig, Trainer, apply_updates, make_train_step  # noqa: E402
+from repro_torch.training.trainer import init_train_state, loss_and_grads  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     TEXT,
     BandwidthTrace,
@@ -415,6 +467,36 @@ ENCDEC_STEP_TOL = MOE_STEP_TOL
 ENCDEC_YARDSTICK = 2.0
 ENCDEC_LOSS_TOL = 2e-3
 ENCDEC_KERNELS = ("decode_attention", "flash_attention")
+# phase 14: training.  A: smollm-360m at full width, batches of TRAIN_BATCH
+# rows of TRAIN_SEQ tokens, TRAIN_STEPS steps checkpointed every
+# TRAIN_CKPT_EVERY (keep TRAIN_KEEP), resumed from the first checkpoint; the
+# kernel path against the plain attention: the loss within TRAIN_LOSS_TOL
+# relative, each gradient leaf no farther from the f32 model's than
+# TRAIN_YARDSTICK times the plain path (phase 13's rule for deep tensors).
+# B: one step of every arch's .tiny() in bf16, the loss within
+# TRAIN_TINY_LOSS_TOL of the plain attention's.  C: the launcher's steps.
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH = 8
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 12
+TRAIN_CKPT_EVERY = 6
+TRAIN_KEEP = 2
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=4)
+TRAIN_LOSS_TOL = 2e-3
+TRAIN_YARDSTICK = ENCDEC_YARDSTICK
+TRAIN_TINY_LOSS_TOL = 2e-2
+TRAIN_TINY_BATCH, TRAIN_TINY_SEQ = 2, 32
+TRAIN_LAUNCH_STEPS = 20
+TRAIN_KERNELS = ("flash_attention",)
+# ``python -m repro_torch.launch.train`` with its arguments, printing the
+# subprocess's kernel launches as ``[launch counts] {...}`` at exit
+TRAIN_LAUNCH_COUNTED = """import json, runpy
+from repro_torch.kernels import ops
+try:
+    runpy.run_module("repro_torch.launch.train", run_name="__main__", alter_sys=True)
+finally:
+    print("[launch counts] " + json.dumps(ops.launch_counts()), flush=True)
+"""
 
 
 class Phase:
@@ -1180,7 +1262,8 @@ def routing(record=None, pinned=None, flips=None):
 @contextlib.contextmanager
 def plain_attention():
     """The model's attention through K3's and K4's plain versions on any
-    device: f32 arithmetic from the same inputs, the result in their dtype."""
+    device: f32 arithmetic from the same inputs, the result in their dtype;
+    under autograd it differentiates (the plain path of phase 14's grads)."""
     saved = ops.decode_attention, ops.flash_attention
 
     def decode(q, k, v, kv_len, *, scale=None):
@@ -1202,22 +1285,25 @@ def held_calls(excess):
     """Every K3 and K4 call in the block is also computed by its plain
     version from the same inputs in f32 and held to its kernel's bf16 rule
     (``kernels.ops.BF16_TOL``); appends (kernel name, excess) to ``excess``.
-    The plain versions launch nothing."""
+    The plain versions launch nothing, and run outside autograd: under a
+    training step each would build an f32 graph of its own."""
     decode_k, flash_k = ops.decode_attention, ops.flash_attention
 
     def decode(q, k, v, kv_len, *, scale=None):
         out = decode_k(q, k, v, kv_len, scale=scale)
-        want = decode_attention_plain(q.float(), k.float(), v.float(), kv_len, scale=scale)
-        excess.append(("decode_attention",
-                       ops.bf16_ulp_excess(out, want, **ops.BF16_TOL["decode_attention"])))
+        with torch.no_grad():
+            want = decode_attention_plain(q.float(), k.float(), v.float(), kv_len, scale=scale)
+            excess.append(("decode_attention",
+                           ops.bf16_ulp_excess(out, want, **ops.BF16_TOL["decode_attention"])))
         return out
 
     def flash(q, k, v, prefix_len=None, *, causal=True, scale=None):
         out = flash_k(q, k, v, prefix_len, causal=causal, scale=scale)
-        want = flash_attention_plain(q.float(), k.float(), v.float(), prefix_len, causal=causal, scale=scale)
-        mag = flash_attention_magnitude(q, k, v, prefix_len, causal=causal, scale=scale)
-        excess.append(("flash_attention",
-                       ops.bf16_ulp_excess(out, want, scale=mag, **ops.BF16_TOL["flash_attention"])))
+        with torch.no_grad():
+            want = flash_attention_plain(q.float(), k.float(), v.float(), prefix_len, causal=causal, scale=scale)
+            mag = flash_attention_magnitude(q, k, v, prefix_len, causal=causal, scale=scale)
+            excess.append(("flash_attention",
+                           ops.bf16_ulp_excess(out, want, scale=mag, **ops.BF16_TOL["flash_attention"])))
         return out
 
     ops.decode_attention, ops.flash_attention = decode, flash
@@ -1225,6 +1311,36 @@ def held_calls(excess):
         yield
     finally:
         ops.decode_attention, ops.flash_attention = decode_k, flash_k
+
+
+def _plain_grads(q, k, v, do, prefix_len=None, causal=True):
+    """(dq, dk, dv) by autograd through K4's whole plain version."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    return torch.autograd.grad(flash_attention_plain(q, k, v, prefix_len, causal=causal), (q, k, v), do)
+
+
+def flash_grad_check(q, k, v, do, prefix_len=None, causal=True):
+    """K4 under autograd (``ops.flash_attention`` with grad on: K4 forward,
+    the plain version's VJP backward) on bf16 inputs: returns (its (dq, dk,
+    dv); the largest ratio over them of their distance from the f32 plain
+    version's gradients to that of autograd through the plain version on
+    the same bf16 inputs, which they must equal where the query chunks are
+    at most two, whose sums commute; their largest |error| against f32)."""
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(ops.flash_attention(qq, kk, vv, prefix_len, causal=causal), (qq, kk, vv), do)
+    plain = _plain_grads(q, k, v, do, prefix_len, causal)
+    f32 = _plain_grads(q.float(), k.float(), v.float(), do.float(), prefix_len, causal)
+    worst = err = 0.0
+    for g, p, w in zip(got, plain, f32):
+        require(g.dtype == q.dtype and g.shape == p.shape and bool(torch.isfinite(g).all()),
+                f"K4 under autograd: a gradient {g.dtype} {tuple(g.shape)} is not finite")
+        if -(-q.shape[1] // flash_attention.Q_CHUNK) <= 2:
+            require(torch.equal(g, p), "K4 under autograd: the gradients differ from the plain version's")
+        scale = w.abs().max()
+        dg, dp = ((g.float() - w).abs().max() / scale).item(), ((p.float() - w).abs().max() / scale).item()
+        worst = max(worst, dg / dp if dp else (0.0 if dg == 0 else float("inf")))
+        err = max(err, (g.float() - w).abs().max().item())
+    return got, worst, err
 
 
 @contextlib.contextmanager
@@ -1301,7 +1417,7 @@ def drive_moe_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), c
         gen.manual_seed(SEED + 10)
         params = lm.init_params(cfg, gen, dev)
         laps.lap("init")
-        resident = sum(t.numel() * t.element_size() for t in _leaves(params))
+        resident = sum(t.numel() * t.element_size() for t in tree_leaves(params))
         peak = f"{laps.peak_gb['init']} GB" if on_card else "not measured"
         print(f"moe: {cfg.name} weights {resident / 1e9:.2f} GB resident ({cfg.dtype}); peak allocated during "
               f"the draw {peak}")
@@ -1509,9 +1625,9 @@ def drive_vlm_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), c
         gen.manual_seed(SEED + 11)
         params = lm.init_params(cfg, gen, dev)
         laps.lap("init")
-        resident = sum(t.numel() * t.element_size() for t in _leaves(params))
+        resident = sum(t.numel() * t.element_size() for t in tree_leaves(params))
         print(f"vlm: {cfg.name} weights {resident / 1e9:.2f} GB resident ({cfg.dtype}), "
-              f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B parameters")
+              f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B parameters")
         engine = Engine(cfg, params, cache_capacity=n_rows + gen_tokens + 1, device=dev)
         tokens = torch.randint(0, cfg.vocab_size, (1, ctx_len), generator=gen, device=dev)
         patches = torch.randn((1, n_img, cfg.frontend_dim), generator=gen, device=dev)
@@ -1651,7 +1767,7 @@ def drive_vlm_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), c
 def _ssd_layer0(cfg, params, tokens):
     """Layer 0's SSD inputs on ``tokens``, as the prefill computes them:
     (x, dt, A, B, C)."""
-    p = lm._layer(params, 0)
+    p = lm._unstack(params["layers"], cfg.n_layers)[0]
     h = apply_norm(cfg.norm, p["ln1"], lm._embed_tokens(cfg, params, tokens))
     return mamba2.ssd_inputs(cfg, p["mamba"], h)[1:6]
 
@@ -1686,9 +1802,9 @@ def drive_recurrent_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontex
         gen.manual_seed(SEED + (13 if hybrid else 12))
         params = lm.init_params(cfg, gen, dev)
         laps.lap("init")
-        resident = sum(t.numel() * t.element_size() for t in _leaves(params))
+        resident = sum(t.numel() * t.element_size() for t in tree_leaves(params))
         print(f"{name}: {cfg.name} weights {resident / 1e9:.2f} GB resident ({cfg.dtype}), "
-              f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B parameters")
+              f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B parameters")
         engine = Engine(cfg, params, cache_capacity=cap, device=dev)
         tokens = torch.randint(0, cfg.vocab_size, (1, ctx_len + 1), generator=gen, device=dev)
         n_apps = cfg.n_layers // cfg.shared_block_every if hybrid else 0
@@ -1728,7 +1844,7 @@ def drive_recurrent_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontex
         # in bf16 the two differ by the model's own rounding noise, which
         # its random-weight layers amplify: printed beside it)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
-        params32 = _tree_map(lambda t: t.float(), params)
+        params32 = tree_map(lambda t: t.float(), params)
         with uncounted():
             _, c32 = lm.prefill(cfg32, params32, {"tokens": tokens[:, :ctx_len]}, pad_to=cap)
             step, stepped = lm.decode_step(cfg32, params32, tokens[:, ctx_len:], c32)
@@ -1857,7 +1973,7 @@ def drive_encdec_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext()
         gen.manual_seed(SEED + 14)
         params = model.init_params(gen, dev)
         laps.lap("init")
-        leaves = list(_leaves(params))
+        leaves = tree_leaves(params)
         print(f"encdec: {cfg.name} weights {sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB "
               f"resident ({cfg.dtype}), {sum(t.numel() for t in leaves) / 1e9:.3f} B parameters; "
               f"{batch} rows of {src_len} source frames, a {prompt}-token prompt")
@@ -1931,7 +2047,7 @@ def drive_encdec_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext()
                 logits_p, caches_p = model.prefill(params, inputs, pad_to=cap)
                 step_p, _ = model.decode_step(params, tok, caches_p.clone())
             cfg32 = dataclasses.replace(cfg, dtype="float32")
-            params32 = _tree_map(lambda t: t.float(), params)
+            params32 = tree_map(lambda t: t.float(), params)
             m32 = build(cfg32)
             mem32 = encdec.encode(cfg32, params32, src)
             logits32, caches32 = m32.prefill(params32, inputs, pad_to=cap + 1)
@@ -2047,16 +2163,410 @@ def drive_encdec_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext()
     return {"tokens": out, "counts": counts}
 
 
-def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+class TimedCheckpoints(CheckpointManager):
+    """Phase 14's checkpoint manager: records each save's and restore's wall
+    ms and keeps each saved state (the tree itself: the trainer's updates
+    are out of place, so it stays as it was saved)."""
+
+    def __init__(self, directory, keep):
+        super().__init__(directory, keep=keep)
+        self.save_ms, self.restore_ms, self.saved = [], [], {}
+
+    def save(self, step, tree):
+        t0 = time.perf_counter()
+        out = super().save(step, tree)
+        self.save_ms.append(round(1e3 * (time.perf_counter() - t0), 1))
+        self.saved[step] = tree
+        return out
+
+    def restore(self, step, target_like):
+        t0 = time.perf_counter()
+        out = super().restore(step, target_like)
+        if out.step.is_cuda:
+            torch.cuda.synchronize()
+        self.restore_ms.append(round(1e3 * (time.perf_counter() - t0), 1))
+        return out
 
 
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
+@contextlib.contextmanager
+def deterministic(refused):
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` for the
+    block: an op without a deterministic implementation warns; the
+    warnings' texts are appended to ``refused``."""
+    was, warn_was = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_was)
+    refused.extend(sorted({str(w.message).split("\n")[0] for w in caught if "determinis" in str(w.message)}))
+
+
+@contextlib.contextmanager
+def ranged_vjp(name="flash_attention_vjp"):
+    """Each backward of K4 under autograd (the plain version's VJP) inside a
+    profiler range ``name``, so a trace can attribute its device time."""
+    vjp = ops.flash_attention_vjp
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function(name):
+            return vjp(*args, **kw)
+
+    ops.flash_attention_vjp = ranged
+    try:
+        yield
+    finally:
+        ops.flash_attention_vjp = vjp
+
+
+def step_device_ms(fn, vjp_range="flash_attention_vjp"):
+    """One call of ``fn`` (a train step) under the profiler, after a warm-up:
+    (device ms by event, largest first; the device ms of the kernels
+    launched inside ``vjp_range``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with ranged_vjp(vjp_range), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.device_time_total and e.key != vjp_range:
+            events[e.key] = events.get(e.key, 0.0) + e.device_time_total / 1e3
+    vjp_ms = sum(e.device_time_total for e in prof.events()
+                 if e.name == vjp_range and e.device_type == DeviceType.CPU) / 1e3
+    return dict(sorted(events.items(), key=lambda kv: -kv[1])), vjp_ms
+
+
+def _bf16_steps(a, b):
+    """The largest distance of two bf16 tensors in representable steps."""
+    i, j = (t.contiguous().view(torch.int16).int() for t in (a, b))
+    i, j = (torch.where(x < 0, -(x & 0x7FFF), x) for x in (i, j))
+    return int((i - j).abs().max())
+
+
+def held_adamw(got, want):
+    """``apply_updates``' (params, state, metrics) on the card against the
+    CPU's on copies of the same inputs, under ``tests/test_torch_training.py``'s
+    rule for the reference: ``grad_norm``, ``lr`` and the f32 moments and
+    parameters within 1e-6 relative (of each leaf's largest |value|; the
+    global norm's sums run in another order), bf16 parameters within one
+    bf16 step (an f32 update one ulp apart rounds to either neighbour)."""
+    (p1, o1, m1), (p2, o2, m2) = got, want
+    rel = {k: abs(float(m1[k]) - float(m2[k])) / abs(float(m2[k])) for k in ("grad_norm", "lr")}
+    for name, a, b in (("mu", o1.mu, o2.mu), ("nu", o1.nu, o2.nu), ("params", p1, p2)):
+        for (path, x), y in zip(tree_flatten_with_path(a), tree_leaves(b)):
+            x = x.cpu()
+            if x.dtype == torch.bfloat16:
+                rel[f"{name} (bf16 steps)"] = max(rel.get(f"{name} (bf16 steps)", 0), _bf16_steps(x, y))
+            else:
+                r = ((x.float() - y.float()).abs().max() / y.float().abs().max().clamp_min(1e-30)).item()
+                rel[name] = max(rel.get(name, 0.0), r)
+    print(f"train AdamW step on the card against the CPU's on the same inputs: {rel}")
+    for k, v in rel.items():
+        require(v <= (1 if "steps" in k else 1e-6), f"train AdamW on the card: {k} off the CPU's by {v}")
+    require(int(o1.step) == int(o2.step), "train AdamW on the card: the step count")
+
+
+def _same_tree(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _train_batch(lm_data, step, batch, seq):
+    """The per-step seeded batch (``tests/test_system.py``'s seeding)."""
+    rng = np.random.default_rng(500 + step)
+    toks = np.stack([lm_data.sample(rng, seq + 1) for _ in range(batch)])
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def drive_train_path(cfg, dev, phase=lambda name: contextlib.nullcontext(), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, opt=TRAIN_OPT, card="cpu"):
+    """Phase 14 A: ``cfg`` (smollm-360m at full width on the card) trained
+    through ``repro_torch.training.Trainer`` as a user runs it.
+
+    ``Trainer.init_or_restore(SEED + 15)`` draws the weights; ``steps``
+    steps of ``batch`` x ``seq`` tokens (``MarkovLM(vocab, seed=2,
+    stickiness=0.6)``, seeded per step; AdamW with ``opt``) with checkpoints every
+    ``ckpt_every`` steps, under deterministic algorithms, counted: K4 must
+    launch ``n_layers`` times a step (twice that with remat: the forward
+    and its recompute) and nothing else, and the mean loss of the last 3
+    steps must lie below step 1's.  A new ``Trainer`` over a copy of the
+    first checkpoint resumes (the restored state must equal the saved one
+    bit for bit) and runs to ``steps``: its losses and final state must
+    equal the first run's bit for bit (if an op refuses deterministic mode
+    it is printed and the resumed losses are held within 1e-3 instead).
+    Then, uncounted: one step with every K4 call held to its plain version
+    (``held_calls``); the loss and gradients against the plain attention
+    and an f32 copy of the weights (``TRAIN_LOSS_TOL``,
+    ``TRAIN_YARDSTICK``); one ``apply_updates`` on the card against the
+    CPU's (``held_adamw``); a step's wall and device ms, tokens per wall
+    second, K4's and the plain VJP's device ms within the step, the peak
+    memory, and the checkpoints' save and restore ms, beside ``card``.  The
+    port's tests run it at ``.tiny()`` on the CPU.
+    """
+    on_card = dev.type == "cuda"
+    model = build(cfg)
+    opt_cfg = AdamWConfig(**opt)
+    lm_data = MarkovLM(vocab_size=cfg.vocab_size, seed=2, stickiness=0.6)
+    marks = []  # the launch counts at each step's start
+
+    def batch_fn(step):
+        marks.append(ops.launch_counts())
+        return _train_batch(lm_data, step, batch, seq)
+
+    def per_step(end):
+        ticks = marks + [end]
+        return [{k: b[k] - a[k] for k in a} for a, b in zip(ticks, ticks[1:])]
+
+    want_step = {k: (k4_calls_a_step(cfg) if k == "flash_attention" else 0) for k in ops.KERNELS}
+    log, refused = [], []
+    with phase("train"), tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        laps = Laps(dev)
+        ck = TimedCheckpoints(os.path.join(tmp, "run"), TRAIN_KEEP)
+        tr = Trainer(model=model, opt_cfg=opt_cfg, batch_fn=batch_fn, ckpt=ck, ckpt_every=ckpt_every, log_every=1,
+                     log_fn=log.append, device=dev)
+        with deterministic(refused):
+            state = tr.init_or_restore(SEED + 15)
+            laps.lap("init")
+            params = tree_leaves(state.params)
+            print(f"train: {cfg.name} (remat {cfg.remat_policy if cfg.remat else 'off'}), "
+                  f"{sum(t.numel() for t in params) / 1e6:.1f} M parameters, "
+                  f"{sum(t.numel() * t.element_size() for t in params) / 1e9:.2f} GB of {cfg.dtype} weights and "
+                  f"{sum(t.numel() * t.element_size() for t in tree_leaves(state.opt)) / 1e9:.2f} GB of f32 moments; "
+                  f"{steps} steps of {batch} x {seq} tokens, a checkpoint every {ckpt_every}")
+            del params
+            state, hist = tr.run(state, steps)
+            ticks = per_step(ops.launch_counts())
+            laps.lap(f"{steps} steps")
+        losses = hist["loss"]
+        require(hist["step"] == list(range(1, steps + 1)) and all(np.isfinite(losses)),
+                f"train: steps {hist['step']}, losses {losses}")
+        require(int(state.step) == steps and ck.all_steps() == list(range(steps, 0, -ckpt_every))[:TRAIN_KEEP][::-1],
+                f"train: step {int(state.step)}, checkpoints {ck.all_steps()}")
+        last3 = float(np.mean(losses[-3:]))
+        print(f"train losses: {[round(x, 4) for x in losses]}; the last 3 average {last3:.4f} against step 1's "
+              f"{losses[0]:.4f}; launches a step {[t['flash_attention'] for t in ticks]}")
+        require(last3 < losses[0], f"train: the loss did not fall: {losses}")
+        if on_card:
+            require(all(t == want_step for t in ticks), f"train: a step launched {ticks}, not {want_step} each")
+
+        # ---- resume from the first checkpoint in a directory of its own
+        first = f"step_{ckpt_every:010d}"
+        shutil.copytree(os.path.join(ck.dir, first), os.path.join(tmp, "resume", first), copy_function=os.link)
+        ck2 = TimedCheckpoints(os.path.join(tmp, "resume"), TRAIN_KEEP)
+        tr2 = Trainer(model=model, opt_cfg=opt_cfg, batch_fn=batch_fn, ckpt=ck2, ckpt_every=ckpt_every,
+                      log_every=1, log_fn=log.append, device=dev)
+        marks.clear()
+        log.clear()
+        with deterministic(refused):
+            restored = tr2.init_or_restore(SEED + 15)
+            require(log == [f"[trainer] resumed from step {ckpt_every}"], f"train resume: {log}")
+            require(_same_tree(restored, ck.saved[ckpt_every]),
+                    f"train resume: the state restored from step {ckpt_every} differs from the one saved")
+            resumed, hist2 = tr2.run(restored, steps)
+            ticks2 = per_step(ops.launch_counts())
+        del restored
+        laps.lap(f"resume at {ckpt_every}, {steps - ckpt_every} steps")
+        if on_card:
+            require(all(t == want_step for t in ticks2), f"train resume: a step launched {ticks2}")
+        if refused:
+            x = max(abs(a - b) / abs(b) for a, b in zip(hist2["loss"], losses[ckpt_every:]))
+            print(f"train resume: ops without a deterministic implementation: {refused}; the resumed losses within "
+                  f"{x:.3g} relative of the first run's (rule 1e-3)")
+            require(x <= 1e-3, f"train resume: losses {hist2['loss']} against {losses[ckpt_every:]}")
         else:
-            yield v
+            require(hist2["loss"] == losses[ckpt_every:] and _same_tree(resumed, state),
+                    f"train resume: losses {hist2['loss']} against {losses[ckpt_every:]}, or the final states differ")
+            print(f"train resume: the state restored from step {ckpt_every} equals the saved one bit for bit; steps "
+                  f"{ckpt_every + 1}-{steps} give the first run's losses and final state bit for bit (deterministic "
+                  f"algorithms, no op refused)")
+        del resumed
+
+        # ---- the kernel path against its plain versions, uncounted
+        step_fn = make_train_step(model, opt_cfg)
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in _train_batch(lm_data, steps, batch, seq).items()}
+        calls = []
+        with uncounted():
+            before = ops.launch_counts()
+            with held_calls(calls) if on_card else contextlib.nullcontext():
+                _, held_m = step_fn(state, tb)
+            held_n = ops.launch_counts()["flash_attention"] - before["flash_attention"]
+            worst = max((x for _, x in calls), default=0.0)
+            require(not calls or (len(calls) == want_step["flash_attention"] and worst <= 1),
+                    f"train: {len(calls)} held K4 calls, worst {worst:.3g} of the rule")
+            print(f"train held step: {len(calls)} K4 calls ({held_n} launches) held to the plain version, worst "
+                  f"{worst:.3g} of the rule; loss {float(held_m['loss']):.6g}")
+            laps.lap("held step")
+            loss_k, _, g_k = loss_and_grads(model, state.params, tb)
+            with plain_attention():
+                loss_p, _, g_p = loss_and_grads(model, state.params, tb)
+                params32 = tree_map(lambda t: t.float(), state.params)
+                loss_32, _, g_32 = loss_and_grads(build(dataclasses.replace(cfg, dtype="float32")), params32, tb)
+            del params32
+        xl = abs(loss_k.item() - loss_p.item()) / (TRAIN_LOSS_TOL * abs(loss_p.item()))
+        ratios = {}
+        for (path, gk), gp, g32 in zip(tree_flatten_with_path(g_k), tree_leaves(g_p), tree_leaves(g_32)):
+            scale = g32.abs().max()
+            dk, dp = ((gk.float() - g32).abs().max() / scale).item(), ((gp.float() - g32).abs().max() / scale).item()
+            ratios["/".join(path)] = dk / dp if dp else (0.0 if dk == 0 else float("inf"))
+        top = max(ratios, key=ratios.get)
+        print(f"train kernel path vs plain attention: loss {loss_k.item():.6g} against {loss_p.item():.6g} ({xl:.3g} "
+              f"of the {TRAIN_LOSS_TOL} rule; f32 {loss_32.item():.6g}); gradients off the f32 model's at most "
+              f"{ratios[top]:.3g}x the plain path's ({top}), median {float(np.median(list(ratios.values()))):.3g}x")
+        require(xl <= 1, f"train: the kernel path's loss is {xl:.3g} times {TRAIN_LOSS_TOL} off the plain path's")
+        require(ratios[top] <= TRAIN_YARDSTICK,
+                f"train: a gradient is farther from the f32 model than {TRAIN_YARDSTICK}x the plain path: {top} "
+                f"{ratios[top]:.3g}")
+        del g_p, g_32
+        laps.lap("plain and f32 checks")
+
+        # ---- one AdamW step on the card against the same step on the CPU
+        cpu = functools.partial(tree_map, lambda t: t.cpu())
+        got = apply_updates(state.params, g_k, state.opt, opt_cfg)
+        want = apply_updates(cpu(state.params), cpu(g_k), cpu(state.opt), opt_cfg)
+        del g_k
+        held_adamw(got, want)
+        del got, want
+        laps.lap("AdamW against the CPU")
+
+        # ---- times (uncounted): a step's wall and device ms, memory, checkpoints
+        with uncounted():
+            step_ms = []
+            for i in range(4):  # the first is a warm-up
+                if on_card:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                _, m = step_fn(state, tb)
+                float(m["loss"])
+                if on_card:
+                    torch.cuda.synchronize()
+                if i:
+                    step_ms.append(1e3 * (time.perf_counter() - t0))
+            peak = f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB" if on_card else "not measured"
+            events, vjp_ms = step_device_ms(lambda: step_fn(state, tb)) if on_card else ({}, None)
+        laps.lap("times")
+        wall = sum(step_ms) / len(step_ms)
+        if on_card:
+            k4 = sum(v for k, v in events.items() if timing.kernel_name(k) == "flash_tc_kernel")
+            require(k4 > 0 and vjp_ms > 0, f"train: the step's trace holds K4 {k4} ms, the plain VJP {vjp_ms} ms")
+            dev_ms = f"{sum(events.values()):.3f} ms of device (K4 forward {k4:.3f} ms in {want_step['flash_attention']} " \
+                     f"launches, the plain VJP backward {vjp_ms:.3f} ms)"
+        else:
+            dev_ms = "device time not measured"
+        print(f"train on {card}: a step {wall:.2f} ms of wall ({[round(x, 2) for x in step_ms]}), {dev_ms}; "
+              f"{batch * seq / (wall / 1e3):.0f} tokens per wall s; peak allocated {peak}; checkpoint save ms "
+              f"{ck.save_ms + ck2.save_ms}, restore ms {ck2.restore_ms}")
+        if on_card:
+            top6 = ", ".join(f"{timing.kernel_name(k)[:60]} {v:.3f}" for k, v in list(events.items())[:6])
+            print(f"train step's device ms by event on {card}, largest first: {top6}")
+        print(f"train steps ms on {card}:", laps.ms)
+        if on_card:
+            print(f"train steps' peak allocated GB on {card}:", laps.peak_gb)
+        del state, ck, ck2
+        if on_card:
+            torch.cuda.empty_cache()
+    return {"history": hist}
+
+
+def _tiny_train_batch(cfg, rng, batch=TRAIN_TINY_BATCH, seq=TRAIN_TINY_SEQ):
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)}
+    if cfg.family == "encdec":
+        out["src_embeds"] = rng.normal(size=(batch, seq, cfg.frontend_dim)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = rng.normal(size=(batch, cfg.n_prefix_tokens, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def k4_calls_a_step(cfg):
+    """K4 launches of one train step of ``cfg``: one an attention layer's
+    forward, twice that with remat (its recompute)."""
+    n = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.shared_block_every, 1),
+         "encdec": cfg.enc_layers + cfg.dec_layers}.get(cfg.family, cfg.n_layers)
+    return n * (2 if cfg.remat else 1)
+
+
+def drive_train_sweep(dev, phase=lambda name: contextlib.nullcontext(), archs=None):
+    """Phase 14 B: one ``make_train_step`` of every registry arch's
+    ``.tiny()`` in bf16 (remat off, as ``.tiny()`` sets it), counted, twice
+    from the same state: finite, a nonzero gradient norm, the same launches
+    both times (K4 once an attention layer, none for mamba2-370m), the loss
+    within ``TRAIN_TINY_LOSS_TOL`` of the plain attention's."""
+    on_card = dev.type == "cuda"
+    out = {}
+    with phase("train sweep"):
+        for arch in archs or registry.names():
+            cfg = registry.get(arch).tiny()
+            model = build(cfg)
+            state = init_train_state(model, torch.Generator(dev).manual_seed(SEED + 16), dev)
+            tb = {k: torch.as_tensor(v, device=dev)
+                  for k, v in _tiny_train_batch(cfg, np.random.default_rng(SEED + 16)).items()}
+            step_fn = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1))
+            runs = []
+            for _ in range(2):
+                before = ops.launch_counts()
+                new, m = step_fn(state, tb)
+                runs.append(({k: v - before[k] for k, v in ops.launch_counts().items()}, float(m["loss"]),
+                             float(m["grad_norm"])))
+            with uncounted(), plain_attention():
+                loss_p = float(step_fn(state, tb)[1]["loss"])
+            (n1, loss, gnorm), (n2, _, _) = runs
+            finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(new.params))
+            x = abs(loss - loss_p) / (TRAIN_TINY_LOSS_TOL * abs(loss_p))
+            print(f"train sweep {cfg.name}: loss {loss:.5g} (plain attention {loss_p:.5g}, {x:.3g} of the "
+                  f"{TRAIN_TINY_LOSS_TOL} rule), grad norm {gnorm:.4g}, K4 launches {n1['flash_attention']} and "
+                  f"{n2['flash_attention']}")
+            require(np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0 and finite,
+                    f"train sweep {arch}: loss {loss}, grad norm {gnorm}, finite weights {finite}")
+            require(x <= 1, f"train sweep {arch}: the loss is {x:.3g} times {TRAIN_TINY_LOSS_TOL} off the plain path's")
+            require(n1 == n2, f"train sweep {arch}: two runs launched {n1} and {n2}")
+            if on_card:
+                want = {k: (k4_calls_a_step(cfg) if k == "flash_attention" else 0) for k in ops.KERNELS}
+                require(n1 == want, f"train sweep {arch}: a step launched {n1}, not {want}")
+            out[arch] = runs[0]
+    return out
+
+
+def drive_train_launcher(dev, phase=lambda name: contextlib.nullcontext(), steps=TRAIN_LAUNCH_STEPS):
+    """Phase 14 C: ``python -m repro_torch.launch.train --arch smollm-360m
+    --steps <steps> --grad-compression --ckpt-dir <tmp>`` as a subprocess on
+    ``dev`` (``.tiny()``, as the launcher always trains), run through
+    ``runpy`` by ``TRAIN_LAUNCH_COUNTED`` so that the subprocess prints its
+    kernel launches at exit: exit 0 with its ``[launch.train]`` line's loss
+    falling; the same command again must resume from step ``steps`` and
+    exit 0.  Returns the two runs' output lines and their launches, summed
+    (on the card, K4 once an attention layer a step and nothing else)."""
+    cfg = registry.get(TRAIN_ARCH).tiny()
+    with phase("train launcher"), tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        cmd = [sys.executable, "-c", TRAIN_LAUNCH_COUNTED, "--arch", TRAIN_ARCH, "--steps", str(steps),
+               "--grad-compression", "--ckpt-dir", tmp] + ([] if dev.type == "cuda" else ["--device", str(dev)])
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT / "src"),
+                                                                         os.environ.get("PYTHONPATH")])))
+        outs, launches = [], dict.fromkeys(ops.KERNELS, 0)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+            lines = r.stdout.strip().splitlines()
+            print(f"train launcher ({1e3 * (time.perf_counter() - t0):.0f} ms, exit {r.returncode}): "
+                  + " | ".join(lines[-4:]))
+            require(r.returncode == 0, f"train launcher exited {r.returncode}: {r.stderr[-2000:]}")
+            counted = [json.loads(x[len("[launch counts] "):]) for x in lines if x.startswith("[launch counts] ")]
+            require(len(counted) == 1, f"train launcher: no launch counts in {lines[-4:]}")
+            launches = {k: launches[k] + counted[0][k] for k in launches}
+            outs.append([x for x in lines if not x.startswith("[launch counts] ")])
+        m = re.fullmatch(r"\[launch\.train\] \S+: loss (\S+) -> (\S+)", outs[0][-1])
+        require(m is not None and float(m.group(2)) < float(m.group(1)), f"train launcher: {outs[0][-1]!r}")
+        require(f"[trainer] resumed from step {steps}" in outs[1], f"train launcher, second run: {outs[1]}")
+        if dev.type == "cuda":
+            want = {k: (steps * k4_calls_a_step(cfg) if k == "flash_attention" else 0) for k in ops.KERNELS}
+            require(launches == want, f"train launcher: the two runs launched {launches}, not {want}")
+    return {"lines": outs, "launches": launches}
 
 
 def main() -> int:
@@ -2766,6 +3276,42 @@ def main() -> int:
         for name in ("flash_attention bidirectional", "decode_attention at MHA 16 x 64"):
             require(min(controls[name].values()) > 1, f"{name}: the rule misses a planted fault: {controls[name]}")
 
+        # K4 under autograd at phase 14's training shape (smollm-360m, 8 rows
+        # of 1,024 tokens, causal): the Function's forward (K4) and backward
+        # (the plain version's VJP, one query chunk here), SDPA's forward +
+        # backward on the same inputs with K/V expanded to the query heads
+        # (the yardstick of a later hand-written backward), and the
+        # Function's gradients against the f32 plain version's
+        tq, tk, tv = randn(TRAIN_BATCH, TRAIN_SEQ, Hq, D), randn(TRAIN_BATCH, TRAIN_SEQ, Hkv, D), \
+            randn(TRAIN_BATCH, TRAIN_SEQ, Hkv, D)
+        tdo = randn(TRAIN_BATCH, TRAIN_SEQ, Hq, D)
+        tgrads, tworst, terr = flash_grad_check(tq, tk, tv, tdo)
+        require(tworst <= TRAIN_YARDSTICK, f"K4 under autograd: gradients {tworst:.3g}x the plain bf16 path's "
+                f"distance from the f32 plain version's")
+        del tgrads
+        sq, sk, sv, sdo = (x.transpose(1, 2).contiguous() for x in
+                           (tq, tk.repeat_interleave(Hq // Hkv, dim=2), tv.repeat_interleave(Hq // Hkv, dim=2), tdo))
+        sleaves = [x.detach().requires_grad_() for x in (sq, sk, sv)]
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(*sleaves, is_causal=True), sleaves, sdo)
+
+        pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+        fwd_flops = TRAIN_BATCH * 4 * D * Hq * pairs
+        train_k4 = dict(
+            max_abs_err=terr, worst=tworst,
+            ms=time_ms(lambda: flash_attention_cuda(tq, tk, tv)),
+            device_ms=device_ms(lambda: flash_attention_cuda(tq, tk, tv), "flash_tc_kernel"),
+            bwd_ms=time_ms(lambda: flash_attention_vjp(tq, tk, tv, None, tdo), iters=5, warmup=1),
+            library_ms=time_ms(lambda: sdpa(sq, sk, sv, is_causal=True)),
+            library_fwd_bwd_ms=time_ms(sdpa_fwd_bwd),
+            # forward: each input read once, the output written once; backward:
+            # q, k, v, dO read, dq, dk, dv written, five products (S again, dP,
+            # dV, dQ, dK) to the forward's two
+            bound=bound((tq.numel() * 2 + tk.numel() + tv.numel()) * 2, fwd_flops),
+            bwd_bound=bound((tq.numel() * 4 + tk.numel() * 2 + tv.numel() * 2) * 2, fwd_flops * 5 // 2),
+        )
+        del tq, tk, tv, tdo, sq, sk, sv, sdo, sleaves
         require(t6["device_ms"] is not None, "the profiler holds no device time for K4 at the store shape")
         for name, r in report.items():
             require(r["device_ms"] is not None, f"the profiler holds no device time for {name}'s kernels")
@@ -2807,6 +3353,15 @@ def main() -> int:
                   f"{r['bound'][0] / r['device_ms']:.1%} of device time)")
         for name in ("flash_attention bidirectional", "decode_attention at MHA 16 x 64"):
             print(f"{name}: planted faults {controls[name]}")
+        r = train_k4
+        require(r["device_ms"] is not None, "the profiler holds no device time for K4 at the training shape")
+        print(f"flash_attention under autograd at {TRAIN_ARCH}'s training shape: q ({TRAIN_BATCH},{TRAIN_SEQ},{Hq},{D}) "
+              f"k/v ({TRAIN_BATCH},{TRAIN_SEQ},{Hkv},{D}) bf16 causal  forward (K4) {r['ms']:.4f} ms (device time "
+              f"{r['device_ms']} ms, bound {r['bound'][0]:.4f} ms, {r['bound'][1]})  backward (the plain VJP) "
+              f"{r['bwd_ms']:.4f} ms (bound {r['bwd_bound'][0]:.4f} ms)  SDPA forward {r['library_ms']:.4f} ms, "
+              f"forward + backward {r['library_fwd_bwd_ms']:.4f} ms (K/V expanded to {Hq} heads)  gradients "
+              f"max_abs_err {r['max_abs_err']:.3g} against the f32 plain version's, {r['worst']:.3g}x the plain "
+              f"bf16 path's distance (rule {TRAIN_YARDSTICK}x)")
         del kc, vc
 
     # --------------------------------------------------------- 4 serve, 5 text
@@ -2864,10 +3419,24 @@ def main() -> int:
     drive_encdec_path(registry.get(ENCDEC_ARCH), dev, gen, phase=lambda name: Phase(name, phase_ms), card=smi)
     paths["encdec"] = ops.launch_counts()
 
+    # --------------------------------------------------------------- 14 train
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    drive_train_path(registry.get(TRAIN_ARCH), dev, phase=lambda name: Phase(name, phase_ms), card=smi)
+    paths["train"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    drive_train_sweep(dev, phase=lambda name: Phase(name, phase_ms))
+    paths["train sweep"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    paths["train launcher"] = drive_train_launcher(dev, phase=lambda name: Phase(name, phase_ms))["launches"]
+    require(ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0), "the train launcher launched in this process")
+
     # --------------------------------------------------------------- summary
     runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
             "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "moe": MOE_KERNELS, "vlm": VLM_KERNELS,
-            "ssm": SSM_KERNELS, "hybrid": HYBRID_KERNELS, "encdec": ENCDEC_KERNELS}
+            "ssm": SSM_KERNELS, "hybrid": HYBRID_KERNELS, "encdec": ENCDEC_KERNELS, "train": TRAIN_KERNELS,
+            "train sweep": TRAIN_KERNELS, "train launcher": TRAIN_KERNELS}
     require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")
     require(not any(paths["ssm"].values()), f"the attention-free ssm path launched kernels: {paths['ssm']}")
     for path, counts in paths.items():

@@ -16,6 +16,9 @@ and counts its launches in ``.launches``; ``flash_attention_plain`` is the
 same function in PyTorch — the reference's q-chunked ``chunked_mha`` — the
 CPU path and the kernel's oracle.  ``flash_attention_magnitude`` is the
 scale of the rule the bf16 kernel is held to (``kernels.ops.BF16_TOL``).
+``flash_attention_vjp`` is the plain version's VJP, recomputed a query
+chunk at a time: the backward of K4 under autograd (``kernels.ops``), as
+the reference trains through autodiff of ``chunked_mha``.
 """
 from __future__ import annotations
 
@@ -26,10 +29,32 @@ import torch
 
 from repro_torch.kernels._build import HEAD_DIMS, aligned16, check, load_library
 
-__all__ = ["flash_attention_plain", "flash_attention_cuda", "flash_attention_magnitude"]
+__all__ = ["flash_attention_plain", "flash_attention_vjp", "flash_attention_cuda", "flash_attention_magnitude"]
 
 Q_CHUNK = 1024  # queries per step of the plain version: bounds its score matrix
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _plain_chunk(qc, k, v, prefix_len, c0: int, Tq: int, causal: bool, scale: float):
+    """The plain version's output for the queries ``qc`` = ``q[:, c0:c0+n]``
+    of a ``Tq``-query call, (B, n, Hq, D) in v's dtype."""
+    B, n, Hq, D = qc.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    qg = qc.reshape(B, n, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqkrd,btkd->bkrqt", qg, k).to(torch.float32) * scale
+    if causal:
+        k_pos = torch.arange(Tk, device=qc.device)
+        q_pos = c0 + torch.arange(n, device=qc.device) + (Tk - Tq)
+        mask = k_pos[None, :] <= q_pos[:, None]  # (n, Tk)
+        if prefix_len is not None:
+            bidir = k_pos[None, None, :] < prefix_len.to(qc.device)[:, None, None]
+            mask = (mask[None] | bidir)[:, None, None]  # (B,1,1,n,Tk)
+        else:
+            mask = mask[None, None, None]
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkrqt,btkd->bqkrd", w.to(v.dtype), v)
+    return o.reshape(B, n, Hq, D)
 
 
 def flash_attention_plain(
@@ -38,31 +63,39 @@ def flash_attention_plain(
     """Memory-bounded attention: full Tk per q-chunk, f32 softmax, weights
     cast to v's dtype for the value product (as ``chunked_mha`` does)."""
     B, Tq, Hq, D = q.shape
-    Tk, Hkv = k.shape[1], k.shape[2]
-    rep = Hq // Hkv
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    k_pos = torch.arange(Tk, device=q.device)
     out = torch.empty((B, Tq, Hq, D), dtype=v.dtype, device=q.device)
     chunk = min(Q_CHUNK, Tq)
     for c0 in range(0, Tq, chunk):
-        qc = q[:, c0:c0 + chunk]
-        n = qc.shape[1]
-        qg = qc.reshape(B, n, Hkv, rep, D)
-        s = torch.einsum("bqkrd,btkd->bkrqt", qg, k).to(torch.float32) * scale
-        if causal:
-            q_pos = c0 + torch.arange(n, device=q.device) + (Tk - Tq)
-            mask = k_pos[None, :] <= q_pos[:, None]  # (n, Tk)
-            if prefix_len is not None:
-                bidir = k_pos[None, None, :] < prefix_len.to(q.device)[:, None, None]
-                mask = (mask[None] | bidir)[:, None, None]  # (B,1,1,n,Tk)
-            else:
-                mask = mask[None, None, None]
-            s = torch.where(mask, s, torch.full_like(s, -1e30))
-        w = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkrqt,btkd->bqkrd", w.to(v.dtype), v)
-        out[:, c0:c0 + n] = o.reshape(B, n, Hq, D)
+        out[:, c0:c0 + chunk] = _plain_chunk(q[:, c0:c0 + chunk], k, v, prefix_len, c0, Tq, causal, scale)
     return out.to(q.dtype)
+
+
+def flash_attention_vjp(
+    q, k, v, prefix_len: Optional[torch.Tensor], do, *, causal: bool = True, scale=None,
+):
+    """The plain version's VJP: (dq, dk, dv) of ``flash_attention_plain`` at
+    (q, k, v) for the output cotangent ``do``, by autograd through the plain
+    version recomputed one query chunk (``Q_CHUNK``) at a time, in the
+    inputs' dtype: each chunk gives its rows of dq, and its dk and dv (each
+    summed over the GQA group by the grouped products) are added over the
+    chunks.  Its memory is bounded as the forward's is: one chunk's scores.
+    This is the backward of K4 under autograd (``kernels.ops``)."""
+    B, Tq, Hq, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    k, v = k.detach().requires_grad_(), v.detach().requires_grad_()
+    dq, dk, dv = torch.empty_like(q), None, None
+    chunk = min(Q_CHUNK, Tq)
+    with torch.enable_grad():
+        for c0 in range(0, Tq, chunk):
+            qc = q[:, c0:c0 + chunk].detach().requires_grad_()
+            o = _plain_chunk(qc, k, v, prefix_len, c0, Tq, causal, scale)
+            gq, gk, gv = torch.autograd.grad(o, (qc, k, v), do[:, c0:c0 + chunk].to(o.dtype))
+            dq[:, c0:c0 + chunk] = gq
+            dk, dv = (gk, gv) if dk is None else (dk + gk, dv + gv)
+    return dq, dk, dv
 
 
 def flash_attention_magnitude(

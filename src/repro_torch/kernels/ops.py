@@ -11,10 +11,18 @@ launch counters, so a run can show that its path went through them.
 bf16 output is held against its plain version (K2, K5 and K6 are held bit
 for bit).
 
-K3 and K4 have no backward: their kernels write into fresh buffers outside
-autograd, so on the card a call with grad enabled and an input that
-requires grad raises instead of returning a result whose gradient would
-silently be zero.  Their plain versions differentiate as any PyTorch code.
+Under autograd (grad enabled and an input that requires grad) K4 on the
+card goes through ``_FlashAttention``, a ``torch.autograd.Function``: its
+forward launches K4 and its backward is the plain version's VJP
+(``flash_attention_vjp``, a query chunk at a time).  That is the design,
+not a fallback: the reference has no backward kernel either (no
+``custom_vjp``), and trains through autodiff of its plain ``chunked_mha``;
+a hand-written Hopper backward would be a feature the reference lacks.
+Without grad the wrapper launches K4 alone.  K3 has no backward and no
+training path decodes, so on the card a K3 call with grad enabled and an
+input that requires grad raises instead of returning a result whose
+gradient would silently be zero.  On the CPU both plain versions
+differentiate as any PyTorch code.
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain, flash_attention_vjp
 from repro_torch.kernels.kvquant import (
     kv_dequant_cuda,
     kv_dequant_plain,
@@ -161,10 +169,28 @@ def decode_attention(q, k, v, kv_len, *, scale=None):
     return decode_attention_cuda(q, k, v, kv_len, scale=scale)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K4 under autograd: the forward launches K4, the backward computes the
+    plain version's VJP from the saved inputs (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, prefix_len, causal, scale):
+        ctx.save_for_backward(q, k, v, prefix_len)
+        ctx.causal, ctx.scale = causal, scale
+        return flash_attention_cuda(q, k, v, prefix_len, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, prefix_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_vjp(q, k, v, prefix_len, do, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, prefix_len: Optional[torch.Tensor] = None, *,
                     causal: bool = True, scale=None):
     """K4: q (B, Tq, Hq, D) vs k/v (B, Tk, Hkv, D); see ``kernels.flash_attention``."""
     if not _on_card(q):
         return flash_attention_plain(q, k, v, prefix_len, causal=causal, scale=scale)
-    _no_backward("flash_attention", q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, prefix_len, causal, scale)
     return flash_attention_cuda(q, k, v, prefix_len, causal=causal, scale=scale)

@@ -48,19 +48,24 @@ def device_ms(fn: Callable[[], object], *kernel_names: str, iters: int = 5) -> O
     """Device time per call of ``fn``, whose kernels named exactly
     ``kernel_names`` each launch once a call: the sum of their mean times
     per launch in the profiler's CUDA trace of ``iters`` calls (a mean per
-    recorded launch, so a trace that drops launches does not shrink it);
-    None where the trace holds none of them."""
+    recorded launch, so a trace that drops launches does not shrink it).
+    A trace that holds none of them is taken once more (CUPTI now and then
+    hands back a trace without a call's kernels); None if that one holds
+    none either."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total / e.count for e in prof.key_averages()
-             if kernel_name(e.key) in kernel_names and e.count)
-    return us / 1e3 if us else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total / e.count for e in prof.key_averages()
+                 if kernel_name(e.key) in kernel_names and e.count)
+        if us:
+            return us / 1e3
+    return None
 
 
 def bound_ms(nbytes: float, flops: float) -> Tuple[float, str]:

@@ -41,7 +41,7 @@ from repro_torch.models.common import (
     norm_plan,
     softmax_cross_entropy,
 )
-from repro_torch.models.lm import _layer, _stack_plan
+from repro_torch.models.lm import _remat, _stack_plan, _unstack
 
 __all__ = ["EncDecCaches", "param_plan", "init_params", "encode", "loss_fn", "prefill", "decode_step"]
 
@@ -115,11 +115,15 @@ def encode(cfg: ArchConfig, params, src_embeds) -> torch.Tensor:
     proj = params["frontend_proj"]
     x = (torch.as_tensor(src_embeds, device=proj.device).to(proj.dtype) @ proj).to(proj.dtype)
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    for l in range(cfg.enc_layers):
-        p = _layer(params, l, "enc_layers")
+
+    def body(x, p):
         attn_out, _ = attn_prefill(cfg, p["attn"], apply_norm(cfg.norm, p["ln1"], x), positions, causal=False)
         x = x + attn_out
-        x = x + mlp_apply(cfg.mlp, p["mlp"], apply_norm(cfg.norm, p["ln2"], x))
+        return x + mlp_apply(cfg.mlp, p["mlp"], apply_norm(cfg.norm, p["ln2"], x))
+
+    body = _remat(cfg, body)
+    for p in _unstack(params["enc_layers"], cfg.enc_layers):
+        x = body(x, p)
     return apply_norm(cfg.norm, params["enc_norm"], x)
 
 
@@ -131,13 +135,17 @@ def _decoder_prefill(cfg, params, memory, tokens, caches: Optional[EncDecCaches]
     x = params["embed"][tokens]
     B, T = tokens.shape
     positions = _positions(B, T, x.device)
-    for l in range(cfg.dec_layers):
-        p = _layer(params, l, "dec_layers")
+
+    def body(x, p):
         attn_out, (k, v) = attn_prefill(cfg, p["self_attn"], apply_norm(cfg.norm, p["ln1"], x), positions)
         x = x + attn_out
         mem_kv = memory_kv(cfg, p["cross_attn"], memory)
         x = x + cross_attn_prefill(cfg, p["cross_attn"], apply_norm(cfg.norm, p["ln_x"], x), mem_kv)
-        x = x + mlp_apply(cfg.mlp, p["mlp"], apply_norm(cfg.norm, p["ln2"], x))
+        return x + mlp_apply(cfg.mlp, p["mlp"], apply_norm(cfg.norm, p["ln2"], x)), k, v, mem_kv
+
+    body = _remat(cfg, body)
+    for l, p in enumerate(_unstack(params["dec_layers"], cfg.dec_layers)):
+        x, k, v, mem_kv = body(x, p)
         if caches is not None:
             caches.self_k[l, :, :T] = k
             caches.self_v[l, :, :T] = v
@@ -151,8 +159,9 @@ def _tokens(params, tokens) -> torch.Tensor:
 
 def loss_fn(cfg: ArchConfig, params, batch):
     """Mean next-token cross-entropy of ``batch["labels"]`` (B, T) over the
-    decoder's positions (masked by ``batch["mask"]`` if given), forward
-    only: returns (ce, {"ce": ce, "aux": 0})."""
+    decoder's positions (masked by ``batch["mask"]`` if given): returns (ce,
+    {"ce": ce, "aux": 0}).  Under autograd each encoder and decoder layer
+    body runs under ``cfg.remat`` (``lm._remat``), as in the reference."""
     memory = encode(cfg, params, batch["src_embeds"])
     x = _decoder_prefill(cfg, params, memory, _tokens(params, batch["tokens"]))
     logits = apply_norm(cfg.norm, params["final_norm"], x) @ params["head"]
@@ -193,8 +202,7 @@ def decode_step(cfg: ArchConfig, params, tokens, caches: EncDecCaches):
     x = params["embed"][torch.as_tensor(tokens, device=caches.length.device).to(torch.long)]
     B = x.shape[0]
     cache_len = caches.length
-    for l in range(cfg.dec_layers):
-        p = _layer(params, l, "dec_layers")
+    for l, p in enumerate(_unstack(params["dec_layers"], cfg.dec_layers)):
         x = x + attn_decode(cfg, p["self_attn"], apply_norm(cfg.norm, p["ln1"], x),
                             (caches.self_k[l], caches.self_v[l]), cache_len)
         cp = p["cross_attn"]

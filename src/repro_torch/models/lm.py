@@ -22,8 +22,10 @@ the remaining Mamba-2 layers.  Neither has a chunked prefill, as in the
 reference.  Entry points:
 
   * ``param_plan`` / ``init_params``
-  * ``loss_fn(cfg, params, batch)`` — the training loss, forward only (K4
-    on the card has no backward)
+  * ``loss_fn(cfg, params, batch)`` — the training loss; under autograd
+    each layer body runs under activation checkpointing when ``cfg.remat``
+    is set (``_remat``, the reference's ``jax.checkpoint``), and K4 on the
+    card differentiates through ``kernels.ops``' autograd Function
   * ``prefill(cfg, params, batch, pad_to=)``   — logits + caches (K4)
   * ``prefill_extend(cfg, params, tokens, caches[, widths])`` — TEXT-chunk
     recompute on top of loaded KV (plain attention, as in the reference),
@@ -37,11 +39,19 @@ on the old cache staying intact.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+import functools
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
+from repro_torch._tree import tree_leaves
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import _project_qkv, attn_decode, attn_plan, attn_prefill, write_at
 from repro_torch.models.common import (
@@ -160,14 +170,43 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> Dict[str
     return init_from_plan(param_plan(cfg), generator, device, DTYPES[cfg.dtype])
 
 
-def _layer(params, l: int, stack: str = "layers") -> Dict[str, Any]:
-    """Layer ``l``'s slice of the stacked per-layer weights ``params[stack]``
-    (views)."""
+def _unstack(node, n: int) -> List[Dict[str, Any]]:
+    """The ``n`` layers' stacked weights ``node`` as one dict of views a layer,
+    by ``torch.unbind``: under autograd the layers' gradients are stacked
+    once (``unbind``'s backward), where a per-layer ``select`` would add a
+    zero-padded full-size gradient per layer and leaf."""
+    flat = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v) for k, v in node.items()}
+    return [{k: v[l] for k, v in flat.items()} for l in range(n)]
 
-    def take(node):
-        return {k: take(v) if isinstance(v, dict) else v[l] for k, v in node.items()}
 
-    return take(params[stack])
+# remat_policy "dots" (``dots_with_no_batch_dims_saveable``): keep the
+# outputs of the 2-D weight products, recompute the rest (the attention's
+# batched products, the norms, the activations)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ArchConfig, fn):
+    """A layer body ``fn(x, p)`` (``p`` its weights) under activation
+    checkpointing (``torch.utils.checkpoint``, non-reentrant) when
+    ``cfg.remat`` is set and it runs under autograd (grad enabled, ``x`` or
+    a weight requiring grad), with ``cfg.remat_policy`` "full" (recompute
+    the whole body in the backward) or "dots": the reference's ``_remat``.
+    Without grad (every serving path) ``fn`` runs as it is."""
+    if not cfg.remat:
+        return fn
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+                  if cfg.remat_policy == "dots" else noop_context_fn)
+
+    def body(x, p):
+        if not (torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in tree_leaves(p)))):
+            return fn(x, p)
+        return checkpoint(fn, x, p, use_reentrant=False, context_fn=context_fn)
+
+    return body
 
 
 # ---------------------------------------------------------------------------
@@ -205,19 +244,16 @@ def _shared_block_decode(cfg, p, x, kc, vc, cache_len):
     return x + mlp_apply(cfg.mlp, p["mlp"], h2)
 
 
-def _mamba_layer_prefill(cfg, params, l, x, conv, ssm):
-    """Mamba-2 layer ``l`` over the whole context; its final state goes
-    into ``conv[l]``/``ssm[l]``."""
-    p = _layer(params, l)
+def _mamba_layer_prefill(cfg, x, p):
+    """A Mamba-2 layer (weights ``p``) over the whole context: returns (x,
+    its final conv state, its final SSM state)."""
     out, st = mamba2_prefill(cfg, p["mamba"], apply_norm(cfg.norm, p["ln1"], x))
-    conv[l] = st.conv
-    ssm[l] = st.ssm
-    return x + out
+    return x + out, st.conv, st.ssm
 
 
-def _mamba_layer_decode(cfg, params, l, x, caches: "Caches"):
-    """Mamba-2 layer ``l`` for one token, its state updated in place."""
-    p = _layer(params, l)
+def _mamba_layer_decode(cfg, p, l, x, caches: "Caches"):
+    """Mamba-2 layer ``l`` (weights ``p``) for one token, its state updated
+    in place."""
     state = Mamba2State(caches.mamba_conv[l], caches.mamba_ssm[l])
     out, st = mamba2_decode(cfg, p["mamba"], apply_norm(cfg.norm, p["ln1"], x), state)
     caches.mamba_conv[l] = st.conv
@@ -302,10 +338,11 @@ def prefill(cfg: ArchConfig, params, batch, *, pad_to: Optional[int] = None):
 
 def loss_fn(cfg: ArchConfig, params, batch):
     """Mean next-token cross-entropy of ``batch["labels"]`` (B, T) over the
-    text positions (masked by ``batch["mask"]`` if given), forward only:
-    returns (ce + 0.01 * aux, {"ce": ce, "aux": aux}), ``aux`` the MoE
-    layers' load-balancing losses summed (0 for the other families).  The
-    vlm family's image rows are dropped before the logits."""
+    text positions (masked by ``batch["mask"]`` if given): returns (ce +
+    0.01 * aux, {"ce": ce, "aux": aux}), ``aux`` the MoE layers'
+    load-balancing losses summed (0 for the other families).  The vlm
+    family's image rows are dropped before the logits.  Under autograd
+    the layer bodies run under ``cfg.remat`` (``_remat``)."""
     _check_family(cfg)
     x, prefix_len = _assemble_input(cfg, params, batch)
     x, _, aux = _run_layers_prefill(cfg, params, x, prefix_len)
@@ -333,14 +370,19 @@ def _run_layers_prefill(cfg, params, x, prefix_len, cap: Optional[int] = None):
         shape = (cfg.n_layers, B, cap, cfg.n_kv_heads, cfg.d_head)
         caches = Caches(kv_k=torch.zeros(shape, dtype=x.dtype, device=dev),
                         kv_v=torch.zeros(shape, dtype=x.dtype, device=dev), length=None)
-    for l in range(cfg.n_layers):
-        p = _layer(params, l)
+
+    def body(x, p):
         h = apply_norm(cfg.norm, p["ln1"], x)
         attn_out, (k, v) = attn_prefill(cfg, p["attn"], h, positions, prefix_len=prefix_len)
+        x, aux_l = _mlp_residual(cfg, p, x + attn_out, h)
+        return x, k, v, aux_l
+
+    body = _remat(cfg, body)
+    for l, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        x, k, v, aux_l = body(x, p)
         if caches is not None:
             caches.kv_k[l, :, :T] = k
             caches.kv_v[l, :, :T] = v
-        x, aux_l = _mlp_residual(cfg, p, x + attn_out, h)
         aux = aux + aux_l
     return x, caches, aux
 
@@ -359,10 +401,12 @@ def _prefill_recurrent(cfg, params, x, positions, cap):
         shape = (cfg.n_layers // cfg.shared_block_every, B, cap, cfg.n_kv_heads, cfg.d_head)
         shared_k = torch.zeros(shape, dtype=x.dtype, device=x.device)
         shared_v = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    body = _remat(cfg, functools.partial(_mamba_layer_prefill, cfg))
     for l0, l1, app in _segments(cfg):
         for l in range(l0, l1):
-            x = _mamba_layer_prefill(cfg, params, l, x, conv, ssm)
-        if app is not None:
+            x, conv[l], ssm[l] = body(x, layers[l])
+        if app is not None:  # the shared block stays outside remat, as in the reference
             x, (k, v) = _shared_block_prefill(cfg, params["shared_block"], x, positions)
             shared_k[app, :, :T] = k
             shared_v[app, :, :T] = v
@@ -454,8 +498,7 @@ def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches, widths=None)
         def write(cache, new):
             for b, (s, w) in enumerate(zip(starts, widths)):
                 masked_window_update(cache[b], new[b], s, w)
-    for l in range(cfg.n_layers):
-        p = _layer(params, l)
+    for l, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
         kc, vc = caches.kv_k[l], caches.kv_v[l]
         hn = apply_norm(cfg.norm, p["ln1"], x)
         q, k, v, k_pre = _project_qkv(cfg, p["attn"], hn, positions)
@@ -486,16 +529,16 @@ def decode_step(cfg: ArchConfig, params, tokens, caches: Caches):
     tokens = torch.as_tensor(tokens, device=caches.length.device).to(torch.long)
     x = _embed_tokens(cfg, params, tokens)
     cache_len = caches.length
+    layers = _unstack(params["layers"], cfg.n_layers)
     if cfg.family in ATTENTION_FAMILIES:
-        for l in range(cfg.n_layers):
-            p = _layer(params, l)
+        for l, p in enumerate(layers):
             h = apply_norm(cfg.norm, p["ln1"], x)
             attn_out = attn_decode(cfg, p["attn"], h, (caches.kv_k[l], caches.kv_v[l]), cache_len)
             x = _mlp_residual(cfg, p, x + attn_out, h)[0]
     else:
         for l0, l1, app in _segments(cfg):
             for l in range(l0, l1):
-                x = _mamba_layer_decode(cfg, params, l, x, caches)
+                x = _mamba_layer_decode(cfg, layers[l], l, x, caches)
             if app is not None:  # caches.shared_k[app] is a view: K3's write lands in the stack
                 x = _shared_block_decode(cfg, params["shared_block"], x, caches.shared_k[app],
                                          caches.shared_v[app], cache_len)

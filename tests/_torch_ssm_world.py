@@ -189,7 +189,7 @@ def check_layer_by_layer(world):
     apps = {l1 - 1: app for _, l1, app in lm._segments(cfg) if app is not None} if cfg.family == "hybrid" else {}
     for l in range(cfg.n_layers):
         jpl = jax.tree_util.tree_map(lambda a: a[l], jp["layers"])
-        tpl = lm._layer(p, l)
+        tpl = lm._unstack(p["layers"], cfg.n_layers)[l]
         xt = torch.tensor(np32(x)).to(world["dtype"])
         jout, jst = jm.mamba2_prefill(jcfg, jpl["mamba"], japply_norm(jcfg.norm, jpl["ln1"], x))
         out, st = mamba2.mamba2_prefill(cfg, tpl["mamba"], apply_norm(cfg.norm, tpl["ln1"], xt))

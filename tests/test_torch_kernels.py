@@ -26,10 +26,12 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_plain,
     split_size,
 )
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_magnitude,
     flash_attention_plain,
+    flash_attention_vjp,
 )
 from repro_torch.kernels.kvquant import (
     kv_dequant_cuda,
@@ -471,6 +473,68 @@ def test_attention_plain_paths_differentiate():
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
 
 
+# (B, Hq, Hkv, Tq, Tk, D, causal, prefix, Q_CHUNK)
+VJP_CASES = [
+    (2, 4, 2, 9, 9, 16, True, None, 4),  # three chunks, the last ragged
+    (2, 6, 2, 7, 11, 16, True, [0, 5], 3),  # prefix-LM, Tq < Tk, three chunks
+    (1, 4, 4, 10, 10, 8, False, None, 5),  # bidirectional, two chunks
+    (2, 6, 3, 12, 12, 16, True, None, 1024),  # one chunk
+]
+
+
+def _vjp_inputs(case, dtype=torch.float32):
+    B, Hq, Hkv, Tq, Tk, D, causal, prefix, _ = case
+    r = _rng(Tq * D)
+
+    def t(*shape):
+        return _t(r.normal(size=shape).astype(np.float32), dtype)
+
+    plen = None if prefix is None else torch.tensor(prefix, dtype=torch.int32)
+    return t(B, Tq, Hq, D), t(B, Tk, Hkv, D), t(B, Tk, Hkv, D), plen, t(B, Tq, Hq, D)
+
+
+def _plain_grads(q, k, v, plen, do, causal):
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = flash_attention_plain(q, k, v, plen, causal=causal)
+    return torch.autograd.grad(out, (q, k, v), do)
+
+
+@pytest.mark.parametrize("case", VJP_CASES)
+def test_flash_attention_vjp_equals_autograd_of_plain(case, monkeypatch):
+    """K4's backward under autograd is the plain version's VJP a query chunk
+    at a time: dq, dk and dv (summed over the GQA group and the chunks)
+    equal autograd through the whole plain version: bit for bit with at
+    most two chunks (their sums commute), within f32 rounding with more."""
+    monkeypatch.setattr(fa, "Q_CHUNK", case[-1])
+    q, k, v, plen, do = _vjp_inputs(case)
+    causal = case[6]
+    got = flash_attention_vjp(q, k, v, plen, do, causal=causal)
+    want = _plain_grads(q, k, v, plen, do, causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and not g.requires_grad
+        if -(-case[3] // case[-1]) <= 2:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+def test_flash_attention_function_backward_on_the_cpu(monkeypatch):
+    """The autograd Function the card runs K4 through, with the plain
+    version standing in for the kernel: the plain version's gradients, none
+    for ``prefix_len``, ``causal`` or ``scale``, and its grads reach the
+    inputs through a loss."""
+    case = VJP_CASES[1]
+    monkeypatch.setattr(fa, "Q_CHUNK", case[-1])
+    monkeypatch.setattr(ops, "flash_attention_cuda", flash_attention_plain)
+    q, k, v, plen, do = _vjp_inputs(case)
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    out = ops._FlashAttention.apply(qq, kk, vv, plen, True, None)
+    assert torch.equal(out, flash_attention_plain(q, k, v, plen))
+    got = torch.autograd.grad((out * do).sum(), (qq, kk, vv))
+    for g, w in zip(got, flash_attention_vjp(q, k, v, plen, do)):
+        assert torch.equal(g, w)
+
+
 def test_wrappers_count_only_kernel_launches():
     """On the CPU the plain versions run and no launch is counted."""
     ops.reset_launch_counts()
@@ -636,28 +700,83 @@ def test_cuda_decode_attention_geometries(cuda, Hq, Hkv, D, kv_dtype):
 
 @pytest.mark.gpu
 def test_cuda_attention_refuses_grad(cuda):
-    """K3 and K4 have no backward: with grad enabled and any input that
-    requires grad, the wrappers raise on the card; without grad they run."""
+    """K3 has no backward (no training path decodes): with grad enabled and
+    any input that requires grad, its wrapper raises on the card; without
+    grad it runs.  (K4 differentiates: ``test_cuda_flash_attention_grads``.)"""
     r = _rng(9)
 
     def t(*shape, grad=False):
         return _t(r.normal(size=shape).astype(np.float32)).to(cuda, torch.bfloat16).requires_grad_(grad)
 
-    q, k, v = t(1, 64, 4, 64), t(1, 64, 4, 64), t(1, 64, 4, 64)
     qd, kc, vc = t(1, 4, 64), t(1, 128, 4, 64), t(1, 128, 4, 64)
     lens = torch.tensor([100], dtype=torch.int32, device=cuda)
     for grad in ("q", "k", "v"):
-        args = [x.detach().requires_grad_(name == grad) for name, x in (("q", q), ("k", k), ("v", v))]
-        with pytest.raises(RuntimeError, match="no backward"):
-            ops.flash_attention(*args, causal=False)
         dargs = [x.detach().requires_grad_(name == grad) for name, x in (("q", qd), ("k", kc), ("v", vc))]
         with pytest.raises(RuntimeError, match="no backward"):
             ops.decode_attention(*dargs, lens)
-    q.requires_grad_(True)
     qd.requires_grad_(True)
     with torch.no_grad():
-        assert ops.flash_attention(q, k, v).shape == q.shape
         assert ops.decode_attention(qd, kc, vc, lens).shape == qd.shape
+    torch.cuda.synchronize()
+
+
+# (B, Hq, Hkv, T, D, causal, prefix): causal, prefix-LM, bidirectional,
+# ragged T, head dims 32 to 256, more than two query chunks, and smollm's
+# training shape
+CUDA_GRAD_CASES = [
+    (2, 4, 2, 200, 32, True, None),
+    (2, 6, 2, 77, 64, True, [0, 50]),
+    (1, 4, 4, 130, 64, False, None),
+    (2, 32, 32, 100, 80, True, None),
+    (1, 8, 2, 300, 128, True, None),
+    (1, 8, 1, 260, 256, True, [100]),
+    (1, 4, 2, 2100, 64, True, None),
+    (8, 15, 5, 1024, 64, True, None),
+]
+
+
+def flash_grad_excess(q, k, v, plen, do, causal):
+    """K4's Function against the plain version on the card: returns (its
+    gradients, the largest ratio over dq, dk and dv of its distance from the
+    f32 plain version's gradients to that of autograd through the plain
+    version on the same bf16 inputs, which it must equal where the query
+    chunks are at most two)."""
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    before = flash_attention_cuda.launches
+    out = ops.flash_attention(qq, kk, vv, plen, causal=causal)
+    assert flash_attention_cuda.launches == before + 1
+    got = torch.autograd.grad(out, (qq, kk, vv), do)
+    assert flash_attention_cuda.launches == before + 1  # the backward launches nothing
+    plain = _plain_grads(q, k, v, plen, do, causal)
+    f32 = _plain_grads(q.float(), k.float(), v.float(), plen, do.float(), causal)
+    worst = 0.0
+    for g, p, w in zip(got, plain, f32):
+        assert g.dtype == q.dtype and g.shape == p.shape and bool(torch.isfinite(g).all())
+        if -(-q.shape[1] // fa.Q_CHUNK) <= 2:
+            assert torch.equal(g, p)
+        scale = w.abs().max()
+        dg, dp = (g.float() - w).abs().max() / scale, (p.float() - w).abs().max() / scale
+        worst = max(worst, float(dg / dp) if dp else (0.0 if dg == 0 else float("inf")))
+    return got, worst
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CUDA_GRAD_CASES)
+def test_cuda_flash_attention_grads(cuda, case):
+    """With grad on, K4 runs its forward and the plain version's VJP its
+    backward: the gradients lie within twice the plain bf16 path's distance
+    from the f32 plain version's (and equal that path's where the query
+    chunks are at most two); none for ``prefix_len``."""
+    B, Hq, Hkv, T, D, causal, prefix = case
+    r = _rng(T + D)
+
+    def t(*shape):
+        return _t(r.normal(size=shape).astype(np.float32)).to(cuda, torch.bfloat16)
+
+    q, k, v, do = t(B, T, Hq, D), t(B, T, Hkv, D), t(B, T, Hkv, D), t(B, T, Hq, D)
+    plen = None if prefix is None else torch.tensor(prefix, dtype=torch.int32, device=cuda)
+    _, worst = flash_grad_excess(q, k, v, plen, do, causal)
+    assert worst <= 2.0, worst
     torch.cuda.synchronize()
 
 

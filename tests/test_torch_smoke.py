@@ -252,3 +252,48 @@ def test_chip_smoke_encdec_path_runs_on_cpu_at_tiny_size():
     assert got["tokens"].shape == (smoke.ENCDEC_BATCH, 8)
     assert set(got["counts"]) == {"prefill", "generate", "loss_fn"}
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_train_path_runs_on_cpu_at_tiny_size():
+    """Phase 14 A at ``.tiny()`` with remat "full" (bf16, 8 x 64 tokens, 6
+    steps checkpointed every 3, lr 3e-3 so that six steps learn): the loss falls, the trainer resumed from
+    step 3 gives the first run's losses and state bit for bit, the kernel
+    path against the plain attention and the f32 grads; the script fails
+    otherwise.  Nothing is counted off the card."""
+    import dataclasses
+
+    smoke = _load_smoke()
+    smoke.ops.reset_launch_counts()
+    cfg = dataclasses.replace(smoke.registry.get(smoke.TRAIN_ARCH).tiny(), remat=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = smoke.drive_train_path(cfg, torch.device("cpu"), batch=8, seq=64, steps=6, ckpt_every=3,
+                                     opt=dict(lr=3e-3, warmup_steps=2))
+    out = out.getvalue()
+    for line in ("train: smollm-360m-tiny (remat full)", "train losses:", "train resume: the state restored from "
+                 "step 3 equals the saved one bit for bit", "train held step:", "train kernel path vs plain attention",
+                 "train AdamW step on the card against the CPU's", "train on cpu:", "train steps ms"):
+        assert line in out, line
+    assert got["history"]["step"] == [1, 2, 3, 4, 5, 6]
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_train_sweep_and_launcher_run_on_cpu():
+    """Phase 14 B over every registry arch's ``.tiny()`` and C's launcher
+    (a subprocess, twice: trains, then resumes from step 20; it prints its
+    launches, none off the card)."""
+    smoke = _load_smoke()
+    smoke.ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        swept = smoke.drive_train_sweep(torch.device("cpu"))
+        launched = smoke.drive_train_launcher(torch.device("cpu"))
+    lines = launched["lines"]
+    assert launched["launches"] == {name: 0 for name in smoke.ops.KERNELS}
+    assert set(swept) == set(smoke.registry.names())
+    assert lines[0][-1].startswith("[launch.train] smollm-360m-tiny: loss ")
+    assert lines[1][0] == "[trainer] resumed from step 20"
+    assert smoke.k4_calls_a_step(smoke.registry.get("zamba2-2.7b").tiny()) == 2
+    assert smoke.k4_calls_a_step(smoke.registry.get("smollm-360m")) == 64
+    assert smoke.k4_calls_a_step(smoke.registry.get("mamba2-370m").tiny()) == 0
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
