@@ -246,13 +246,41 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            The kernels phase also times K4 under autograd at A's shape: its
            forward, the plain VJP and SDPA's forward + backward, and holds
            the Function's gradients to the f32 plain version's.
+15. mesh   row-sharded serving (``serving.mesh_engine.ShardedEngine``) on
+           phase 6's weights, store and context; it runs right after phase
+           9, while phases 6-8's state is alive:
+           A. one shard (``make_serving_mesh(1)``): phase 8's wave of four
+              and its open loop on two rows, every request's decisions,
+              virtual TTFT, cache, timeline and greedy tokens bit-equal to
+              phase 8's;
+           B. two shards on the one card (``Mesh([dev, dev], ("data",))``):
+              the same runs make A's decisions and TTFTs, level-0 and lossy
+              chunks bit-equal, TEXT chunks within ``TEXT_BATCH_REL`` and
+              every token within ``GEN_BATCH_REL`` of the batch-1 oracle's
+              best (a shard's batch is 2 rows); K3 launched once a layer a
+              shard in every stacked step (counted per shard); on copies of
+              the wave's pool, ``insert_runs``, ``prefill_extend_rows``,
+              ``decode_step_rows`` and save -> reset -> restore across the
+              shards bit-equal to the plain Engine's same call on each
+              shard's two rows, ``prefill_extend_gather`` to the plain
+              Engine's on the same rows, and within the drift rules of the
+              4-row calls; K3 held to its plain version at a shard's rows
+              (uncounted); the wall ms of a stacked step of four rows at 1
+              and 2 shards (one card: no scaling claimed);
+           C. the baselines on the card: ``uniform_quantize_kv`` at 8 and 4
+              bits on phase 6's context KV bit-equal to the CPU's, its wire
+              bytes beside CacheGen's bytes per level, ``kv_nbytes_fp16``
+              and ``kv_nbytes_int8`` (sizes only: random weights);
+              ``attention_scores_for_h2o`` with keys as queries over one
+              1,536-token chunk within 1e-9 relative of the CPU's f64, and
+              ``h2o_select(0.5)`` equal or apart only at the cut.
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5, then zeroed before each of phases 6, 7, 8, 9, 10, 11, 12 A, 12 B, 13,
+5, then zeroed before each of phases 6, 7, 8, 9, 15, 10, 11, 12 A, 12 B, 13,
 14 A and 14 B and read after it (14 C's subprocesses count their own); the
 run fails if a kernel that a path runs was not launched in it (all six on
-the serve + text and store paths; K1, K2 and K3 on the session and serving
-paths; K1-K5 on the launcher, moe and vlm paths; K3 and K4 on the hybrid
+the serve + text and store paths; K1, K2 and K3 on the session, serving and
+mesh paths; K1-K5 on the launcher, moe and vlm paths; K3 and K4 on the hybrid
 and encdec paths; K4 on the train, train sweep and train launcher paths),
 or if the ssm path launched any.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
@@ -322,7 +350,12 @@ from repro_torch.models.common import apply_norm  # noqa: E402
 from repro_torch.models.lm import Caches  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.generation import GenerationSpec  # noqa: E402
-from repro_torch.serving.kv_layout import caches_to_codec_kv  # noqa: E402
+from repro_torch import baselines  # noqa: E402
+from repro_torch.baselines.context_compression import attention_scores_for_h2o  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_serving_mesh  # noqa: E402
+from repro_torch.serving import kv_layout  # noqa: E402
+from repro_torch.serving.kv_layout import ShardedCaches, caches_to_codec_kv, extract_row  # noqa: E402
+from repro_torch.serving.mesh_engine import ShardedEngine  # noqa: E402
 from repro_torch.serving.scheduler import ConcurrentScheduler, ContinuousScheduler, SessionRequest  # noqa: E402
 from repro_torch.serving.session import ServeSession  # noqa: E402
 from repro_torch.training import AdamWConfig, Trainer, apply_updates, make_train_step  # noqa: E402
@@ -391,6 +424,8 @@ SESSION_KERNELS = ("kv_dequant_tokens", "kv_lossless_tokens", "decode_attention"
 SERVING_KERNELS = SESSION_KERNELS
 LAUNCHER_KERNELS = SESSION_KERNELS + ("flash_attention", "kv_quant")
 MOE_KERNELS = LAUNCHER_KERNELS  # the unfused K6 runs only in its checks
+# phase 15: row-sharded serving runs the serving path's kernels on every shard
+MESH_KERNELS = SERVING_KERNELS
 # phase 9: the launcher's context, B's fault rate and attempts, C's arrivals
 LAUNCH_CTX = 3072
 LAUNCH_REQUESTS = 4
@@ -768,7 +803,7 @@ def drive_store_path(cfg, dev, gen, served, phase=lambda name: contextlib.nullco
         print(f"token agreement fused vs fused=False {agree.mean():.2%} (informational{note})")
         print("store steps ms:", laps.ms)
     return {"engine": engine, "streamer": streamer, "tokens": tokens, "plan": plan, "fused": fused,
-            "first": first, "fused_tokens": outs[0], "chunk": chunk}
+            "first": first, "fused_tokens": outs[0], "chunk": chunk, "exact": exact}
 
 
 def drive_session_path(cfg, stored, phase=lambda name: contextlib.nullcontext(), gen_tokens=GEN_TOKENS):
@@ -871,6 +906,16 @@ def drive_session_path(cfg, stored, phase=lambda name: contextlib.nullcontext(),
     return {"clean": clean, "faulted": faulted, "tokens": out}
 
 
+def scheduled_request(stored, engine, start_t=0.0, generation=None):
+    """A request for phase 6's context on ``engine`` under phase 6's stated
+    dip and rates (phases 8 and 15)."""
+    session = ServeSession(stored["streamer"], engine, slo_s=SLO_S, decode_bytes_per_s=DECODE_BYTES_PER_S,
+                           recompute_s=lambda n, p: RECOMPUTE_S_PER_CHUNK * n / stored["chunk"])
+    return SessionRequest(session, "ctx", stored["tokens"],
+                          NetworkModel(BandwidthTrace.steps(DIP_S, [DIP_GBPS, LINK_GBPS])),
+                          prior_throughput_gbps=LINK_GBPS, start_t=start_t, generation=generation)
+
+
 def drive_serving_path(cfg, stored, sessioned, phase=lambda name: contextlib.nullcontext(), n_requests=4, rows=2,
                        gen_tokens=GEN_TOKENS):
     """Phase 8: multi-request serving on phase 6's engine, store and context.
@@ -886,8 +931,7 @@ def drive_serving_path(cfg, stored, sessioned, phase=lambda name: contextlib.nul
     schedulers made them.  The port's tests run it at a tiny size on the
     CPU.
     """
-    engine, streamer, tokens = stored["engine"], stored["streamer"], stored["tokens"]
-    plan, chunk = stored["plan"], stored["chunk"]
+    engine, plan = stored["engine"], stored["plan"]
     metas, n_ctx, cap = plan.metas, plan.metas[-1].end, engine.capacity
     clean = sessioned["clean"]
     first = int(stored["first"][0])
@@ -895,10 +939,7 @@ def drive_serving_path(cfg, stored, sessioned, phase=lambda name: contextlib.nul
     dev = engine.device
 
     def request(start_t=0.0, generation=None):
-        session = ServeSession(streamer, engine, slo_s=SLO_S, decode_bytes_per_s=DECODE_BYTES_PER_S,
-                               recompute_s=lambda n, p: RECOMPUTE_S_PER_CHUNK * n / chunk)
-        return SessionRequest(session, "ctx", tokens, NetworkModel(BandwidthTrace.steps(DIP_S, [DIP_GBPS, LINK_GBPS])),
-                              prior_throughput_gbps=LINK_GBPS, start_t=start_t, generation=generation)
+        return scheduled_request(stored, engine, start_t=start_t, generation=generation)
 
     def chunk_kv(caches, m):
         sl = slice(m.start, m.end)
@@ -1088,6 +1129,290 @@ def drive_serving_path(cfg, stored, sessioned, phase=lambda name: contextlib.nul
               f"untouched by decode_step_rows, N = 1 generation equals generate_with_kv's {gen_tokens} tokens")
         print("serving steps ms:", laps.ms)
     return {"wave": wave, "continuous": cont, "open_loop": loop, "step_ms": per_width}
+
+
+def same_timeline(a, b):
+    """Every field of two ``RequestTimeline``s equal (an unset instant is NaN
+    in both)."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if not (x == y or (isinstance(x, float) and isinstance(y, float) and x != x and y != y)):
+            return False
+    return True
+
+
+def drive_mesh_path(cfg, stored, served_rows, phase=lambda name: contextlib.nullcontext(), n_requests=4, rows=2,
+                    gen_tokens=GEN_TOKENS, card=None):
+    """Phase 15: row-sharded serving (``ShardedEngine``) on phase 6's
+    weights, store and context, against phase 8's runs (``served_rows``,
+    what :func:`drive_serving_path` returns).
+
+    A. ``ShardedEngine`` over ``make_serving_mesh(1)``: phase 8's wave of
+    ``n_requests`` and its open loop on ``rows`` rows, each request's
+    decisions, virtual TTFT, cache and greedy tokens bit-equal to phase
+    8's.  B. Two shards on one card (``Mesh([dev, dev])``): the same runs
+    make A's decisions and TTFT; level-0 and lossy chunks equal A's, TEXT
+    chunks and tokens within phase 8's drift rules (each shard's batch is
+    2 rows, A's 4); K3 launches once a layer a shard in every stacked step;
+    each row primitive on a shard is bit-equal to the plain Engine's same
+    call on a cache of that shard's rows and within the drift rules of the
+    4-row call; K3 holds to its plain version at a shard's rows.  C. The
+    baselines on the card: ``uniform_quantize_kv`` at 8 and 4 bits on the
+    context's KV bit-equal to the CPU's, its wire bytes beside CacheGen's
+    levels, and ``attention_scores_for_h2o`` over one chunk within 1e-9 of
+    the CPU's f64 with the same ``h2o_select``.  Prints the wall ms of a
+    stacked step at 1 and 2 shards.  The port's tests run it at a tiny size
+    on the CPU.
+    """
+    engine, streamer, plan, chunk = stored["engine"], stored["streamer"], stored["plan"], stored["chunk"]
+    metas, n_ctx, cap = plan.metas, plan.metas[-1].end, engine.capacity
+    first = int(stored["first"][0])
+    dev = engine.device
+    L = cfg.n_layers
+    k3 = ops.KERNELS["decode_attention"]
+    spec = GenerationSpec(n_tokens=gen_tokens, first_token=first)
+    arrivals = [ARRIVALS[i % len(ARRIVALS)] + 0.5 * (i // len(ARRIVALS)) for i in range(n_requests)]
+
+    def run(eng):
+        wave = ConcurrentScheduler(eng, contention=ContentionModel(IDEAL_CONTENTION)).run(
+            [scheduled_request(stored, eng) for _ in range(n_requests)])
+        before = k3.launches
+        loop = ContinuousScheduler(eng, rows=rows, contention=ContentionModel(IDEAL_CONTENTION)).run(
+            [scheduled_request(stored, eng, start_t=a, generation=spec) for a in arrivals])
+        # the loads launch no K3: every launch of the loop is a stacked step's
+        return wave, loop, k3.launches - before
+
+    def chunk_kv(caches, m):
+        sl = slice(m.start, m.end)
+        return torch.stack([caches.kv_k[:, 0, sl], caches.kv_v[:, 0, sl]])
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def near_tie(z, picked):
+        # how far below the best logit the picked token lies, per row, as a
+        # share of the largest |logit| (phase 8's rule for batch drift)
+        z = z.float()
+        best = z.max(-1).values
+        return ((best - z.gather(-1, picked[:, None])[:, 0]) / z.abs().max(-1).values).max().item()
+
+    mesh_device = None if dev.type == "cuda" else "cpu"
+    wave8, loop8 = served_rows["wave"], served_rows["open_loop"]
+    with phase("mesh"):
+        laps = Laps(dev)
+        # ---- A. one shard: phase 8 bit for bit
+        one = ShardedEngine(cfg, engine.params, cache_capacity=cap, mesh=make_serving_mesh(1, device=mesh_device))
+        wave1, loop1, k3_1 = run(one)
+        laps.lap("A: wave and open loop, 1 shard")
+        for what, got, want in (("wave", wave1, wave8), ("open loop", loop1, loop8)):
+            for i, (a, b) in enumerate(zip(got.sessions, want.sessions)):
+                require(a.configs == b.configs and a.ttft_s == b.ttft_s,
+                        f"1-shard {what} request {i}: configs {a.configs}, TTFT {a.ttft_s}; phase 8's {b.configs}, "
+                        f"{b.ttft_s}")
+                require(all(torch.equal(x, y) for x, y in zip(a.caches[:3], b.caches[:3])),
+                        f"1-shard {what} request {i}: the cache differs from phase 8's")
+        for i, (a, b) in enumerate(zip(loop1.timeline, loop8.timeline)):
+            require(same_timeline(a, b), f"1-shard open-loop request {i}: timeline {a} != phase 8's {b}")
+        require(loop1.n_gen_steps == loop8.n_gen_steps, f"{loop1.n_gen_steps} steps, phase 8 {loop8.n_gen_steps}")
+        require(dev.type != "cuda" or k3_1 == loop1.n_gen_steps * L,
+                f"1 shard: {k3_1} K3 launches in {loop1.n_gen_steps} stacked steps of {L} layers")
+        print(f"mesh A (1 shard): the wave's and the open loop's decisions, TTFTs, caches, timelines and "
+              f"{loop1.n_gen_tokens} tokens equal phase 8's bit for bit; K3 {k3_1} launches in "
+              f"{loop1.n_gen_steps} steps")
+
+        # ---- B. two shards on the one card
+        two = ShardedEngine(cfg, engine.params, cache_capacity=cap, mesh=Mesh([dev, dev], ("data",)))
+        require(two.n_shards == 2 and two.cache_rows(3) == 4, f"{two.n_shards} shards")
+        wave2, loop2, k3_2 = run(two)
+        laps.lap("B: wave and open loop, 2 shards")
+        require(isinstance(wave2.caches, ShardedCaches) and len(wave2.caches.shards) == 2, "the wave's pool")
+        worst_text = 0.0
+        for what, got, want in (("wave", wave2, wave1), ("open loop", loop2, loop1)):
+            for i, (a, b) in enumerate(zip(got.sessions, want.sessions)):
+                require(a.status == "ok" and a.configs == b.configs and a.ttft_s == b.ttft_s,
+                        f"2-shard {what} request {i}: configs {a.configs}, TTFT {a.ttft_s}; 1 shard's {b.configs}, "
+                        f"{b.ttft_s}")
+                for m, c in zip(metas, a.configs):
+                    x, y = chunk_kv(a.caches, m), chunk_kv(b.caches, m)
+                    if c == TEXT:
+                        r = rel(x, y)
+                        require(r <= TEXT_BATCH_REL, f"2-shard {what} request {i} chunk {m.chunk_idx}: TEXT "
+                                f"{r:.3g} off the 4-row call's (relative), over {TEXT_BATCH_REL:.3g}")
+                        worst_text = max(worst_text, r)
+                    else:
+                        require(torch.equal(x, y), f"2-shard {what} request {i} chunk {m.chunk_idx} (level {c}) "
+                                f"differs from the 1-shard run's")
+        for i, (a, b) in enumerate(zip(loop2.timeline, loop1.timeline)):
+            require(a.admit_t == b.admit_t and a.finish_t == b.finish_t and len(a.tokens_out) == gen_tokens,
+                    f"2-shard open-loop request {i}: admitted {a.admit_t}, finished {a.finish_t}")
+        require(dev.type != "cuda" or k3_2 == loop2.n_gen_steps * L * 2,
+                f"2 shards: {k3_2} K3 launches in {loop2.n_gen_steps} stacked steps of {L} layers")
+        worst_gen = 0.0
+        with uncounted():
+            for i, (s, tl) in enumerate(zip(loop2.sessions, loop2.timeline)):
+                z, _ = engine.logits_with_kv(s.caches, np.array([[first] + tl.tokens_out[:-1]]))
+                gap = near_tie(torch.as_tensor(z[0]), torch.as_tensor(tl.tokens_out))
+                worst_gen = max(worst_gen, gap)
+                require(gap <= GEN_BATCH_REL, f"2-shard open-loop request {i}: a token lies {gap:.3g} below the "
+                        f"batch-1 oracle's best, over {GEN_BATCH_REL:.3g}")
+        same_tokens = sum(a.tokens_out == b.tokens_out for a, b in zip(loop2.timeline, loop1.timeline))
+        laps.lap("B: checks and the batch-1 oracle")
+        print(f"mesh B (2 shards on one card): decisions and TTFTs equal A's; level-0 and lossy chunks bit-equal, "
+              f"TEXT within {worst_text:.3g} relative; {same_tokens} of {n_requests} token streams equal A's, every "
+              f"token within {worst_gen:.3g} of the batch-1 oracle's best; K3 {k3_2} launches in "
+              f"{loop2.n_gen_steps} steps ({k3_2 // 2} a shard)")
+
+        # ---- B. the row primitives on a shard vs the plain Engine on its rows
+        with uncounted():
+            pool = wave2.caches.clone()
+            halves = [c.clone() for c in pool.shards]
+            full = pool.gather()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED + 15)
+            kv = caches_to_codec_kv(extract_row(pool, 0), 0, n_ctx)
+            t_run = min(48, n_ctx // 4)
+
+            def check(what, sharded, plain_halves, plain_full=None, logits=None):
+                for s, (part, half) in enumerate(zip(sharded.shards, plain_halves)):
+                    require(all(torch.equal(x, y) for x, y in zip(part[:3], half[:3])),
+                            f"{what}: shard {s} differs from the plain Engine's call on its rows")
+                if logits is not None:
+                    got, per_half = logits
+                    require(torch.equal(got, torch.cat(per_half)), f"{what}: logits differ from the shards' plain calls")
+
+            # insert_runs: one run a shard, rows 1 and 2
+            runs, starts = (t_run, t_run // 2), (chunk // 2, 3)
+            kv_new = torch.cat([kv[:, :, :runs[0]], kv[:, :, -runs[1]:]], dim=2)
+            pool = two.insert_runs(pool, kv_new, [1, 2], starts, runs)
+            halves[0] = engine.insert_runs(halves[0], kv_new[:, :, :runs[0]], [1], starts[:1], runs[:1])
+            halves[1] = engine.insert_runs(halves[1], kv_new[:, :, runs[0]:], [0], starts[1:], runs[1:])
+            full = engine.insert_runs(full, kv_new, [1, 2], starts, runs)
+            check("insert_runs", pool, halves)
+            require(all(torch.equal(x, y) for x, y in zip(pool.gather()[:3], full[:3])),
+                    "insert_runs differs from the 4-row call")
+            # prefill_extend_rows: rows 0, 2 and 3 recompute a TEXT chunk
+            text = torch.randint(0, cfg.vocab_size, (4, TEXT_TOKENS), generator=gen, device=dev)
+            widths = np.array([TEXT_TOKENS, 0, TEXT_TOKENS, TEXT_TOKENS])
+            lx, pool = two.prefill_extend_rows(text, pool, widths)
+            per_half = []
+            for s in range(2):
+                lg, halves[s] = engine.prefill_extend_rows(text[2 * s:2 * s + 2], halves[s], widths[2 * s:2 * s + 2])
+                per_half.append(lg)
+            lf, full = engine.prefill_extend_rows(text, full, widths)
+            check("prefill_extend_rows", pool, halves, logits=(lx, per_half))
+            gathered = pool.gather()
+            text_rel = max(rel(gathered.kv_k[:, r], full.kv_k[:, r]) for r in (0, 2, 3))
+            require(text_rel <= TEXT_BATCH_REL, f"prefill_extend_rows {text_rel:.3g} off the 4-row call (relative)")
+            # prefill_extend_gather across the shards: rows 3 and 0
+            text2 = text[[3, 0]]
+            _, pool = two.prefill_extend_gather(text2, pool, [3, 0])
+            glued = pool.gather()
+            _, ref_gather = engine.prefill_extend_gather(text2, gathered, [3, 0])
+            require(all(torch.equal(x, y) for x, y in zip(glued[:3], ref_gather[:3])),
+                    "prefill_extend_gather differs from the plain Engine's on the same rows")
+            _, full = engine.prefill_extend_gather(text2, full, [3, 0])
+            halves = [c.clone() for c in pool.shards]
+            # decode_step_rows: rows 0, 2 and 3 step; row 1 inactive
+            tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen, device=dev)
+            active = np.array([True, False, True, True])
+            ld, pool = two.decode_step_rows(tok, pool, active)
+            per_half = []
+            for s in range(2):
+                lg, halves[s] = engine.decode_step_rows(tok[2 * s:2 * s + 2], halves[s], active[2 * s:2 * s + 2])
+                per_half.append(lg)
+            lf, full = engine.decode_step_rows(tok, full, active)
+            check("decode_step_rows", pool, halves, logits=(ld, per_half))
+            on = torch.as_tensor(active, device=dev)
+            step_gap = near_tie(lf[on, -1], ld[on, -1].float().argmax(-1))
+            require(step_gap <= GEN_BATCH_REL, f"decode_step_rows: a 2-row shard's pick lies {step_gap:.3g} below the "
+                    f"4-row call's best")
+            # save -> reset -> restore across the shards: row 1 into row 2
+            n1 = int(extract_row(pool, 1).length[0])
+            snap = two.save_row(pool, 1, n1)
+            pool = two.reset_rows(pool, [1, 2])
+            pool = two.restore_row(pool, snap, 2)
+            snap_h = engine.save_row(halves[0], 1, n1)
+            halves[0] = engine.reset_rows(halves[0], [1])
+            halves[1] = engine.reset_rows(halves[1], [0])
+            halves[1] = engine.restore_row(halves[1], snap_h, 0)
+            check("save_row -> reset_rows -> restore_row", pool, halves)
+            require(int(extract_row(pool, 2).length[0]) == n1 and int(extract_row(pool, 1).length[0]) == 0,
+                    "the row did not move to the other shard")
+            # K3 at one shard's rows, one layer, a full row's kv_len past the capacity
+            part = pool.shards[1]
+            part.length[1] = cap
+            k, v = part.kv_k[L // 2], part.kv_v[L // 2]
+            q = torch.randn((k.shape[0], cfg.n_heads, cfg.d_head), generator=gen, device=dev).to(k.dtype)
+            kv_len = (part.length + 1).to(torch.int32)
+            exact = (q.float(), k.float(), v.float())
+            got = ops.decode_attention(*((q, k, v) if dev.type == "cuda" else exact), kv_len)
+            x = ops.bf16_ulp_excess(got, decode_attention_plain(*exact, kv_len), **ops.BF16_TOL["decode_attention"])
+            require(x <= 1, f"K3 at a shard's rows is {x:.3g} times its tolerance off its plain version")
+            del pool, halves, full, gathered, glued, ref_gather, part, k, v, kv
+        laps.lap("B: row primitives per shard")
+        print(f"mesh B row primitives: insert_runs, prefill_extend_rows, prefill_extend_gather, decode_step_rows, "
+              f"save -> reset -> restore across shards bit-equal to the plain Engine on each shard's rows; against "
+              f"the 4-row calls TEXT {text_rel:.3g} relative, the step's picks within {step_gap:.3g}; K3 at q "
+              f"{tuple(q.shape)} vs a shard's cache {tuple(exact[1].shape)}, kv_len {kv_len.tolist()}: {x:.3g} of its "
+              f"tolerance")
+
+        # ---- wall ms of a stacked step of all 4 rows at 1 and 2 shards
+        samples = min(STEP_SAMPLES, cap - n_ctx - 1)
+        step_ms = {}
+        for n_sh, eng, w in ((1, one, wave1), (2, two, wave2)):
+            pool = w.caches.clone()
+            tok = np.full((kv_layout.cache_batch(pool), 1), first, np.int32)
+            act = np.ones(kv_layout.cache_batch(pool), bool)
+            dts = []
+            for _ in range(samples + 1):  # the first is a warm-up
+                t0 = time.perf_counter()
+                logits, pool = eng.decode_step_rows(tok, pool, act)
+                logits[:, -1].float().cpu().numpy()
+                dts.append(time.perf_counter() - t0)
+            step_ms[n_sh] = round(1e3 * sum(dts[1:]) / samples, 2)
+            del pool
+        laps.lap("step times at 1 and 2 shards")
+        print(f"mesh stacked step wall ms, 4 rows all active, logits read ({samples} steps each): 1 shard "
+              f"{step_ms[1]}, 2 shards {step_ms[2]} (both shards on one card: no scaling is claimed){f'; {card}' if card else ''}")
+
+        # ---- C. the baselines on the card against the CPU
+        ctx_kv = caches_to_codec_kv(stored["exact"], 0, n_ctx)  # (L, 2, T, C) f32
+        L_, _, T_, C_ = ctx_kv.shape
+        wires = {}
+        for bits in (8, 4):
+            got, wires[bits] = baselines.uniform_quantize_kv(ctx_kv, bits=bits)
+            want, wire_cpu = baselines.uniform_quantize_kv(ctx_kv.cpu(), bits=bits)
+            require(wire_cpu == wires[bits] and torch.equal(got.cpu(), want),
+                    f"uniform_quantize_kv at {bits} bits differs from the CPU's")
+            err = (got - ctx_kv).abs().max().item()
+            print(f"baseline uniform {bits}-bit quantization (group 64): {wires[bits]} wire bytes, bit-equal to the "
+                  f"CPU's, max abs error {err:.4g}")
+            del got, want
+        store = streamer.store
+        levels = {lvl: store.total_bytes("ctx", lvl) for lvl in range(store.tables.config.n_levels)}
+        print(f"wire bytes for {T_} tokens: CacheGen by level {levels}; uniform 8-bit {wires[8]}, 4-bit {wires[4]}; "
+              f"kv_nbytes_fp16 {codec.kv_nbytes_fp16(L_, T_, C_)}, kv_nbytes_int8 {codec.kv_nbytes_int8(L_, T_, C_)} "
+              f"(random weights: sizes only, no quality claim)")
+        del ctx_kv
+        keys = stored["exact"].kv_k[:, 0, :chunk]  # (L, T, Hkv, D): keys as queries over one chunk
+        scores = attention_scores_for_h2o(keys, keys)
+        scores_cpu = attention_scores_for_h2o(keys.cpu(), keys.cpu())
+        h2o_rel = ((scores.cpu() - scores_cpu).abs() / scores_cpu.abs()).max().item()
+        require(h2o_rel <= 1e-9, f"attention_scores_for_h2o {h2o_rel:.3g} off the CPU's f64 (relative)")
+        keep = baselines.h2o_select(scores, 0.5)
+        keep_cpu = baselines.h2o_select(scores_cpu, 0.5)
+        s_cpu = scores_cpu.numpy()
+        # the lowest score the CPU's selection kept outside the recent window
+        cut = min((s_cpu[i] for i in keep_cpu if i < len(s_cpu) - 32), default=np.inf)
+        moved = set(keep.tolist()) ^ set(keep_cpu.tolist())
+        require(all(abs(s_cpu[i] - cut) <= 1e-9 * abs(cut) for i in moved),
+                f"h2o_select differs from the CPU's at indices {sorted(moved)} away from the cut")
+        laps.lap("C: baselines")
+        print(f"baseline H2O scores over {keys.shape[1]} tokens x {keys.shape[0]} layers x {keys.shape[2]} heads: "
+              f"{h2o_rel:.3g} relative of the CPU's f64; h2o_select(0.5) keeps {len(keep)}, "
+              f"{len(moved)} indices apart at the cut")
+        print("mesh steps ms:", laps.ms)
+    return {"one": (wave1, loop1), "two": (wave2, loop2), "step_ms": step_ms, "k3": (k3_1, k3_2)}
 
 
 def match_materialize(run, results, what, ctx_len, replayed=None):
@@ -3381,7 +3706,7 @@ def main() -> int:
 
     # ------------------------------------------------------------- 8 serving
     ops.reset_launch_counts()
-    drive_serving_path(cfg, stored, sessioned, phase=lambda name: Phase(name, phase_ms))
+    served_rows = drive_serving_path(cfg, stored, sessioned, phase=lambda name: Phase(name, phase_ms))
     paths["serving"] = ops.launch_counts()
 
     # ------------------------------------------------------------ 9 launcher
@@ -3389,8 +3714,13 @@ def main() -> int:
     drive_launcher_path(dev, phase=lambda name: Phase(name, phase_ms))
     paths["launcher"] = ops.launch_counts()
 
+    # ----------------------------------------- 15 mesh (on phases 6-8's state)
+    ops.reset_launch_counts()
+    drive_mesh_path(cfg, stored, served_rows, phase=lambda name: Phase(name, phase_ms), card=smi)
+    paths["mesh"] = ops.launch_counts()
+
     # ----------------------------------------------------------------- 10 moe
-    del served, stored, sessioned
+    del served, stored, sessioned, served_rows
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
@@ -3434,7 +3764,7 @@ def main() -> int:
 
     # --------------------------------------------------------------- summary
     runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
-            "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "moe": MOE_KERNELS, "vlm": VLM_KERNELS,
+            "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "mesh": MESH_KERNELS, "moe": MOE_KERNELS, "vlm": VLM_KERNELS,
             "ssm": SSM_KERNELS, "hybrid": HYBRID_KERNELS, "encdec": ENCDEC_KERNELS, "train": TRAIN_KERNELS,
             "train sweep": TRAIN_KERNELS, "train launcher": TRAIN_KERNELS}
     require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")

@@ -64,6 +64,7 @@ __all__ = [
     "encode_all_levels",
     "ensure_stacks",
     "kv_nbytes_fp16",
+    "kv_nbytes_int8",
 ]
 
 
@@ -723,3 +724,9 @@ def encode_all_levels(kv, ct: CodecTables, chunk_idx: Optional[int] = None) -> D
 def kv_nbytes_fp16(L: int, T: int, C: int) -> int:
     """Baseline 'raw fp16 tensors' wire size for a chunk."""
     return L * 2 * T * C * 2
+
+
+def kv_nbytes_int8(L: int, T: int, C: int, group_size: int = 10) -> int:
+    """Baseline '8-bit uniform quantization' wire size (symbols + scales)."""
+    n_groups = -(-T // group_size)
+    return L * 2 * T * C + L * 2 * n_groups * 2

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["CoderTables", "encode", "decode", "stack_tables"]
+__all__ = ["CoderTables", "encode", "decode", "encoded_bytes", "stack_tables"]
 
 RANS_L = 1 << 16  # lower bound of the normalized state interval
 
@@ -160,6 +160,12 @@ def decode(
     if check and (not bool((x == RANS_L).all()) or not bool((ptr == -1).all())):
         raise ValueError("rANS stream corrupt: decoder did not return to initial state")
     return out.T  # symbols (n_lanes, n_sym) in forward order
+
+
+def encoded_bytes(n_words) -> int:
+    """Wire size: valid 16-bit words + 4-byte final state per lane."""
+    n_words = torch.as_tensor(n_words)
+    return int(n_words.sum()) * 2 + 4 * int(n_words.shape[0])
 
 
 def stack_tables(

@@ -102,14 +102,15 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale=None):
     # splits' unnormalized accumulators
     part = torch.empty(B * Hq * n_splits * (D + 2), dtype=torch.float32, device=dev)
     lib = load_library()
-    check(lib.decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(), part.data_ptr(),
-        B, Hq, Hkv, S, D, n_splits,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        split, float(scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
-        torch.cuda.current_stream(dev).cuda_stream,
-    ), "decode_attention")
+    with torch.cuda.device(dev):  # the launch runs on the tensors' card
+        check(lib.decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(), part.data_ptr(),
+            B, Hq, Hkv, S, D, n_splits,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            split, float(scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
+        ), "decode_attention")
     decode_attention_cuda.launches += 1
     return out
 

@@ -140,15 +140,16 @@ def flash_attention_cuda(
         q, k, v = aligned16(q), aligned16(k), aligned16(v)  # it copies 16-byte row chunks
     out = torch.empty((B, Tq, Hq, D), dtype=q.dtype, device=q.device)
     lib = load_library()
-    check(lib.flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if prefix_len is None else prefix_len.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, Tq, Tk, D,
-        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
-        int(causal), int(prefix_len is not None), float(scale), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    ), "flash_attention")
+    with torch.cuda.device(q.device):  # the launch runs on the tensors' card
+        check(lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if prefix_len is None else prefix_len.data_ptr(), out.data_ptr(),
+            B, Hq, Hkv, Tq, Tk, D,
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
+            int(causal), int(prefix_len is not None), float(scale), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        ), "flash_attention")
     flash_attention_cuda.launches += 1
     return out
 

@@ -111,11 +111,12 @@ def kv_dequant_tokens_cuda(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.b
     B, G, gm1, C = d_sym.shape
     out = torch.empty((B, G, gm1 + 1, C), dtype=out_dtype, device=d_sym.device)
     lib = load_library()
-    check(lib.kv_dequant_tokens(
-        d_sym.data_ptr(), anchors.data_ptr(), bins.data_ptr(), out.data_ptr(),
-        B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16), vector_width(C, d_sym, anchors, out=out),
-        torch.cuda.current_stream(d_sym.device).cuda_stream,
-    ), "kv_dequant_tokens")
+    with torch.cuda.device(d_sym.device):  # the launch runs on the tensors' card
+        check(lib.kv_dequant_tokens(
+            d_sym.data_ptr(), anchors.data_ptr(), bins.data_ptr(), out.data_ptr(),
+            B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16), vector_width(C, d_sym, anchors, out=out),
+            torch.cuda.current_stream(d_sym.device).cuda_stream,
+        ), "kv_dequant_tokens")
     kv_dequant_tokens_cuda.launches += 1
     return out
 
@@ -151,11 +152,12 @@ def kv_lossless_tokens_cuda(d_sym, a_sym, scales, *, out_dtype=torch.float32):
     B, G, gm1, C = d_sym.shape
     out = torch.empty((B, G, gm1 + 1, C), dtype=out_dtype, device=d_sym.device)
     lib = load_library()
-    check(lib.kv_lossless_tokens(
-        d_sym.data_ptr(), a_sym.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        B, G, gm1, C, int(out_dtype == torch.bfloat16), vector_width(C, d_sym, a_sym, out=out),
-        torch.cuda.current_stream(d_sym.device).cuda_stream,
-    ), "kv_lossless_tokens")
+    with torch.cuda.device(d_sym.device):  # the launch runs on the tensors' card
+        check(lib.kv_lossless_tokens(
+            d_sym.data_ptr(), a_sym.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            B, G, gm1, C, int(out_dtype == torch.bfloat16), vector_width(C, d_sym, a_sym, out=out),
+            torch.cuda.current_stream(d_sym.device).cuda_stream,
+        ), "kv_lossless_tokens")
     kv_lossless_tokens_cuda.launches += 1
     return out
 
@@ -192,10 +194,11 @@ def kv_quant_cuda(kv_grouped, bins, *, qmax: int):
             raise ValueError("kv_quant: inputs must be contiguous")
     B, G, g, C = kv_grouped.shape
     out = torch.empty((B, G, g - 1, C), dtype=torch.uint16, device=kv_grouped.device)
-    check(load_library().kv_quant(
-        kv_grouped.data_ptr(), bins.data_ptr(), out.data_ptr(), B, G, g - 1, C, int(qmax),
-        vector_width(C, kv_grouped, out=out), torch.cuda.current_stream(kv_grouped.device).cuda_stream,
-    ), "kv_quant")
+    with torch.cuda.device(kv_grouped.device):  # the launch runs on the tensors' card
+        check(load_library().kv_quant(
+            kv_grouped.data_ptr(), bins.data_ptr(), out.data_ptr(), B, G, g - 1, C, int(qmax),
+            vector_width(C, kv_grouped, out=out), torch.cuda.current_stream(kv_grouped.device).cuda_stream,
+        ), "kv_quant")
     kv_quant_cuda.launches += 1
     return out
 
@@ -224,11 +227,12 @@ def kv_dequant_cuda(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16
         raise TypeError("kv_dequant: bins must be a (B,) float32 tensor")
     B, G, gm1, C = d_sym.shape
     out = torch.empty((B, G, gm1, C), dtype=out_dtype, device=d_sym.device)
-    check(load_library().kv_dequant(
-        d_sym.data_ptr(), anchors.data_ptr(), bins.data_ptr(), out.data_ptr(),
-        B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16), vector_width(C, d_sym, anchors, out=out),
-        torch.cuda.current_stream(d_sym.device).cuda_stream,
-    ), "kv_dequant")
+    with torch.cuda.device(d_sym.device):  # the launch runs on the tensors' card
+        check(load_library().kv_dequant(
+            d_sym.data_ptr(), anchors.data_ptr(), bins.data_ptr(), out.data_ptr(),
+            B, G, gm1, C, int(qmax), int(out_dtype == torch.bfloat16), vector_width(C, d_sym, anchors, out=out),
+            torch.cuda.current_stream(d_sym.device).cuda_stream,
+        ), "kv_dequant")
     kv_dequant_cuda.launches += 1
     return out
 

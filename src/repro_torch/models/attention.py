@@ -14,8 +14,10 @@
     on every device;
   * GQA throughout (n_kv_heads <= n_heads).
 
-There is no mesh in this package yet, so the reference's sequence-parallel
-decode and sharding constraints have no counterpart here.
+The reference's sequence-parallel decode and sharding constraints reduce
+over devices (``pmax``/``psum`` over the sequence shards); the port's mesh
+(``launch.mesh``) shards only cache rows, whose bodies need no collective,
+so they have no counterpart here yet.
 """
 from __future__ import annotations
 

@@ -458,7 +458,7 @@ def masked_window_update(cache, new, start: int, width: int, window: Optional[in
         cache[start_c + lo:start_c + hi] = new[lo - shift:hi - shift].to(cache.dtype)
 
 
-def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches, widths=None):
+def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches, widths=None, starts=None):
     """Compute KV for a text chunk *given* earlier chunks' KV (paper fn. 6:
     the LLM recomputes a text-format chunk based on the previous chunks'
     received-and-decoded KV).
@@ -473,7 +473,9 @@ def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches, widths=None)
     This is how the concurrent scheduler coalesces different requests' TEXT
     recomputes into one padded batched call — a row with width 0 keeps its
     K/V and length bit for bit (its logits are garbage and must be
-    ignored).  The window starts are read from ``length`` once, on the host.
+    ignored).  The window starts are read from ``length`` once, on the host,
+    unless the caller passes them as ``starts`` (``caches.length`` as host
+    ints; a row-sharded engine reads every shard's before it launches any).
     ``widths=None`` keeps the full-width write path.
 
     The ssm and hybrid families have no chunked prefill (the reference's
@@ -493,7 +495,9 @@ def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches, widths=None)
             write_at(cache, new, cache_len)
     else:
         widths = [int(w) for w in torch.as_tensor(widths).tolist()]
-        starts = cache_len.tolist()
+        starts = cache_len.tolist() if starts is None else [int(x) for x in starts]
+        # staged from host memory without waiting for the device
+        adv = torch.tensor(widths, dtype=cache_len.dtype).to(dev, non_blocking=True)
 
         def write(cache, new):
             for b, (s, w) in enumerate(zip(starts, widths)):
@@ -517,7 +521,6 @@ def prefill_extend(cfg: ArchConfig, params, tokens, caches: Caches, widths=None)
     logits = _logits(cfg, params, x[:, -1:])
     if widths is None:
         return logits, caches._replace(length=cache_len + Tc)
-    adv = torch.tensor(widths, dtype=cache_len.dtype, device=dev)
     return logits, caches._replace(length=cache_len + adv)
 
 

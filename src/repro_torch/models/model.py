@@ -2,8 +2,10 @@
 
 Port of ``src/repro/models/model.py``: ``build(cfg)`` takes the encdec
 family to ``models.encdec`` and every other family to ``models.lm``.  The
-reference's ``param_specs`` (logical sharding specs) is left out: there is
-no mesh in this package yet.  ``init_params`` takes a ``torch.Generator``
+reference's ``param_specs`` (logical sharding specs) is left out: it
+places one tensor over several devices, which the port's row-sharded
+serving (``serving.mesh_engine``) never does; it waits for the
+multi-process slice on ``torch.distributed``.  ``init_params`` takes a ``torch.Generator``
 and a device where the reference takes a PRNG key.
 """
 from __future__ import annotations

@@ -16,8 +16,9 @@ Both dispatches of the reference are here and share one body:
   multiple of 128;
 * ``grouped``: ``G`` groups of ``N / G`` tokens, each sorted and scattered
   on its own, capacity ``max(8, ceil8(int(n * k / E * capacity_factor)))``.
-  The port has no mesh, so this is the reference's einsum branch; its
-  ``shard_map`` branch waits for the mesh (``ROADMAP.md`` §1 item 8).
+  This is the reference's einsum branch; its ``shard_map`` branch sums
+  the ffn shards' partial outputs (a ``psum``), a collective the port's
+  row-sharded mesh does not run (``ROADMAP.md`` §1 item 7).
 
 Capacity depends on the call's token count, padding included, so a token's
 output depends on the other tokens of its call, as in the reference.

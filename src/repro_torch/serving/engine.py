@@ -162,6 +162,17 @@ class Engine:
         tokens of it) is written into cache row ``rows[i]`` at token offset
         ``starts[i]``.  Rows not named keep their contents byte-identically.
         """
+        self._check_runs(caches.kv_k.shape[1], rows, starts, run_tokens)
+        k, v, ln = kv_layout.insert_codec_runs(
+            caches.kv_k, caches.kv_v, caches.length,
+            torch.as_tensor(kv_new, device=self.device),
+            [int(r) for r in rows], [int(s) for s in starts], [int(t) for t in run_tokens],
+        )
+        return caches._replace(kv_k=k, kv_v=v, length=ln)
+
+    def _check_runs(self, n_rows: int, rows, starts, run_tokens) -> None:
+        """``insert_runs``'s arguments: one row, start and count a run,
+        distinct rows of the cache, every run inside the capacity."""
         if not (len(rows) == len(starts) == len(run_tokens)):
             raise ValueError(
                 f"insert_runs: {len(rows)} rows, {len(starts)} starts, "
@@ -169,7 +180,6 @@ class Engine:
             )
         if len(set(rows)) != len(rows):
             raise ValueError(f"insert_runs: duplicate cache rows in {rows}")
-        n_rows = caches.kv_k.shape[1]
         if any(not 0 <= int(r) < n_rows for r in rows):
             raise ValueError(
                 f"insert_runs: rows {list(rows)} out of range for a "
@@ -189,12 +199,6 @@ class Engine:
                     f"run of {t} tokens at offset {s} overhangs cache "
                     f"capacity {self.capacity}"
                 )
-        k, v, ln = kv_layout.insert_codec_runs(
-            caches.kv_k, caches.kv_v, caches.length,
-            torch.as_tensor(kv_new, device=self.device),
-            [int(r) for r in rows], [int(s) for s in starts], [int(t) for t in run_tokens],
-        )
-        return caches._replace(kv_k=k, kv_v=v, length=ln)
 
     # ------------------------------------------------------------------
     # Row-pool support (continuous admission / preemption)
@@ -204,7 +208,10 @@ class Engine:
         """Snapshot the first ``n_tokens`` realized tokens of one cache row
         (suspending a preempted session).  The snapshot owns copies, so the
         pool cache may be recycled freely afterwards."""
-        n_rows = caches.kv_k.shape[1]
+        self._check_save(caches.kv_k.shape[1], row, n_tokens)
+        return kv_layout.save_row(caches, int(row), int(n_tokens))
+
+    def _check_save(self, n_rows: int, row: int, n_tokens: int) -> None:
         if not 0 <= int(row) < n_rows:
             raise ValueError(
                 f"save_row: row {row} out of range for a {n_rows}-row cache"
@@ -214,13 +221,18 @@ class Engine:
                 f"save_row: {n_tokens} tokens out of range for capacity "
                 f"{self.capacity}"
             )
-        return kv_layout.save_row(caches, int(row), int(n_tokens))
 
     def restore_row(self, caches: Caches, snapshot: kv_layout.RowSnapshot, row: int) -> Caches:
         """Write a suspended session's snapshot into (possibly another)
         ``row`` of the pool cache, in place; the row then reads exactly as
         it did at suspension (length included)."""
-        n_rows = caches.kv_k.shape[1]
+        self._check_restore(caches.kv_k.shape[1], snapshot, row)
+        k, v, ln = kv_layout.restore_row(
+            caches.kv_k, caches.kv_v, caches.length, snapshot.kv_k, snapshot.kv_v, int(row)
+        )
+        return caches._replace(kv_k=k, kv_v=v, length=ln)
+
+    def _check_restore(self, n_rows: int, snapshot: kv_layout.RowSnapshot, row: int) -> None:
         if not 0 <= int(row) < n_rows:
             raise ValueError(
                 f"restore_row: row {row} out of range for a {n_rows}-row cache"
@@ -230,23 +242,22 @@ class Engine:
                 f"restore_row: snapshot of {snapshot.n_tokens} tokens exceeds "
                 f"cache capacity {self.capacity}"
             )
-        k, v, ln = kv_layout.restore_row(
-            caches.kv_k, caches.kv_v, caches.length, snapshot.kv_k, snapshot.kv_v, int(row)
-        )
-        return caches._replace(kv_k=k, kv_v=v, length=ln)
 
     def reset_rows(self, caches: Caches, rows: Sequence[int]) -> Caches:
         """Zero recycled rows (K/V and length) in place before new tenants
         take them — a recycled row must be indistinguishable from a fresh
         cache's row."""
-        n_rows = caches.kv_k.shape[1]
-        if any(not 0 <= int(r) < n_rows for r in rows):
-            raise ValueError(
-                f"reset_rows: rows {list(rows)} out of range for a "
-                f"{n_rows}-row cache"
-            )
+        self._check_rows("reset_rows", caches.kv_k.shape[1], rows)
         k, v, ln = kv_layout.reset_rows(caches.kv_k, caches.kv_v, caches.length, rows)
         return caches._replace(kv_k=k, kv_v=v, length=ln)
+
+    @staticmethod
+    def _check_rows(what: str, n_rows: int, rows) -> None:
+        if any(not 0 <= int(r) < n_rows for r in rows):
+            raise ValueError(
+                f"{what}: rows {list(rows)} out of range for a "
+                f"{n_rows}-row cache"
+            )
 
     def prefill_extend_rows(self, tokens, caches: Caches, widths) -> Tuple[torch.Tensor, Caches]:
         """Coalesced TEXT recompute: one padded, width-masked batched
@@ -271,12 +282,7 @@ class Engine:
         participating rows instead of the full batch.
         """
         self._check_extend()
-        n_rows = caches.kv_k.shape[1]
-        if any(not 0 <= int(r) < n_rows for r in rows):
-            raise ValueError(
-                f"prefill_extend_gather: rows {list(rows)} out of range for "
-                f"a {n_rows}-row cache"
-            )
+        self._check_rows("prefill_extend_gather", caches.kv_k.shape[1], rows)
         idx = torch.as_tensor([int(r) for r in rows], dtype=torch.long, device=self.device)
         sub = Caches(kv_k=caches.kv_k[:, idx], kv_v=caches.kv_v[:, idx], length=caches.length[idx])
         logits, sub = lm.prefill_extend(self.cfg, self.params, tokens, sub)
@@ -309,17 +315,8 @@ class Engine:
             raise ValueError(f"no cached generation for family {self.cfg.family}")
         n_rows = caches.kv_k.shape[1]
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.long)
-        if tuple(tokens.shape) != (n_rows, 1):
-            raise ValueError(
-                f"decode_step_rows: tokens shape {tuple(tokens.shape)} != "
-                f"({n_rows}, 1) for a {n_rows}-row cache"
-            )
         active = torch.as_tensor(active, device=self.device).to(torch.bool)
-        if tuple(active.shape) != (n_rows,):
-            raise ValueError(
-                f"decode_step_rows: active shape {tuple(active.shape)} != "
-                f"({n_rows},) for a {n_rows}-row cache"
-            )
+        self._check_step(n_rows, tokens, active)
         rows = torch.arange(n_rows, device=self.device)
         slot = caches.length.to(torch.long).clamp(0, caches.kv_k.shape[2] - 1)
         saved_k = caches.kv_k[:, rows, slot]
@@ -329,6 +326,19 @@ class Engine:
         new.kv_k[:, rows, slot] = torch.where(keep, saved_k, new.kv_k[:, rows, slot])
         new.kv_v[:, rows, slot] = torch.where(keep, saved_v, new.kv_v[:, rows, slot])
         return logits, new._replace(length=torch.where(active, new.length, caches.length))
+
+    @staticmethod
+    def _check_step(n_rows: int, tokens: torch.Tensor, active: torch.Tensor) -> None:
+        if tuple(tokens.shape) != (n_rows, 1):
+            raise ValueError(
+                f"decode_step_rows: tokens shape {tuple(tokens.shape)} != "
+                f"({n_rows}, 1) for a {n_rows}-row cache"
+            )
+        if tuple(active.shape) != (n_rows,):
+            raise ValueError(
+                f"decode_step_rows: active shape {tuple(active.shape)} != "
+                f"({n_rows},) for a {n_rows}-row cache"
+            )
 
     # ------------------------------------------------------------------
     # Cost model hooks (used by the streaming simulator)

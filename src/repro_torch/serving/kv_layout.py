@@ -22,11 +22,21 @@ what it returns:
     scheduler does, when a load finishes and its row goes on generating
     or to the next tenant);
   * ``caches_to_codec_kv`` returns a new f32 tensor.
+
+Row-sharded caches.  ``serving.mesh_engine.ShardedEngine`` splits a
+batch-of-requests cache's rows over a mesh's shards in blocked ranges
+(global row ``r`` on shard ``r // (B/S)`` at local row ``r % (B/S)``) and
+holds it as a :class:`ShardedCaches`, one plain :class:`Caches` a shard on
+the shard's device.  The ``*_local`` functions are the per-shard bodies of
+the row primitives: each takes *global* rows and its shard's index, and acts
+on the rows that shard owns.  The schedulers read a cache of either kind
+through :func:`cache_batch`, :func:`cache_dtype`, :func:`has_kv`,
+:func:`synchronize` and :func:`extract_row`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +49,14 @@ __all__ = [
     "codec_kv_to_caches",
     "insert_codec_run",
     "insert_codec_runs",
+    "insert_codec_runs_local",
+    "restore_row_local",
+    "reset_rows_local",
+    "ShardedCaches",
+    "cache_batch",
+    "cache_dtype",
+    "has_kv",
+    "synchronize",
     "RowSnapshot",
     "save_row",
     "restore_row",
@@ -111,6 +129,150 @@ def insert_codec_runs(
     return kv_k, kv_v, length
 
 
+def _local_rows(rows: Sequence[int], b_loc: int, shard: int) -> Tuple[List[int], List[bool]]:
+    """Map global row ids to shard ``shard``'s local indices.
+
+    Returns ``(local, mine)``: foreign rows get the out-of-range local index
+    ``b_loc`` (a scratch slot whose writes are dropped — never a wrapped
+    negative index, which tensor indexing would read Python-style)."""
+    local = [int(r) - shard * b_loc for r in rows]
+    mine = [0 <= i < b_loc for i in local]
+    return [i if m else b_loc for i, m in zip(local, mine)], mine
+
+
+def insert_codec_runs_local(
+    kv_k: torch.Tensor,  # (L, B/S, cap, Hkv, Dh) this shard's cache slice, in place
+    kv_v: torch.Tensor,
+    length: torch.Tensor,  # (B/S,) int32 this shard's lengths
+    kv_new: torch.Tensor,  # (L, 2, sum_T, C) decoded concat of the runs
+    rows: Sequence[int],  # *global* cache row per run
+    starts: Sequence[int],  # token offset per run
+    run_tokens: Sequence[int],  # token count per run, concat order
+    shard: int,  # this shard's index along the row axis
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-shard body of :func:`insert_codec_runs`.
+
+    The same shifted-window merge as the unsharded function, restricted to
+    this shard's rows: runs addressed to other shards land in the scratch
+    row ``B/S`` and are dropped, so local rows they would otherwise alias
+    keep their bytes.  ``kv_new`` may carry every run (the reference
+    replicates them to all shards) or only this shard's."""
+    L, b_loc, cap, Hkv, Dh = kv_k.shape
+    t_max = max(run_tokens)
+    local, _ = _local_rows(rows, b_loc, shard)
+    length = length.clone()
+    off = 0
+    for row, start, T in zip(local, starts, run_tokens):
+        if row < b_loc:
+            piece = kv_new[:, :, off:off + T].reshape(L, 2, T, Hkv, Dh)
+            masked_window_update(kv_k[:, row].transpose(0, 1), piece[:, 0].transpose(0, 1),
+                                 start, T, window=t_max)
+            masked_window_update(kv_v[:, row].transpose(0, 1), piece[:, 1].transpose(0, 1),
+                                 start, T, window=t_max)
+            length[row] = torch.clamp_min(length[row], int(start) + T)
+        off += T
+    return kv_k, kv_v, length
+
+
+def restore_row_local(
+    kv_k: torch.Tensor,  # (L, B/S, cap, Hkv, Dh) this shard's cache slice, in place
+    kv_v: torch.Tensor,
+    length: torch.Tensor,  # (B/S,) int32
+    k_row: torch.Tensor,  # (L, T, Hkv, Dh) saved tokens
+    v_row: torch.Tensor,
+    row: int,  # *global* target row
+    shard: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-shard body of :func:`restore_row`: the shard owning the global
+    row writes the snapshot at its local index; every other shard writes
+    the addressed slot's own bytes back (the reference's masked
+    read-merge-write, which leaves them as they were; it never reads the
+    snapshot, so the snapshot need only be on its owner's device)."""
+    b_loc = kv_k.shape[1]
+    T = k_row.shape[1]
+    (local,), (own,) = _local_rows([row], b_loc, shard)
+    li = min(local, b_loc - 1)  # clamp the foreign scratch index
+    kv_k[:, li, :T] = k_row.to(kv_k.dtype) if own else kv_k[:, li, :T]
+    kv_v[:, li, :T] = v_row.to(kv_v.dtype) if own else kv_v[:, li, :T]
+    length = length.clone()
+    if own:
+        length[li] = T
+    return kv_k, kv_v, length
+
+
+def reset_rows_local(
+    kv_k: torch.Tensor,  # (L, B/S, cap, Hkv, Dh) this shard's cache slice, in place
+    kv_v: torch.Tensor,
+    length: torch.Tensor,  # (B/S,) int32
+    rows: Sequence[int],  # *global* rows to recycle
+    shard: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-shard body of :func:`reset_rows`: each shard zeroes the recycled
+    rows it owns; foreign rows map to the scratch index and are dropped."""
+    b_loc = kv_k.shape[1]
+    local, mine = _local_rows(rows, b_loc, shard)
+    own = [i for i, m in zip(local, mine) if m]
+    kv_k[:, own] = 0
+    kv_v[:, own] = 0
+    length = length.clone()
+    length[own] = 0
+    return kv_k, kv_v, length
+
+
+class ShardedCaches(NamedTuple):
+    """A batch-of-requests cache split by rows over a mesh's shards: one
+    plain :class:`Caches` of ``B/S`` rows a shard, on the shard's device,
+    shard ``s`` holding global rows ``[s * B/S, (s + 1) * B/S)``."""
+
+    shards: Tuple[Caches, ...]
+
+    @property
+    def rows_per_shard(self) -> int:
+        return int(self.shards[0].length.shape[0])
+
+    def locate(self, row: int) -> Tuple[int, int]:
+        """(shard, local row) of global ``row``."""
+        return divmod(int(row), self.rows_per_shard)
+
+    def clone(self) -> "ShardedCaches":
+        return ShardedCaches(tuple(c.clone() for c in self.shards))
+
+    def gather(self) -> Caches:
+        """One plain cache of all rows in global order (a copy), on the
+        first shard's device."""
+        dev = self.shards[0].length.device
+        return Caches(*(None if ts[0] is None else torch.cat([t.to(dev) for t in ts], dim=0 if name == "length" else 1)
+                        for name, ts in zip(Caches._fields, zip(*self.shards))))
+
+
+def cache_batch(caches) -> int:
+    """Rows of a batch-of-requests cache, sharded or not."""
+    if isinstance(caches, ShardedCaches):
+        return sum(int(c.length.shape[0]) for c in caches.shards)
+    return int(caches.length.shape[0])
+
+
+def cache_dtype(caches) -> torch.dtype:
+    """The K/V dtype of a cache, sharded or not."""
+    first = caches.shards[0] if isinstance(caches, ShardedCaches) else caches
+    return first.kv_k.dtype
+
+
+def has_kv(caches) -> bool:
+    """Whether the cache carries per-layer K/V (the attention families)."""
+    first = caches.shards[0] if isinstance(caches, ShardedCaches) else caches
+    return first.kv_k is not None
+
+
+def synchronize(caches) -> None:
+    """Wait for the queued device work on every device the cache lives on;
+    nothing to wait for on the CPU."""
+    parts = caches.shards if isinstance(caches, ShardedCaches) else (caches,)
+    for dev in dict.fromkeys(c.length.device for c in parts):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 @dataclasses.dataclass
 class RowSnapshot:
     """A suspended session's realized KV: the first ``n_tokens`` tokens of
@@ -174,10 +336,14 @@ def reset_rows(
     return kv_k, kv_v, length
 
 
-def extract_row(caches: Caches, row: int) -> Caches:
+def extract_row(caches, row: int) -> Caches:
     """One request's batch-1 *view* of a batch-of-requests cache (no copy;
     see the module docstring): every field the family carries, the
-    Mamba-2 states and the shared blocks' K/V included."""
+    Mamba-2 states and the shared blocks' K/V included.  Of a
+    :class:`ShardedCaches`, the owning shard's row, on its device."""
+    if isinstance(caches, ShardedCaches):
+        shard, row = caches.locate(row)
+        caches = caches.shards[shard]
     sl = slice(row, row + 1)
     return Caches(*(None if t is None else t[sl] if name == "length" else t[:, sl]
                     for name, t in zip(Caches._fields, caches)))

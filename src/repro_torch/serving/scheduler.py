@@ -63,7 +63,11 @@ The end of a run synchronizes the card before the wall total is read.
 Mesh sharding (shard-aware row addressing) is kept as in the reference —
 ``Engine.cache_rows``, :class:`ShardedRowPool`, the per-shard contention
 readings and ``shard_transports`` — and each reduces exactly to the
-unsharded behaviour on the port's one-shard ``Engine``.
+unsharded behaviour on a one-shard ``Engine``.  On a
+``serving.mesh_engine.ShardedEngine`` the pool cache is a
+``kv_layout.ShardedCaches``, read here only through ``kv_layout``'s
+helpers (``cache_batch``, ``cache_dtype``, ``has_kv``, ``synchronize``,
+``extract_row``) and the engine's row primitives.
 
 Failure isolation: a request whose session carries a ``retry_policy``
 absorbs its fetch faults inside its own ``SessionTask`` and finishes with
@@ -94,6 +98,7 @@ from repro_torch.core import codec as kvcodec
 from repro_torch.models.lm import Caches
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.generation import GenerationSpec, GenerationTask
+from repro_torch.serving import kv_layout
 from repro_torch.serving.kv_layout import extract_row
 from repro_torch.serving.session import (
     RunWork,
@@ -223,7 +228,7 @@ def _execute_runs(
         kv, spans = kvcodec.decode_chunk_runs(
             [w.blobs for w in group],
             group[0].tables,
-            out_dtype=caches.kv_k.dtype,
+            out_dtype=kv_layout.cache_dtype(caches),
             run_tokens=[w.n_tokens for w in group],
         )
         caches = engine.insert_runs(
@@ -256,7 +261,7 @@ def _execute_texts(
     width 0)."""
     if not texts:
         return caches
-    n = caches.length.shape[0]
+    n = kv_layout.cache_batch(caches)
     dev = engine.device
     by_tc: Dict[int, List[TextWork]] = {}
     for w in texts:
@@ -306,13 +311,6 @@ def _validate_requests(engine: Engine, requests: List[SessionRequest]) -> None:
                 f"scheduler requests are single-row: tokens must be (1, T), "
                 f"got {r.tokens.shape}"
             )
-
-
-def _sync(caches: Caches) -> None:
-    """Wait for the queued device work on the pool cache (the wall total is
-    end-to-end only then); nothing to wait for on the CPU."""
-    if caches.kv_k.device.type == "cuda":
-        torch.cuda.synchronize(caches.kv_k.device)
 
 
 def _req_label(idx: int, r: SessionRequest) -> str:
@@ -377,7 +375,7 @@ class ConcurrentScheduler:
         # rows stay inactive (width 0 / never decoded) for the whole wave
         n_cache = self.engine.cache_rows(n)
         caches = self.engine.empty_caches(n_cache)
-        if caches.kv_k is None:
+        if not kv_layout.has_kv(caches):
             raise ValueError(
                 f"scheduler needs a KV-cache family, got {self.engine.cfg.family}"
             )
@@ -441,7 +439,7 @@ class ConcurrentScheduler:
             # at most [run, text] per round, so this preserves its order
             caches = _execute_runs(self.engine, round_runs, caches, acct_by_row, stats)
             caches = _execute_texts(self.engine, round_texts, caches, acct_by_row, stats)
-        _sync(caches)
+        kv_layout.synchronize(caches)  # the wall total is end-to-end only then
         wall_total = time.perf_counter() - wall0
 
         sessions = [
@@ -579,9 +577,8 @@ class RowPool:
 
 class ShardedRowPool(RowPool):
     """Row pool over a mesh-sharded cache: rows map to shards in blocked
-    ranges (row ``r`` → shard ``r // rows_per_shard``, the layout of the
-    reference's mesh-sharded engine, not yet ported), and allocation
-    balances *load*
+    ranges (row ``r`` → shard ``r // rows_per_shard``, the layout of
+    ``serving.mesh_engine.ShardedEngine``), and allocation balances *load*
     across shards — the free row on the least-occupied shard, lowest row
     breaking ties — so stacked decode steps and per-shard transports see
     even per-shard widths instead of piling the first arrivals onto
@@ -908,7 +905,7 @@ class ContinuousScheduler:
         # real pool capacity (admittable), not dead padding
         n_rows = self.engine.cache_rows(n_rows)
         caches = self.engine.empty_caches(n_rows)
-        if caches.kv_k is None:
+        if not kv_layout.has_kv(caches):
             raise ValueError(
                 f"scheduler needs a KV-cache family, got {self.engine.cfg.family}"
             )
@@ -1291,7 +1288,7 @@ class ContinuousScheduler:
                 del acct_by_row[t.row]
                 pool.release(t.row, t.label, finish_t)
             occupancy.append((round_t, len(live)))
-        _sync(caches)
+        kv_layout.synchronize(caches)  # the wall total is end-to-end only then
         wall_total = time.perf_counter() - wall0
         assert all(r is not None for r in results)
         for r in results:

@@ -46,6 +46,7 @@ __all__ = [
     "measured_generation_contention_factors",
     "measured_level_priorities",
     "measured_text_contention_factors",
+    "sharded_contention_factors",
 ]
 
 DEFAULT_DECODE_BYTES_PER_S = 4e9  # placeholder: not measured on any card
@@ -217,3 +218,22 @@ def measured_level_priorities(path: Optional[str] = None) -> Dict[int, float]:
         return {lvl: c / total for lvl, c in sorted(counts.items())}
 
     return dict(_measured("level_priorities", cands, extract, {}))
+
+
+def sharded_contention_factors(n_shards: int, path: Optional[str] = None) -> Dict[int, float]:
+    """Effective decode slowdown per live-session count on an S-shard mesh.
+
+    The row-sharded engine (``serving.mesh_engine.ShardedEngine``) splits
+    its cache rows over ``n_shards`` contention domains, so N live sessions
+    see the measured single-device curve at the even-spread per-shard width
+    ``ceil(N / S)``.  Returns the measured curve's support re-read through
+    that mapping; at ``n_shards=1`` this is exactly
+    :func:`measured_contention_factors`.
+    """
+    if n_shards < 1:
+        raise ValueError(f"sharded_contention_factors needs n_shards >= 1, got {n_shards}")
+    from repro_torch.streaming.pipeline import ContentionModel  # lazy: avoid cycle
+
+    base = measured_contention_factors(path)
+    cm = ContentionModel(base)
+    return {int(m): cm.factor_sharded(int(m), n_shards) for m in sorted(base)}

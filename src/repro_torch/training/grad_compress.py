@@ -8,8 +8,8 @@ rounds half to even, as ``jnp.round`` does; the divisions divide by f32
 tensors on the device, as the reference's do (see ``training.optimizer``).
 
 The reference's ``compressed_psum`` (a cross-device mean whose wire tensor
-is int8) needs a device mesh; it is not ported here and waits for the
-port's multi-device slice.
+is int8) is a collective (``all_gather``); it is not ported here and waits
+for the port's slice on ``torch.distributed``.
 """
 from __future__ import annotations
 

@@ -41,7 +41,9 @@ from repro_torch.serving import generation
 from repro_torch.serving import kv_layout
 from repro_torch.serving import scheduler
 from repro_torch.serving import session
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.mesh_engine import ShardedEngine
 from repro_torch.streaming import adaptation as ad
 from repro_torch.streaming import faults
 from repro_torch.streaming import network as net
@@ -71,6 +73,23 @@ class F32Engine(Engine):
 class JF32Engine(JEngine):
     def empty_caches(self, batch):
         return jkv_layout.alloc_caches(self.cfg, batch, self.capacity, dtype=jnp.float32)
+
+
+class F32ShardedEngine(ShardedEngine, F32Engine):
+    """The port's row-sharded engine over an f32 serving cache (its shards
+    allocate the dtype ``F32Engine`` allocates)."""
+
+
+class JShardOracle(JF32Engine):
+    """The reference's unsharded engine told it has ``n_shards`` row shards.
+    The schedulers then size, balance and price its pool as on a mesh
+    (``ShardedRowPool``, per-shard contention), and its per-request results
+    are those of the reference's own ``ShardedEngine``
+    (``tests/test_mesh_serving.py`` holds the two bit-identical)."""
+
+    def __init__(self, *args, n_shards, **kw):
+        super().__init__(*args, **kw)
+        self.n_shards = n_shards
 
 
 @dataclasses.dataclass
@@ -176,9 +195,24 @@ def build_world(arch="smollm-360m"):
     )
 
 
-def run_both(world, scenario):
-    """``scenario(side)`` for the port, then for the reference."""
-    return tuple(scenario(side) for side in world["sides"])
+def run_both(world, scenario, sides=None):
+    """``scenario(side)`` for the port, then for the reference (``sides``,
+    default the world's)."""
+    return tuple(scenario(side) for side in (sides or world["sides"]))
+
+
+def mesh_sides(world, n_shards):
+    """The port's side on an f32 ``ShardedEngine`` over ``n_shards`` logical
+    CPU shards, and the reference's on a :class:`JShardOracle` of as many
+    shards (one pair per shard count, kept in the world)."""
+    cache = world.setdefault("mesh_sides", {})
+    if n_shards not in cache:
+        port, ref = world["sides"]
+        eng = F32ShardedEngine(port.eng.cfg, port.eng.params, cache_capacity=port.eng.capacity,
+                               mesh=make_serving_mesh(n_shards, device="cpu"))
+        jeng = JShardOracle(ref.eng.cfg, ref.eng.params, cache_capacity=ref.eng.capacity, n_shards=n_shards)
+        cache[n_shards] = (dataclasses.replace(port, eng=eng), dataclasses.replace(ref, eng=jeng))
+    return cache[n_shards]
 
 
 def to_numpy(x):
@@ -282,13 +316,14 @@ def ideal(side):
 
 
 def continuous_both(world, traces, *, kws=None, arrivals=None, specs=None, priors=True, contention=ideal,
-                    policy=None, **sched_kw):
+                    policy=None, sides=None, **sched_kw):
     """The same ``ContinuousScheduler`` run in both packages, held equal
     (``assert_same_scheduled``); returns the port's result.  ``traces`` are
     ``(name, args)`` of ``BandwidthTrace``, ``kws`` per-request session
     knobs, ``specs`` per-request ``GenerationSpec`` keywords (or None; the
     first token defaults to the context's own), ``policy`` the
-    ``PreemptionPolicy`` keywords (None: no preemption)."""
+    ``PreemptionPolicy`` keywords (None: no preemption), ``sides`` the
+    port's and the reference's side (default the world's)."""
     kws = kws or [{} for _ in traces]
     arrivals = arrivals or [0.0] * len(traces)
     specs = specs or [None] * len(traces)
@@ -302,6 +337,30 @@ def continuous_both(world, traces, *, kws=None, arrivals=None, specs=None, prior
         return side.sched.ContinuousScheduler(side.eng, contention=contention(side), preemption=pre,
                                               **sched_kw).run(reqs)
 
-    out, jout = run_both(world, scenario)
+    out, jout = run_both(world, scenario, sides)
     assert_same_scheduled(world, out, jout)
     return out
+
+
+def mesh_scenario(world, side):
+    """A wave and an open loop of four requests on ``side``'s engine, both
+    under ideal contention: two pinned to level 0 and generating, two
+    adaptive (the falling trace plans lossy and TEXT chunks), arrivals
+    staggered.  ``tests/test_torch_mesh_serving.py`` runs it on the port's
+    sharded engine, the reference's oracle and, in a subprocess with two
+    host devices, the reference's own ``ShardedEngine``."""
+    u, first = world["u"], int(world["first"][0])
+    traces = [("constant", (3 * u,)), ("steps", (0.2, [1.0 * u, 0.55 * u])),
+              ("steps", (0.15, [2.0 * u, 0.4 * u])), ("constant", (4 * u,))]
+    kws = [dict(fixed_level=0), {}, {}, dict(fixed_level=0)]
+    specs = [5, None, 4, None]
+
+    def requests(arrivals=(0.0,) * 4, gen=False):
+        return [side.request(world["tokens"], tr, start_t=a, **kw,
+                             generation=side.gen.GenerationSpec(n, first) if gen and n else None)
+                for tr, kw, a, n in zip(traces, kws, arrivals, specs)]
+
+    wave = side.sched.ConcurrentScheduler(side.eng, contention=ideal(side)).run(requests())
+    loop = side.sched.ContinuousScheduler(side.eng, contention=ideal(side), gen_step_s=0.01).run(
+        requests(arrivals=(0.0, 0.02, 0.04, 0.06), gen=True))
+    return wave, loop

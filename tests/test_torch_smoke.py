@@ -1,6 +1,7 @@
 """``chip_smoke.py`` off the card: it refuses to run without one, and its
 main path (phases 4-5), store path (phase 6), session path (phase 7),
-serving path (phase 8), launcher path (phase 9), MoE path (phase 10),
+serving path (phase 8), launcher path (phase 9), mesh path (phase 15),
+MoE path (phase 10),
 vlm path (phase 11), ssm and hybrid paths (phase 12) and encdec path
 (phase 13) run at a tiny size on the CPU through the kernels' plain
 versions (no launch counted)."""
@@ -95,22 +96,48 @@ def test_chip_smoke_session_path_runs_on_cpu_at_tiny_size(rehearsal, sessioned):
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
 
 
-def test_chip_smoke_serving_path_runs_on_cpu_at_tiny_size(rehearsal, stored, sessioned):
-    """Phase 8 on phase 6's tiny store and phase 7's clean session: the wave
-    decides and caches as the session, the continuous loop at t = 0 equals
-    the wave, the open loop recycles rows and stacks generation steps, and
-    the row primitives round-trip (the script fails otherwise)."""
+@pytest.fixture(scope="module")
+def served_rows(rehearsal, stored, sessioned):
     smoke, cfg = rehearsal[:2]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         got = smoke.drive_serving_path(cfg, stored[0], sessioned[0], gen_tokens=8)
-    out = out.getvalue()
+    return got, out.getvalue()
+
+
+def test_chip_smoke_serving_path_runs_on_cpu_at_tiny_size(rehearsal, served_rows):
+    """Phase 8 on phase 6's tiny store and phase 7's clean session: the wave
+    decides and caches as the session, the continuous loop at t = 0 equals
+    the wave, the open loop recycles rows and stacks generation steps, and
+    the row primitives round-trip (the script fails otherwise)."""
+    smoke = rehearsal[0]
+    got, out = served_rows
     assert "serving wave: 4 requests, configs [0, " in out and "stacked decode rate" in out
     assert "continuous at t = 0" in out and "open loop generation: 32 tokens" in out
     assert "row primitives: save -> reset -> restore bit-exact" in out and "serving steps ms" in out
     loop = got["open_loop"]
     assert loop.n_rows == 2 and all(tl.n_tokens_out == 8 for tl in loop.timeline)
     assert max(m for _, m in loop.gen_occupancy) == 2 and set(got["step_ms"]) == {1, 2}
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_mesh_path_runs_on_cpu_at_tiny_size(rehearsal, stored, served_rows):
+    """Phase 15 on phases 6-8's tiny state: one shard reproduces phase 8 bit
+    for bit, two shards make its decisions and hold each row primitive to
+    the plain Engine on a shard's rows, and the baselines agree with
+    themselves on the CPU (the script fails otherwise)."""
+    smoke, cfg = rehearsal[:2]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = smoke.drive_mesh_path(cfg, stored[0], served_rows[0], gen_tokens=8, card="a card, 1 W")
+    out = out.getvalue()
+    assert "mesh A (1 shard): the wave's and the open loop's decisions" in out
+    assert "mesh B (2 shards on one card): decisions and TTFTs equal A's" in out
+    assert "mesh B row primitives:" in out and "mesh steps ms" in out
+    assert "baseline uniform 8-bit quantization" in out and "baseline uniform 4-bit quantization" in out
+    assert "h2o_select(0.5) keeps 20, 0 indices apart" in out and "a card, 1 W" in out
+    wave2, loop2 = got["two"]
+    assert len(wave2.caches.shards) == 2 and loop2.n_gen_tokens == 32 and set(got["step_ms"]) == {1, 2}
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
 
 
