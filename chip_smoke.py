@@ -274,15 +274,50 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
               ``attention_scores_for_h2o`` with keys as queries over one
               1,536-token chunk within 1e-9 relative of the CPU's f64, and
               ``h2o_select(0.5)`` equal or apart only at the cut.
+16. distributed  the collectives on ``torch.distributed``, one spawned
+           process a rank (``launch.mesh.run_ranks``), all ranks on the one
+           card, after phase 14's state is freed; the parent builds the
+           kernels once and every rank loads that library; the parent runs
+           the single-process references (uncounted) and prints one JSON
+           line a sub-phase from the ranks' reports:
+           A. one rank, NCCL, mesh (1, 1): a 2-step run of B and D's
+              ``compressed_psum``;
+           B. two ranks (gloo: ranks that share a card), mesh (1, 2),
+              smollm-360m at full width under ``{"embed": None,
+              "kv_seq_decode": "model"}``: the prefill (K4 on each rank)
+              writes each rank's 4,096-slot block of an 8,192-slot cache,
+              row 0 holds 6,144 tokens and row 1 3,000 (the first shard
+              only); 16 steps fed the single-process K3 path's greedy
+              tokens through the sequence-parallel decode, each token equal
+              to that path's (or apart at a near tie, printed) and the
+              logits within ``DIST_STEP_TOL`` of the plain decode's; wall
+              ms a step, host ms in collectives;
+           C. the same ranks, granite-moe-3b-a800m at full width, grouped:
+              each layer's MoE on 2 x 1,024 tokens through the sharded
+              combine (ff 512 split in two) within 2e-2 of its largest
+              |value| of the single-process layer, with the same dropped
+              slots;
+           D. the same ranks: ``compressed_psum`` of a smollm-360m gradient
+              tree within one bin of the exact mean on every leaf, the int8
+              bytes gathered printed;
+           E. four ranks, mesh (2, 2), ``{"embed": None}``: two smollm-360m
+              train steps on 8 x 1,024 tokens (remat "full"), the losses
+              within 5e-3 and the parameters after step 1 within 5e-2 of the
+              single-process steps (the reference test's bounds), K4 on
+              every rank, the second step's K4 calls held to their plain
+              version.
+           A gloo group on the card stages DTensor's gathers through pinned
+           host memory (``launch.mesh.STAGED`` counts the bytes).
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
 5, then zeroed before each of phases 6, 7, 8, 9, 15, 10, 11, 12 A, 12 B, 13,
-14 A and 14 B and read after it (14 C's subprocesses count their own); the
-run fails if a kernel that a path runs was not launched in it (all six on
-the serve + text and store paths; K1, K2 and K3 on the session, serving and
-mesh paths; K1-K5 on the launcher, moe and vlm paths; K3 and K4 on the hybrid
-and encdec paths; K4 on the train, train sweep and train launcher paths),
-or if the ssm path launched any.  The last line is
+14 A, 14 B and 16 and read after it (14 C's subprocesses and 16's ranks
+count their own, read by the parent); the run fails if a kernel that a path
+runs was not launched in it (all six on the serve + text and store paths;
+K1, K2 and K3 on the session, serving and mesh paths; K1-K5 on the
+launcher, moe and vlm paths; K3 and K4 on the hybrid and encdec paths; K4
+on the train, train sweep, train launcher and distributed paths), or if
+the ssm path launched any.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 with launches summed over the paths.  Needs
 one CUDA card; exits 2 with no result when there is none.
@@ -352,7 +387,14 @@ from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.generation import GenerationSpec  # noqa: E402
 from repro_torch import baselines  # noqa: E402
 from repro_torch.baselines.context_compression import attention_scores_for_h2o  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_serving_mesh  # noqa: E402
+from repro_torch.models import sharding  # noqa: E402
+from repro_torch.models.attention import attn_prefill  # noqa: E402
+from repro_torch.models.common import specs_from_plan  # noqa: E402
+from repro_torch.training.grad_compress import compressed_psum  # noqa: E402
+from repro_torch.training.trainer import distribute_state  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 from repro_torch.serving import kv_layout  # noqa: E402
 from repro_torch.serving.kv_layout import ShardedCaches, caches_to_codec_kv, extract_row  # noqa: E402
 from repro_torch.serving.mesh_engine import ShardedEngine  # noqa: E402
@@ -523,6 +565,52 @@ TRAIN_TINY_LOSS_TOL = 2e-2
 TRAIN_TINY_BATCH, TRAIN_TINY_SEQ = 2, 32
 TRAIN_LAUNCH_STEPS = 20
 TRAIN_KERNELS = ("flash_attention",)
+# phase 16: the collectives on torch.distributed, one process a rank.  B:
+# smollm-360m's S-split decode cache and two rows (row 1's 3,000 tokens lie
+# in the first 4,096-slot shard only), greedy steps against the
+# single-process K3 path (tokens) and the plain decode (logits, phase 8's
+# rule), and the same decode on f32 weights against the plain f32 decode;
+# C: granite-moe-3b-a800m's grouped MoE layers on rows of tokens; E: train
+# steps under the reference test's bounds, and step 1's moments and update
+DIST_ARCH = TRAIN_ARCH
+DIST_MOE_ARCH = "granite-moe-3b-a800m"
+DIST_CAP = 8192
+DIST_LENGTHS = (6144, 3000)
+DIST_STEPS = 16
+DIST_SP_RULES = {"embed": None, "kv_seq_decode": "model"}
+# the sharded decode rounds otherwise than one process (each rank's bf16
+# partial sum of a split product, other product shapes): held to the
+# repo's rule for two bf16 paths that round differently (phase 8's)
+DIST_STEP_TOL = GEN_BATCH_REL
+# on f32 weights the sharded and the single-process decode differ only in
+# the order of f32 sums: the repo's f32 rule (of the largest |logit|)
+DIST_F32_STEPS = 2
+DIST_F32_TOL = 2e-5
+DIST_MOE_TOKENS = (2, 1024)
+DIST_MOE_TOL = 2e-2
+DIST_PSUM_TOKENS = (2, 1024)
+DIST_TRAIN_RULES = {"embed": None}
+DIST_TRAIN_STEPS = 2
+DIST_LOSS_TOL = 5e-3  # tests/test_distributed.py's bounds
+DIST_PARAM_TOL = 5e-2
+# after step 1 against the single process's step (``step_held``): each
+# first moment (0.1 of the clipped gradient) within a rule of its leaf's
+# largest |value|, and at most a share of the parameters apart (their
+# update off by more than half the single process's: AdamW's first update
+# is lr * sign(g), so an element whose gradient is rounding noise may move
+# the other way).  On f32 weights the repo's f32 rule and the CPU
+# trajectory rule's thousandth; on bf16 weights phase 8's rule for two bf16
+# paths that round differently, for both
+DIST_F32_MU_TOL, DIST_F32_UPDATE_SHARE = DIST_F32_TOL, 1e-3
+# E's f32 step runs smollm-360m at full width cut to this depth (the f32
+# step of all 32 layers took 20 s a rank and 6.3 GB of staged gathers)
+DIST_F32_TRAIN_LAYERS = 4
+DIST_MU_TOL = DIST_UPDATE_SHARE = GEN_BATCH_REL
+DIST_KERNELS = ("flash_attention",)
+# the host's profiler events that are collectives (gloo's and NCCL's calls,
+# the c10d dispatcher ops that issue them and wait for them)
+COLLECTIVE_EVENTS = ("c10d", "gloo", "nccl")
+
 # ``python -m repro_torch.launch.train`` with its arguments, printing the
 # subprocess's kernel launches as ``[launch counts] {...}`` at exit
 TRAIN_LAUNCH_COUNTED = """import json, runpy
@@ -2894,6 +2982,514 @@ def drive_train_launcher(dev, phase=lambda name: contextlib.nullcontext(), steps
     return {"lines": outs, "launches": launches}
 
 
+def _dist_mesh(dev, shape):
+    """A ``("data", "model")`` mesh of ``shape`` whose every rank runs on ``dev``."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    devices = np.empty(int(np.prod(shape)), dtype=object)
+    for i in range(devices.size):
+        devices[i] = dev
+    return Mesh(devices.reshape(shape), ("data", "model"))
+
+
+def _dist_args(tmp, name):
+    return torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=False)
+
+
+def _dist_rank_start(args):
+    """A rank's first step: the card's ranks load the library the parent
+    built (no rank runs nvcc), and every rank's launch counts start at 0.
+    Returns the rank's device."""
+    lib = args["lib"]
+    if lib is None:
+        dev = torch.device("cpu")
+    else:
+        require(os.path.exists(lib), f"distributed: the parent did not build {lib}")
+        require(_build.load_library()._name == lib, "distributed: a rank loaded another kernel library")
+        dev = torch.device("cuda", torch.cuda.current_device())
+    ops.reset_launch_counts()
+    mesh_lib.STAGED.update(calls=0, bytes=0)
+    return dev
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _collective_ms(fn, dev):
+    """(``fn()``, host ms inside collective calls): the profiler's self CPU
+    time of the c10d, gloo and NCCL events of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+        _sync(dev)
+    ms = sum(e.self_cpu_time_total for e in prof.key_averages()
+             if any(t in e.key.lower() for t in COLLECTIVE_EVENTS)) / 1e3
+    return out, ms
+
+
+def _full(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def dist_sp_rank(rank, dm, tmp, name="sp"):
+    """16 A and B on each rank: ``DIST_SP_RULES``; the prefill (K4 on each
+    rank through ``local_map``) writes each rank's S block of the caches,
+    then greedy steps through the sequence-parallel decode, each token and
+    the logits held to the parent's single-process runs; the wall ms of
+    each step and the host ms inside collectives of one.  Each step is fed
+    the single-process path's token, so every step compares one input.
+    ``name`` picks the arguments: ``"sp"`` (bf16) or ``"sp32"`` (the same
+    decode on f32 weights)."""
+    a = _dist_args(tmp, name)
+    dev = _dist_rank_start(a)
+    cfg = a["cfg"]
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(a["seed"]), dev)
+    tokens = torch.as_tensor(a["tokens"], device=dev)
+    out = {"backend": torch.distributed.get_backend(), "step_ms": [], "tokens": [], "rel": []}
+    with sharding.use_rules(dm, DIST_SP_RULES):
+        dp = sharding.distribute_tree(params, lm.param_specs(cfg))
+        del params
+        _sync(dev)
+        t0 = time.perf_counter()
+        _, caches = lm.prefill(cfg, dp, {"tokens": tokens}, pad_to=a["cap"])
+        _sync(dev)
+        out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["placements"] = str(caches.kv_k.placements)
+        caches = caches._replace(length=torch.tensor(a["lengths"], dtype=torch.int32, device=dev))
+        tok = torch.as_tensor(a["tok0"], device=dev)
+        for s in range(len(a["want_tokens"])):
+            t0 = time.perf_counter()
+            if s == 1:
+                (logits, caches), out["collective_ms"] = _collective_ms(
+                    lambda: lm.decode_step(cfg, dp, tok, caches), dev)
+            else:
+                logits, caches = lm.decode_step(cfg, dp, tok, caches)
+            logits = _full(logits)[:, -1].float()
+            out["tokens"].append(logits.argmax(-1).tolist())
+            _sync(dev)
+            out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            want = torch.as_tensor(a["plain_logits"][s], device=dev)
+            out["rel"].append(float((logits - want).abs().max() / want.abs().max()))
+            tok = torch.as_tensor(a["want_tokens"][s], device=dev)[:, None]  # the single process's token next
+    out["launches"], out["staged"] = ops.launch_counts(), dict(mesh_lib.STAGED)
+    return out
+
+
+def dist_psum_rank(rank, dm, tmp):
+    """16 A and D on each rank: a smollm-360m gradient tree at full width
+    (this rank's own batch), cast to f32, mean-reduced leaf by leaf over
+    ``"model"`` by ``compressed_psum`` and held within one bin of the
+    exact mean (an f32 ``all_reduce``); the int8 bytes gathered."""
+    a = _dist_args(tmp, "psum")
+    dev = _dist_rank_start(a)
+    cfg = a["cfg"]
+    model = build(cfg)
+    params = model.init_params(torch.Generator(dev).manual_seed(a["seed"]), dev)
+    rng = np.random.default_rng(a["seed"] + 1 + rank)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, a["tokens"]), device=dev)
+             for k in ("tokens", "labels")}
+    _, _, grads = loss_and_grads(model, params, batch)
+    del params
+    group = dm.get_group("model")
+    n = torch.distributed.get_world_size(group)
+    worst, gathered = 0.0, 0
+    t0 = time.perf_counter()
+    with sharding.use_rules(dm):
+        for g in tree_leaves(grads):
+            x = g.float()
+            y = compressed_psum(x, "model")
+            exact = x.clone()
+            torch.distributed.all_reduce(exact, group=group)
+            exact /= n
+            absmax = x.abs().max()
+            torch.distributed.all_reduce(absmax, op=torch.distributed.ReduceOp.MAX, group=group)
+            bin_ = float(absmax) / 127.0
+            worst = max(worst, float((y - exact).abs().max()) / (bin_ * 1.01 + 1e-7))
+            gathered += n * x.numel()
+    _sync(dev)
+    return {"backend": torch.distributed.get_backend(), "worst": worst, "int8_bytes": gathered,
+            "leaves": len(tree_leaves(grads)), "psum_ms": 1e3 * (time.perf_counter() - t0),
+            "launches": ops.launch_counts(), "staged": dict(mesh_lib.STAGED)}
+
+
+def dist_moe_rank(rank, dm, tmp):
+    """16 C on each rank: the model's layers single-process (uncounted) to
+    each MoE layer's input, then that layer's ``moe_apply`` with its weights
+    and input on the mesh (the sharded combine); each layer's output within
+    ``DIST_MOE_TOL`` of its largest |value| of the single-process one, and
+    the same dropped slots."""
+    a = _dist_args(tmp, "moe")
+    dev = _dist_rank_start(a)
+    cfg = a["cfg"]
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(a["seed"]), dev)
+    tokens = torch.as_tensor(a["tokens"], device=dev)
+    B, T = tokens.shape
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
+    specs = specs_from_plan(moe.moe_plan(cfg))
+    out = {"backend": torch.distributed.get_backend(), "rel": [], "drops": [], "drops_one": [], "layer_ms": []}
+    with uncounted():
+        x = lm._embed_tokens(cfg, params, tokens)
+    for p in lm._unstack(params["layers"], cfg.n_layers):
+        with uncounted():
+            h = apply_norm(cfg.norm, p["ln1"], x)
+            x = x + attn_prefill(cfg, p["attn"], h, positions)[0]
+            h2 = apply_norm(cfg.norm, p["ln2"], x)
+            want, _ = moe.moe_apply(cfg, p["moe"], h2)
+            out["drops_one"].append(int(moe.dropped_slots(cfg, p["moe"], h2)))
+        with sharding.use_rules(dm, {"embed": None}):
+            dp = sharding.distribute_tree(p["moe"], specs)
+            hd = sharding.distribute(h2, ("batch", "seq", "act_embed"))
+            _sync(dev)
+            t0 = time.perf_counter()
+            got = _full(moe.moe_apply(cfg, dp, hd)[0])
+            _sync(dev)
+            out["layer_ms"].append(1e3 * (time.perf_counter() - t0))
+            out["drops"].append(int(moe.dropped_slots(cfg, dp, hd)))
+        out["rel"].append(float((got.float() - want.float()).abs().max() / want.float().abs().max()))
+        x = x + want
+    out["launches"], out["staged"] = ops.launch_counts(), dict(mesh_lib.STAGED)
+    return out
+
+
+def step_agreement(p0, p1, mu1, want_p1, want_mu1):
+    """How far one AdamW step from parameters ``p0`` (to ``p1``, first
+    moments ``mu1``) lies from the single process's step (``want_p1``,
+    ``want_mu1``), leaf lists in one order: the largest first-moment
+    difference over its leaf's largest |value| (and that leaf's index),
+    the share of parameter elements whose update is apart from the single
+    process's (off by more than half of it; any change of an element that
+    one did not move), and the shares each step moved."""
+    mu_rel, worst, apart, moved, want_moved, n = 0.0, None, 0, 0, 0, 0
+    for i, (a, b, m, wb, wm) in enumerate(zip(p0, p1, mu1, want_p1, want_mu1)):
+        a, wb, wm = a.to(b.device), wb.to(b.device), wm.to(m.device).float()
+        rel = float((m.float() - wm).abs().max() / wm.abs().max().clamp_min(1e-30))
+        if worst is None or rel > mu_rel:
+            mu_rel, worst = rel, i
+        d, wd = b.float() - a.float(), wb.float() - a.float()
+        apart += int(((d - wd).abs() > 0.5 * wd.abs()).sum())
+        moved += int((b != a).sum())
+        want_moved += int((wb != a).sum())
+        n += a.numel()
+    return {"mu_rel": mu_rel, "mu_worst_leaf": worst, "apart": apart / n, "moved": moved / n,
+            "want_moved": want_moved / n}
+
+
+def step_held(agreement, f32=False) -> bool:
+    """16 E's rule on :func:`step_agreement`: the moments within
+    ``DIST_MU_TOL``, at most ``DIST_UPDATE_SHARE`` of the parameters apart
+    (``DIST_F32_*`` on f32 weights), and some moved."""
+    mu_tol, share = (DIST_F32_MU_TOL, DIST_F32_UPDATE_SHARE) if f32 else (DIST_MU_TOL, DIST_UPDATE_SHARE)
+    return agreement["mu_rel"] <= mu_tol and agreement["apart"] <= share and agreement["moved"] > 0
+
+
+def dist_train_rank(rank, dm, tmp, name="train"):
+    """16 E on each rank: ``DIST_TRAIN_RULES``; the parent's initial state
+    (the same seed) on the mesh (``distribute_state``), the same batches:
+    each step's loss within ``DIST_LOSS_TOL`` of the single-process
+    step's; rank 0's parameters after step 1 within ``DIST_PARAM_TOL`` of
+    the single-process ones and its step 1 measured by
+    :func:`step_agreement`; the second step with every K4 call held to its
+    plain version (``held_calls``).  ``name`` picks the arguments:
+    ``"train"`` (bf16) or ``"train32"`` (one step on f32 weights)."""
+    a = _dist_args(tmp, name)
+    dev = _dist_rank_start(a)
+    cfg = a["cfg"]
+    model = build(cfg)
+    step_fn = make_train_step(model, AdamWConfig(**a["opt"]))
+    state = init_train_state(model, torch.Generator(dev).manual_seed(a["seed"]), dev)
+    p0 = tree_leaves(state.params) if rank == 0 else None  # the step is out of place
+    out = {"backend": torch.distributed.get_backend(), "losses": [], "step_ms": [], "excess": []}
+    with sharding.use_rules(dm, DIST_TRAIN_RULES):
+        state = distribute_state(model, state)
+        for s, batch in enumerate(a["batches"]):
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            _sync(dev)
+            t0 = time.perf_counter()
+            with held_calls(out["excess"]) if s == 1 else contextlib.nullcontext():
+                state, m = step_fn(state, batch)
+            loss = float(_full(m["loss"]))
+            out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            out["losses"].append(loss)
+            if s == 0:
+                after = [_full(t) for t in tree_leaves(state.params)]
+                mu = [_full(t) for t in tree_leaves(state.opt.mu)]
+                if rank == 0:
+                    want = torch.load(os.path.join(tmp, f"{name}_step1.pt"), weights_only=True)
+                    out["param_diff"] = max(float((g.float() - w.to(dev).float()).abs().max())
+                                            for g, w in zip(after, want["p"]))
+                    out["step1"] = step_agreement(p0, after, mu, want["p"], want["mu"])
+                    del want, p0
+                del after, mu
+    out["excess"] = max((x for _, x in out["excess"]), default=None)
+    out["launches"], out["staged"] = ops.launch_counts(), dict(mesh_lib.STAGED)
+    return out
+
+
+DIST_SCENARIOS = {"sp": dist_sp_rank, "sp32": functools.partial(dist_sp_rank, name="sp32"), "psum": dist_psum_rank,
+                  "moe": dist_moe_rank, "train": dist_train_rank,
+                  "train32": functools.partial(dist_train_rank, name="train32")}
+
+
+def dist_rank(rank, dm, tmp, names):
+    """The scenarios ``names`` one after the other in one spawned group (a
+    spawn costs each rank its start); each reports the launches it made."""
+    out = {}
+    for name in names:
+        out[name] = DIST_SCENARIOS[name](rank, dm, tmp)
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
+def drive_distributed_path(dev, phase=lambda name: contextlib.nullcontext(), card="cpu", arch=DIST_ARCH,
+                           moe_arch=DIST_MOE_ARCH, lengths=DIST_LENGTHS, cap=DIST_CAP, steps=DIST_STEPS,
+                           moe_tokens=DIST_MOE_TOKENS, psum_tokens=DIST_PSUM_TOKENS, train_batch=TRAIN_BATCH,
+                           train_seq=TRAIN_SEQ, tiny=False):
+    """Phase 16: the collectives on ``torch.distributed``, one spawned
+    process a rank (``launch.mesh.run_ranks``), every rank on ``dev``.  The
+    parent builds the kernels once (``_build.load_library``) and every rank
+    loads that library; the parent runs the single-process references
+    (uncounted), the ranks report their launch counts and checks, and the
+    parent prints a JSON line a sub-phase and holds every check.  Returns
+    the ranks' launches, summed.
+
+    A. one rank, mesh (1, 1): on the card NCCL (each rank a card of its
+       own); ``compressed_psum`` of a gradient tree and ``DIST_SP_RULES``'s
+       decode (a 2-step run of B);
+    B. two ranks on the card, mesh (1, 2) (gloo: the ranks share the card):
+       ``arch`` at full width under ``DIST_SP_RULES``: the caches hold
+       ``cap`` slots split over the two ranks, row 0 ``lengths[0]`` tokens,
+       row 1 ``lengths[1]`` (in the first shard only); ``steps`` steps fed
+       the single-process K3 path's greedy tokens, each step's token equal
+       to that path's (or apart at a near tie, printed) and its logits
+       within ``DIST_STEP_TOL`` of the plain single-process decode's; wall
+       ms a step, host ms in collectives; then ``DIST_F32_STEPS`` steps of
+       the same decode on f32 weights, each token the plain f32 decode's
+       and the logits within ``DIST_F32_TOL`` of it (a rank's dropped or
+       doubled partial moves them by far more);
+    C. the same two ranks, ``moe_arch`` at full width, grouped dispatch: each
+       layer's MoE on ``moe_tokens`` rows through the sharded combine
+       (``ff`` split over ``"model"``), within ``DIST_MOE_TOL`` of the
+       single-process layer and with its dropped slots;
+    D. the same two ranks: ``compressed_psum`` over ``"model"`` of a
+       gradient tree of ``arch`` within one bin of the exact mean on every
+       leaf; the int8 bytes gathered;
+    E. four ranks, mesh (2, 2), ``DIST_TRAIN_RULES``: ``DIST_TRAIN_STEPS``
+       steps of ``arch`` on ``train_batch`` x ``train_seq`` tokens (remat as
+       registered), losses within ``DIST_LOSS_TOL`` of the single-process
+       steps, parameters after step 1 within ``DIST_PARAM_TOL``, and step
+       1 held by :func:`step_held` (its moments and its update against the
+       single process's; the rule must reject a step that changes nothing
+       and the single process's step on half the batch); K4 counted on every
+       rank, the second step's calls held to the plain version; then one
+       step of the same on f32 weights (``DIST_F32_TRAIN_LAYERS`` deep),
+       held by the f32 rules."""
+    on_card = dev.type == "cuda"
+    cfg_of = (lambda name: registry.get(name).tiny()) if tiny else registry.get
+
+    def same_tokens(name, got, want, plain, tol=DIST_STEP_TOL):
+        """Each step's token (from the same inputs) equal to the single
+        process's, or apart only at a near tie: the two tokens' plain logits
+        within ``tol`` of the row's largest |logit|.  Returns the ties."""
+        ties = []
+        for s, (g, w) in enumerate(zip(got, want)):
+            for row, (x, y) in enumerate(zip(g, w)):
+                if x != y:
+                    gap = float(plain[s][row, y] - plain[s][row, x]) / float(np.abs(plain[s][row]).max())
+                    require(gap <= tol, f"{name}: step {s} row {row} chose {x}, the single process {y}: "
+                            f"{gap:.3g} of the largest |logit| apart (rule {tol})")
+                    ties.append((s, row, gap))
+        return ties
+
+    lib = _build.load_library()._name if on_card else None
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    lm_data_cfg = cfg_of(arch)
+
+    def report(name, per_rank, **extra):
+        for r in per_rank:
+            for k in launches:
+                launches[k] += r["launches"][k]
+        line = {"phase": f"16 {name}", "ranks": len(per_rank), "backend": per_rank[0].get("backend"),
+                "launches": [r["launches"]["flash_attention"] for r in per_rank],
+                "staged": [r["staged"] for r in per_rank], "card": card, **extra}
+        print(json.dumps(line), flush=True)
+
+    with phase("distributed"), tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        def save(name, args):
+            torch.save(dict(args, lib=lib), os.path.join(tmp, f"{name}.pt"))
+
+        # ---- the single-process references of A and B (uncounted)
+        cfg = lm_data_cfg
+        rng = np.random.default_rng(SEED + 16)
+        tokens = rng.integers(0, cfg.vocab_size, (len(lengths), max(lengths)))
+        tok0 = tokens[:, :1]
+        with uncounted():
+            params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED + 16), dev)
+            _, caches = lm.prefill(cfg, params, {"tokens": torch.as_tensor(tokens, device=dev)}, pad_to=cap)
+            caches = caches._replace(length=torch.tensor(lengths, dtype=torch.int32, device=dev))
+            plain_caches = caches.clone()
+            want_tokens, k3_logits, tok = [], [], torch.as_tensor(tok0, device=dev)
+            for _ in range(steps):
+                logits, caches = lm.decode_step(cfg, params, tok, caches)
+                tok = logits[:, -1].argmax(-1)[:, None]
+                want_tokens.append(tok[:, 0].tolist())
+                k3_logits.append(logits[:, -1].float().cpu().numpy())
+            plain_logits, tok = [], torch.as_tensor(tok0, device=dev)
+            with plain_attention():
+                for s in range(steps):
+                    logits, plain_caches = lm.decode_step(cfg, params, tok, plain_caches)
+                    plain_logits.append(logits[:, -1].float().cpu().numpy())
+                    tok = torch.as_tensor(want_tokens[s], device=dev)[:, None]
+        k3_rel = max(float(np.abs(k - p).max() / np.abs(p).max()) for k, p in zip(k3_logits, plain_logits))
+        del params, caches, plain_caches, logits
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        sp = dict(cfg=cfg, seed=SEED + 16, tokens=tokens, tok0=tok0, lengths=lengths, cap=cap,
+                  want_tokens=want_tokens, plain_logits=plain_logits)
+
+        # ---- the f32 reference of B's f32 run: K4's f32 prefill, then the
+        # plain decode's own greedy tokens (uncounted)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        with uncounted():
+            params = lm.init_params(cfg32, torch.Generator(dev).manual_seed(SEED + 16), dev)
+            _, caches = lm.prefill(cfg32, params, {"tokens": torch.as_tensor(tokens, device=dev)}, pad_to=cap)
+            caches = caches._replace(length=torch.tensor(lengths, dtype=torch.int32, device=dev))
+            f32_tokens, f32_logits, tok = [], [], torch.as_tensor(tok0, device=dev)
+            with plain_attention():
+                for _ in range(DIST_F32_STEPS):
+                    logits, caches = lm.decode_step(cfg32, params, tok, caches)
+                    f32_logits.append(logits[:, -1].cpu().numpy())
+                    tok = logits[:, -1].argmax(-1)[:, None]
+                    f32_tokens.append(tok[:, 0].tolist())
+        del params, caches, logits
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        psum = dict(cfg=cfg, seed=SEED + 16, tokens=psum_tokens)
+
+        # ---- A: one rank (NCCL on the card)
+        save("sp", dict(sp, want_tokens=want_tokens[:2], plain_logits=plain_logits[:2]))
+        save("psum", psum)
+        a = mesh_lib.run_ranks(dist_rank, _dist_mesh(dev, (1, 1)), (tmp, ("sp", "psum")))
+        a_sp, a_psum = [r["sp"] for r in a], [r["psum"] for r in a]
+        for r in a_sp:
+            same_tokens("16 A", r["tokens"], want_tokens[:2], plain_logits)
+            require(max(r["rel"]) <= DIST_STEP_TOL, f"16 A: logits {max(r['rel']):.3g} off the plain decode")
+        require(a_psum[0]["worst"] <= 1, f"16 A: compressed_psum {a_psum[0]['worst']:.3g} bins off the mean")
+        want_backend = "nccl" if on_card else "gloo"
+        require(a_sp[0]["backend"] == a_psum[0]["backend"] == want_backend,
+                f"16 A: backend {a_sp[0]['backend']}, not {want_backend}")
+        report("A", a_sp + a_psum, ranks=1, step_ms=[r["step_ms"] for r in a_sp], rel=[max(r["rel"]) for r in a_sp],
+               psum_worst=a_psum[0]["worst"])
+
+        # ---- B, C and D: one group of two ranks on the card
+        save("sp", sp)
+        save("sp32", dict(sp, cfg=cfg32, want_tokens=f32_tokens, plain_logits=f32_logits))
+        mcfg = dataclasses.replace(cfg_of(moe_arch), moe_dispatch="grouped")
+        mtok = np.random.default_rng(SEED + 17).integers(0, mcfg.vocab_size, moe_tokens)
+        save("moe", dict(cfg=mcfg, seed=SEED + 17, tokens=mtok))
+        bcd = mesh_lib.run_ranks(dist_rank, _dist_mesh(dev, (1, 2)), (tmp, ("sp", "sp32", "moe", "psum")))
+        b, b32, c, d = ([r[name] for r in bcd] for name in ("sp", "sp32", "moe", "psum"))
+        ties = []
+        for r in b:
+            ties.append(same_tokens("16 B", r["tokens"], want_tokens, plain_logits))
+            require(max(r["rel"]) <= DIST_STEP_TOL, f"16 B: logits {max(r['rel']):.3g} of their largest |value| "
+                    f"off the plain decode (rule {DIST_STEP_TOL})")
+            require(r["launches"]["decode_attention"] == 0, "16 B: K3 ran on the mesh path")
+        report("B", b, near_ties=ties, k3_rel=k3_rel, placements=b[0]["placements"], prefill_ms=[r["prefill_ms"] for r in b],
+               step_ms=[r["step_ms"] for r in b], collective_ms=[r["collective_ms"] for r in b],
+               rel=[max(r["rel"]) for r in b])
+        for r in b32:
+            same_tokens("16 B f32", r["tokens"], f32_tokens, f32_logits, tol=DIST_F32_TOL)
+            require(r["launches"]["decode_attention"] == 0, "16 B f32: K3 ran on the mesh path")
+            require(max(r["rel"]) <= DIST_F32_TOL, f"16 B f32: logits {max(r['rel']):.3g} of their largest "
+                    f"|value| off the plain f32 decode (rule {DIST_F32_TOL})")
+        report("B f32", b32, rel=[max(r["rel"]) for r in b32], tokens=b32[0]["tokens"],
+               step_ms=[r["step_ms"] for r in b32])
+
+        # ---- C: the same two ranks, the grouped MoE's sharded combine
+        for r in c:
+            require(max(r["rel"]) <= DIST_MOE_TOL, f"16 C: a layer's output {max(r['rel']):.3g} of its largest "
+                    f"|value| off the single-process one")
+            require(r["drops"] == r["drops_one"], f"16 C: dropped slots {r['drops']} != {r['drops_one']}")
+        report("C", c, rel=[max(r["rel"]) for r in c], drops=c[0]["drops"],
+               layer_ms=[round(float(np.mean(r["layer_ms"])), 3) for r in c])
+
+        # ---- D: the same two ranks, compressed_psum of a gradient tree
+        for r in d:
+            require(r["worst"] <= 1, f"16 D: compressed_psum {r['worst']:.3g} bins off the exact mean")
+        report("D", d, worst=[r["worst"] for r in d], leaves=d[0]["leaves"],
+               int8_bytes=[r["int8_bytes"] for r in d], psum_ms=[r["psum_ms"] for r in d])
+
+        # ---- E: four ranks, mesh (2, 2), the sharded train step
+        tcfg = cfg
+        lm_data = MarkovLM(vocab_size=tcfg.vocab_size, seed=2, stickiness=0.6)
+        batches = [_train_batch(lm_data, s, train_batch, train_seq) for s in range(DIST_TRAIN_STEPS)]
+        model = build(tcfg)
+        with uncounted():
+            state = init_train_state(model, torch.Generator(dev).manual_seed(SEED + 18), dev)
+            step_fn = make_train_step(model, AdamWConfig(**TRAIN_OPT))
+            want_losses = []
+            for s, batch in enumerate(batches):
+                batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+                new, m = step_fn(state, batch)
+                want_losses.append(float(m["loss"]))
+                if s == 0:
+                    # the rule's planted faults: a step that changes nothing,
+                    # and the step on half the batch
+                    p0, want = tree_leaves(state.params), (tree_leaves(new.params), tree_leaves(new.opt.mu))
+                    half, _ = step_fn(state, {k: v[: len(v) // 2] for k, v in batch.items()})
+                    controls = {"no update": step_agreement(p0, p0, [torch.zeros_like(x) for x in want[1]], *want),
+                                "half the batch": step_agreement(p0, tree_leaves(half.params),
+                                                                 tree_leaves(half.opt.mu), *want)}
+                    require(not any(step_held(x) for x in controls.values()),
+                            f"16 E: the step rule misses a planted fault: {controls}")
+                    torch.save({"p": [t.cpu() for t in want[0]], "mu": [t.cpu() for t in want[1]]},
+                               os.path.join(tmp, "train_step1.pt"))
+                    del p0, want, half
+                state = new
+            # E f32: step 1 on f32 weights, held to the f32 rules
+            tcfg32 = dataclasses.replace(tcfg, dtype="float32",
+                                         n_layers=min(tcfg.n_layers, DIST_F32_TRAIN_LAYERS))
+            model = build(tcfg32)
+            state = init_train_state(model, torch.Generator(dev).manual_seed(SEED + 18), dev)
+            new, _ = make_train_step(model, AdamWConfig(**TRAIN_OPT))(
+                state, {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()})
+            torch.save({"p": [t.cpu() for t in tree_leaves(new.params)],
+                        "mu": [t.cpu() for t in tree_leaves(new.opt.mu)]}, os.path.join(tmp, "train32_step1.pt"))
+        del state, new, model, m
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        save("train", dict(cfg=tcfg, seed=SEED + 18, opt=TRAIN_OPT, batches=batches))
+        save("train32", dict(cfg=tcfg32, seed=SEED + 18, opt=TRAIN_OPT, batches=batches[:1]))
+        e, e32 = zip(*[(r["train"], r["train32"]) for r in
+                       mesh_lib.run_ranks(dist_rank, _dist_mesh(dev, (2, 2)), (tmp, ("train", "train32")))])
+        for r in e:
+            diff = [abs(x - y) for x, y in zip(r["losses"], want_losses)]
+            require(max(diff) <= DIST_LOSS_TOL, f"16 E: losses {r['losses']} vs {want_losses}")
+            if on_card:
+                require(r["launches"]["flash_attention"] > 0, f"16 E: a rank launched no K4: {r['launches']}")
+                require(r["excess"] is not None and r["excess"] <= 1,
+                        f"16 E: a K4 call {r['excess']} times its rule off its plain version")
+        require(e[0]["param_diff"] <= DIST_PARAM_TOL, f"16 E: parameters {e[0]['param_diff']:.3g} off after step 1")
+        require(step_held(e[0]["step1"]), f"16 E: step 1 against the single process's: {e[0]['step1']} (rules: "
+                f"moments {DIST_MU_TOL}, parameters apart {DIST_UPDATE_SHARE}, some moved)")
+        report("E", e, losses=[r["losses"] for r in e], want_losses=want_losses, param_diff=e[0]["param_diff"],
+               step1=e[0]["step1"], controls=controls, step_ms=[r["step_ms"] for r in e],
+               k4_excess=[r["excess"] for r in e])
+        require(step_held(e32[0]["step1"], f32=True), f"16 E f32: step 1 against the single process's: "
+                f"{e32[0]['step1']} (rules: moments {DIST_F32_MU_TOL}, parameters apart {DIST_F32_UPDATE_SHARE})")
+        report("E f32", e32, losses=[r["losses"] for r in e32], step1=e32[0]["step1"],
+               step_ms=[r["step_ms"] for r in e32])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3762,11 +4358,19 @@ def main() -> int:
     paths["train launcher"] = drive_train_launcher(dev, phase=lambda name: Phase(name, phase_ms))["launches"]
     require(ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0), "the train launcher launched in this process")
 
+    # --------------------------------------------------------- 16 distributed
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    paths["distributed"] = drive_distributed_path(dev, phase=lambda name: Phase(name, phase_ms), card=smi)
+    require(ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0),
+            "the distributed path's single-process references were counted in this process")
+
     # --------------------------------------------------------------- summary
     runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
             "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "mesh": MESH_KERNELS, "moe": MOE_KERNELS, "vlm": VLM_KERNELS,
             "ssm": SSM_KERNELS, "hybrid": HYBRID_KERNELS, "encdec": ENCDEC_KERNELS, "train": TRAIN_KERNELS,
-            "train sweep": TRAIN_KERNELS, "train launcher": TRAIN_KERNELS}
+            "train sweep": TRAIN_KERNELS, "train launcher": TRAIN_KERNELS, "distributed": DIST_KERNELS}
     require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")
     require(not any(paths["ssm"].values()), f"the attention-free ssm path launched kernels: {paths['ssm']}")
     for path, counts in paths.items():

@@ -10,7 +10,7 @@ key as itself, a NamedTuple field as ``.name`` (how JAX renders a
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 __all__ = ["tree_leaves", "tree_map", "tree_flatten_with_path", "tree_unflatten"]
 
@@ -19,14 +19,17 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def tree_flatten_with_path(tree) -> List[Tuple[Tuple[str, ...], Any]]:
-    """``[(key path, leaf), ...]`` in flatten order."""
+def tree_flatten_with_path(tree, is_leaf: Optional[Callable[[Any], bool]] = None) -> List[Tuple[Tuple[str, ...], Any]]:
+    """``[(key path, leaf), ...]`` in flatten order; ``is_leaf`` marks nodes
+    to keep whole (a spec's tuple of axis names, a ``NamedSharding``)."""
     out: List[Tuple[Tuple[str, ...], Any]] = []
 
     def walk(node, path):
         if node is None:
             return
-        if isinstance(node, dict):
+        if is_leaf is not None and is_leaf(node):
+            out.append((path, node))
+        elif isinstance(node, dict):
             for k in sorted(node):
                 walk(node[k], path + (str(k),))
         elif _is_namedtuple(node):
@@ -42,8 +45,8 @@ def tree_flatten_with_path(tree) -> List[Tuple[Tuple[str, ...], Any]]:
     return out
 
 
-def tree_leaves(tree) -> List[Any]:
-    return [leaf for _, leaf in tree_flatten_with_path(tree)]
+def tree_leaves(tree, is_leaf: Optional[Callable[[Any], bool]] = None) -> List[Any]:
+    return [leaf for _, leaf in tree_flatten_with_path(tree, is_leaf)]
 
 
 def tree_unflatten(like, leaves) -> Any:

@@ -20,9 +20,11 @@ the tensor with the logical dtype in the manifest, as the reference stores
 its ``ml_dtypes`` arrays, and read back by viewing those bytes as the
 torch dtype: no ``ml_dtypes`` and no numpy bf16 dtype is needed.
 
-``restore`` casts each leaf to the target leaf's dtype and device.  The
-reference's ``shardings`` argument (restore against another device mesh)
-waits for the port's multi-device slice.
+``restore`` casts each leaf to the target leaf's dtype and device; with
+``shardings`` (a tree of ``sharding.NamedSharding`` over a process-group
+``DeviceMesh``, as ``sharding.named_sharding`` gives) each leaf is put on
+that mesh as a DTensor of the spec's placements, each rank keeping its
+block: how a job resumes on another topology.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch._tree import tree_flatten_with_path, tree_unflatten
+from repro_torch._tree import tree_flatten_with_path, tree_leaves, tree_unflatten
 
 __all__ = ["CheckpointManager"]
 
@@ -130,18 +132,35 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target_like: Any) -> Any:
+    def restore(self, step: int, target_like: Any, shardings: Any = None) -> Any:
         """Restore into the structure of ``target_like``: each leaf cast to
         the matching target leaf's dtype and device; a shape that differs
-        from the target's raises."""
+        from the target's raises.  ``shardings``: an optional tree of the
+        same structure holding a ``sharding.NamedSharding`` a leaf; each
+        leaf becomes a DTensor on that sharding's mesh, placed by its spec
+        (cross-topology resume)."""
+        from repro_torch.models.sharding import NamedSharding, placements
+
         path = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(path, "metadata.json")) as f:
             meta = json.load(f)
+        keyed = _keyed(target_like)
+        where = None
+        if shardings is not None:
+            where = tree_leaves(shardings, is_leaf=lambda n: isinstance(n, NamedSharding))
+            if len(where) != len(keyed):
+                raise ValueError(f"shardings hold {len(where)} leaves for a tree of {len(keyed)}")
         leaves = []
-        for key, like in _keyed(target_like):
+        for i, (key, like) in enumerate(keyed):
             info = meta["leaves"][key]
             t = _from_storable(np.load(os.path.join(path, info["file"])), info["dtype"], info["shape"])
             if tuple(t.shape) != tuple(like.shape):
                 raise ValueError(f"shape mismatch for {key}: {tuple(t.shape)} vs {tuple(like.shape)}")
-            leaves.append(t.to(device=like.device, dtype=like.dtype))
+            t = t.to(device=like.device, dtype=like.dtype)
+            if where is not None:
+                from torch.distributed.tensor import distribute_tensor
+
+                ns = where[i]
+                t = distribute_tensor(t, ns.mesh, placements(ns.spec, ns.mesh), src_data_rank=None)
+            leaves.append(t)
         return tree_unflatten(target_like, leaves)

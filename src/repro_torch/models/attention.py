@@ -14,20 +14,34 @@
     on every device;
   * GQA throughout (n_kv_heads <= n_heads).
 
-The reference's sequence-parallel decode and sharding constraints reduce
-over devices (``pmax``/``psum`` over the sequence shards); the port's mesh
-(``launch.mesh``) shards only cache rows, whose bodies need no collective,
-so they have no counterpart here yet.
+Under a process-group mesh (``sharding.use_rules`` with a ``DeviceMesh``,
+one process a device) the tensors are DTensors and the reference's
+sharding constraints apply (``sharding.constrain``).  Prefill runs K4 on
+each rank's own batch rows and query heads (``local_map``), whatever the
+mesh, as the reference's ``kops.mha`` does.  Decode follows the
+reference's dispatch: K3 only without such a mesh; with one whose
+``"kv_seq_decode"`` rule names an axis, the sequence-parallel decode
+(:func:`_decode_mha_sp`: each rank's block of the cache's S axis gives a
+partial ``(m, l, acc)``, combined by one ``all_reduce(MAX)`` and two
+``all_reduce(SUM)`` over that axis); with any other, the plain decode on
+each rank's rows.  The new token's K/V lands only on the rank that holds
+its slot (:func:`write_at`).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.models import sharding
 from repro_torch.models.common import Leaf, rope
 
 __all__ = [
@@ -63,13 +77,69 @@ def _project_qkv(cfg: ArchConfig, p, x, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, cfg.n_heads, cfg.d_head)
-    k = k.reshape(B, T, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    q = _split_heads(q, cfg.n_heads, cfg.d_head)
+    k = _split_heads(k, cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(v, cfg.n_kv_heads, cfg.d_head)
     q = rope(q, positions, cfg.rope_theta)
     k_pre = k
     k = rope(k, positions, cfg.rope_theta)
+    q = sharding.constrain(q, "batch", "seq", "act_heads", "head_dim")
+    k = sharding.constrain(k, "batch", "seq", "act_kv", "head_dim")
+    v = sharding.constrain(v, "batch", "seq", "act_kv", "head_dim")
     return q, k, v, k_pre
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
+    """(B, T, H * Dh) -> (B, T, H, Dh).  A DTensor whose last axis is split
+    over more shards than divide the heads is gathered on it first (15
+    heads' columns split two ways cannot become whole heads)."""
+    B, T = x.shape[:2]
+    if isinstance(x, DTensor) and n_heads % sharding.shard_count(x, 2):
+        x = x.redistribute(x.device_mesh, [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+                                           for p in x.placements])
+    return x.reshape(B, T, n_heads, d_head)
+
+
+def _kv_heads_for(q_heads: range, rep: int, k_first: int, n_k: int):
+    """The local K/V heads that the global query heads ``q_heads`` read (GQA
+    ratio ``rep``), given the rank's K/V heads start at global head
+    ``k_first``: a slice when the query heads take whole groups or share one
+    K/V head, else one index per query head."""
+    idx = [h // rep - k_first for h in q_heads]
+    if min(idx) < 0 or max(idx) >= n_k:
+        raise ValueError(f"query heads {q_heads} read K/V heads outside this rank's {k_first}..{k_first + n_k}")
+    first, n = idx[0], idx[-1] - idx[0] + 1
+    if len(q_heads) % n == 0 and idx == [first + j // (len(q_heads) // n) for j in range(len(q_heads))]:
+        return slice(first, first + n)
+    return torch.tensor(idx)
+
+
+def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, prefix_len, causal: bool):
+    """K4 on each rank's own batch rows and query heads of DTensors ``q``
+    (B, T, Hq, D), ``k``/``v`` (B, T, Hkv, D): the sequence axis is whole on
+    every rank (``"seq"`` is never split), K/V are brought to ``q``'s batch
+    split, and each rank reads the K/V heads its query heads need.  Runs
+    under autograd (``kernels.ops``' Function through ``local_map``)."""
+    mesh = q.device_mesh
+    kv_pl = [pq if isinstance(pq, Shard) and pq.dim == 0 else pk for pq, pk in zip(q.placements, k.placements)]
+    k, v = k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl)
+    Hq, Hkv = q.shape[2], k.shape[2]
+    h0, b0 = sharding.shard_offset(q, 2), sharding.shard_offset(q, 0)
+    hq = Hq // sharding.shard_count(q, 2)
+    heads = _kv_heads_for(range(h0, h0 + hq), Hq // Hkv, sharding.shard_offset(k, 2), Hkv // sharding.shard_count(k, 2))
+    b_loc = q.shape[0] // sharding.shard_count(q, 0)
+    plen = None if prefix_len is None else prefix_len[b0:b0 + b_loc]
+
+    # K/V whole on the ranks that split the query heads: each rank's gradient
+    # covers its own heads' reads, so the ranks' gradients add up
+    kv_grad = [Partial() if isinstance(pq, Shard) and pq.dim == 2 and isinstance(pk, Replicate) else pk
+               for pq, pk in zip(q.placements, kv_pl)]
+
+    def local(q, k, v):
+        return ops.flash_attention(q, k[:, :, heads], v[:, :, heads], plen, causal=causal)
+
+    return local_map(local, out_placements=list(q.placements), in_placements=(list(q.placements), kv_pl, kv_pl),
+                     in_grad_placements=(list(q.placements), kv_grad, kv_grad), device_mesh=mesh)(q, k, v)
 
 
 def attn_prefill(
@@ -87,7 +157,10 @@ def attn_prefill(
     it at read time); attention math always uses roped K.
     """
     q, k, v, k_pre = _project_qkv(cfg, p, x, positions)
-    o = ops.flash_attention(q, k, v, prefix_len, causal=causal)
+    if isinstance(q, DTensor):
+        o = _flash_attention_sharded(q, k, v, prefix_len, causal)
+    else:
+        o = ops.flash_attention(q, k, v, prefix_len, causal=causal)
     B, T, _, _ = q.shape
     out = o.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"]
     k_cache = k_pre if cfg.prerope_kv_cache else k
@@ -101,13 +174,36 @@ def write_at(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> Non
     The start clamps to ``[0, S - T]`` as ``jax.lax.dynamic_update_slice``
     clamps it, so an overhanging write lands on the last T slots instead of
     raising or being dropped.
+
+    A DTensor ``cache`` (split over rows and slots) is written in its local
+    form: each rank writes the rows and slots of its own block, from
+    ``new`` brought to the cache's row split, so a slot lands on the one
+    rank that holds it.
     """
+    if isinstance(cache, DTensor):
+        return _write_at_sharded(cache, new, start)
     B, S = cache.shape[:2]
     T = new.shape[1]
     s0 = start.to(torch.int64).clamp(0, S - T)
     idx = s0[:, None] + torch.arange(T, device=cache.device)[None, :]
     rows = torch.arange(B, device=cache.device)[:, None].expand(B, T)
     cache[rows, idx] = new.to(cache.dtype)
+
+
+def _write_at_sharded(cache: DTensor, new, start: torch.Tensor) -> None:
+    S, T = cache.shape[1], new.shape[1]
+    if isinstance(new, DTensor):
+        new = new.redistribute(cache.device_mesh, sharding.split_only(cache)).to_local()
+    local = cache.to_local()
+    b0, s0 = sharding.shard_offset(cache, 0), sharding.shard_offset(cache, 1)
+    b_loc, s_loc = local.shape[:2]
+    if new.shape[0] != b_loc:
+        new = new[b0:b0 + b_loc]
+    first = start.to(torch.int64)[b0:b0 + b_loc].to(local.device).clamp(0, S - T)
+    pos = first[:, None] + torch.arange(T, device=local.device)[None, :] - s0
+    mine = (pos >= 0) & (pos < s_loc)
+    rows = torch.arange(b_loc, device=local.device)[:, None].expand(b_loc, T)
+    local[rows[mine], pos[mine]] = new.to(local.dtype)[mine]
 
 
 def attn_decode(
@@ -134,9 +230,66 @@ def attn_decode(
         kc_read = rope(kc, pos_grid, cfg.rope_theta)
     else:
         kc_read = kc
-    o = ops.decode_attention(q[:, 0], kc_read, vc, kv_len)
+    mesh = sharding.process_mesh()
+    if mesh is None:
+        o = ops.decode_attention(q[:, 0], kc_read, vc, kv_len)
+    else:
+        o = _decode_mha_sp(q[:, 0], kc_read, vc, kv_len, mesh)
     out = o.reshape(B, 1, cfg.n_heads * cfg.d_head)
     return out.to(p["wo"].dtype) @ p["wo"]
+
+
+def _decode_mha_sp(q, kc, vc, kv_len, mesh):
+    """Decode attention of q (B, Hq, D) against DTensor caches (B, S, Hkv, D)
+    in their local form, each rank on its own rows.  Where the rules'
+    ``"kv_seq_decode"`` axis splits the cache's S evenly (the
+    sequence-parallel decode): each rank masks its block's positions ``s0 + arange(S_loc)``
+    against ``kv_len``, computes a partial ``(m, l, acc)`` in f32, and the
+    blocks combine by ``all_reduce(MAX)`` of ``m`` and ``all_reduce(SUM)`` of
+    the rescaled ``l`` and ``acc`` over that axis's group.  Elsewhere the
+    rank's rows are whole and the plain decode runs on them.  Both compute in
+    f32 from the cache's values, as K3 does (the reference's einsums round
+    the bf16 scores first)."""
+    if not isinstance(kc, DTensor):
+        raise TypeError("the process-group decode takes DTensor caches")
+    spec = sharding.divisible(sharding.logical_to_spec(("batch", "kv_seq_decode", None, None)), kc.shape, mesh)
+    seq_axis = spec[1]
+    want = sharding.placements(spec, mesh)
+    kc, vc = kc.redistribute(mesh, want), vc.redistribute(mesh, want)
+    rows = sharding.split_only(kc)
+    k_loc, v_loc = kc.to_local(), vc.to_local()
+    b0, B = sharding.shard_offset(kc, 0), k_loc.shape[0]
+    q_loc = q.redistribute(mesh, rows).to_local() if isinstance(q, DTensor) else q[b0:b0 + B]
+    Hq, D = q_loc.shape[1], q_loc.shape[2]
+    lens = kv_len[b0:b0 + B].to(k_loc.device)
+    q_loc, k_loc, v_loc = q_loc.float(), k_loc.float(), v_loc.float()  # K3's arithmetic: f32 from the cache
+    if seq_axis is None:
+        o = decode_attention_plain(q_loc, k_loc, v_loc, lens).to(q.dtype)
+    else:
+        if not isinstance(seq_axis, str):
+            raise ValueError(f"the sequence-parallel decode splits S over one mesh axis, not {seq_axis}")
+        group = mesh.get_group(seq_axis)
+        S_loc, Hkv = k_loc.shape[1], k_loc.shape[2]
+        rep = Hq // Hkv
+        scale = 1.0 / np.sqrt(D)
+        qg = q_loc.reshape(B, Hkv, rep, D)
+        s = torch.einsum("bkrd,bskd->bkrs", qg, k_loc) * scale
+        pos = sharding.shard_offset(kc, 1) + torch.arange(S_loc, device=k_loc.device)
+        mask = pos[None, None, None, :] < lens[:, None, None, None]
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+        m = s.amax(dim=-1, keepdim=True)
+        pr = torch.exp(s - m)
+        l = pr.sum(dim=-1, keepdim=True)
+        acc = torch.einsum("bkrs,bskd->bkrd", pr, v_loc)
+        m_glob = m.clone()
+        dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
+        corr = torch.exp(m - m_glob)
+        l_glob = l * corr
+        acc_glob = acc * corr
+        dist.all_reduce(l_glob, group=group)
+        dist.all_reduce(acc_glob, group=group)
+        o = (acc_glob / torch.clamp_min(l_glob, 1e-30)).reshape(B, Hq, D).to(q.dtype)
+    return DTensor.from_local(o, mesh, rows, run_check=False)
 
 
 def memory_kv(cfg: ArchConfig, p, mem: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

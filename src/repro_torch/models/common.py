@@ -3,10 +3,12 @@
 Parameters are plain nested dicts of tensors with the reference's layout:
 per-layer weights stacked on a leading ``L`` axis, projections stored
 ``(in, out)`` and applied as ``x @ W``.  A *plan* is the single source of
-truth for each parameter's shape and init scale; :func:`init_from_plan`
-materializes values from a ``torch.Generator`` with the reference's std
-rule (its random numbers differ: the tests share weights through
-``models.convert.params_from_numpy`` instead).
+truth for each parameter's shape, logical sharding axes and init scale;
+:func:`init_from_plan` materializes values from a ``torch.Generator`` with
+the reference's std rule (its random numbers differ: the tests share
+weights through ``models.convert.params_from_numpy`` instead) and
+:func:`specs_from_plan` derives the matching tree of logical axes, so the
+two can never drift.
 """
 from __future__ import annotations
 
@@ -16,10 +18,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.models.sharding import constrain
 
 __all__ = [
     "Leaf",
     "init_from_plan",
+    "specs_from_plan",
     "rmsnorm",
     "layernorm",
     "apply_norm",
@@ -81,6 +87,11 @@ def init_from_plan(plan: Dict[str, Any], generator: torch.Generator, device, dty
         else:
             out[name] = init_from_plan(node, generator, device, dtype)
     return out
+
+
+def specs_from_plan(plan: Dict[str, Any]) -> Dict[str, Any]:
+    """The plan's tree with each leaf's logical axes in its place."""
+    return {name: node.logical if isinstance(node, Leaf) else specs_from_plan(node) for name, node in plan.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +195,14 @@ def mlp_apply(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.T
         g = maybe_bias(x @ p["w_gate"], "b_gate")
         u = maybe_bias(x @ p["w_up"], "b_up")
         act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
-        return maybe_bias((act * u) @ p["w_down"], "b_down")
+        h = act * u
+        if h.ndim == 3:
+            h = constrain(h, "batch", "seq", "act_mlp")
+        return maybe_bias(h @ p["w_down"], "b_down")
     if kind == "gelu":
         h = F.gelu(maybe_bias(x @ p["w_up"], "b_up"), approximate="tanh")
+        if h.ndim == 3:
+            h = constrain(h, "batch", "seq", "act_mlp")
         return maybe_bias(h @ p["w_down"], "b_down")
     raise ValueError(f"unknown mlp {kind}")
 
@@ -198,11 +214,28 @@ def mlp_apply(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.T
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean CE over masked positions, in f32.  logits (..., V), labels (...)."""
+    """Mean CE over masked positions, in f32.  logits (..., V), labels (...).
+
+    DTensor logits (split over the vocab by ``"act_vocab"``) take DTensor's
+    own ops: the log-sum-exp written out around a detached maximum, and the
+    label's logit picked by comparing the vocab index with the label (a
+    gather along a split vocab has no DTensor rule).  The sums over the
+    vocab are reduced by an explicit ``redistribute`` before they are
+    combined: under torch 2.11 the reduction DTensor inserts for ``log`` by
+    itself gives a wrong gradient when the batch is split as well."""
     logits = logits.to(torch.float32)
     labels = torch.as_tensor(labels, device=logits.device).to(torch.long)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        mesh, last = logits.device_mesh, logits.ndim - 1
+        rows = [Replicate() if isinstance(p, Shard) and p.dim % logits.ndim == last else p for p in logits.placements]
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        se = torch.exp(logits - m).sum(dim=-1).redistribute(mesh, rows)
+        lse = m[..., 0].redistribute(mesh, rows) + torch.log(se)
+        hit = torch.arange(logits.shape[-1], device=logits.device) == labels[..., None]
+        ll = torch.where(hit, logits, 0.0).sum(dim=-1).redistribute(mesh, rows)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = lse - ll
     if mask is None:
         return nll.mean()

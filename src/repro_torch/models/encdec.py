@@ -14,7 +14,9 @@ its cross-attention reads the static cross K/V through K3's plain version
 with no memory, which ``prefill`` never makes).  As in the reference, no
 codec, engine or launcher path serves this family (the reference's
 ``Engine`` builds the ``lm`` families only), and the layers run as a
-Python loop over the stacked weights.
+Python loop over the stacked weights.  The reference's sharding
+constraints (``sharding.constrain``: the encoder input, the decoder
+embedding and the training logits) stand in its places.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import decode_attention_plain
+from repro_torch.models import sharding
 from repro_torch.models.attention import (
     attn_decode,
     attn_plan,
@@ -36,12 +39,13 @@ from repro_torch.models.common import (
     Leaf,
     apply_norm,
     init_from_plan,
+    specs_from_plan,
     mlp_apply,
     mlp_plan,
     norm_plan,
     softmax_cross_entropy,
 )
-from repro_torch.models.lm import _remat, _stack_plan, _unstack
+from repro_torch.models.lm import _remat, _stack_plan, _unstack, embed_lookup
 
 __all__ = ["EncDecCaches", "param_plan", "init_params", "encode", "loss_fn", "prefill", "decode_step"]
 
@@ -103,6 +107,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> Dict[str
     return init_from_plan(param_plan(cfg), generator, device, DTYPES[cfg.dtype])
 
 
+def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """Each parameter's logical axes, in the tree of :func:`param_plan`."""
+    return specs_from_plan(param_plan(cfg))
+
+
 def _positions(B: int, T: int, device) -> torch.Tensor:
     return torch.arange(T, dtype=torch.int32, device=device)[None].expand(B, T)
 
@@ -114,6 +123,7 @@ def encode(cfg: ArchConfig, params, src_embeds) -> torch.Tensor:
     _check_family(cfg)
     proj = params["frontend_proj"]
     x = (torch.as_tensor(src_embeds, device=proj.device).to(proj.dtype) @ proj).to(proj.dtype)
+    x = sharding.constrain(x, "batch", "seq", "act_embed")
     positions = _positions(x.shape[0], x.shape[1], x.device)
 
     def body(x, p):
@@ -132,7 +142,7 @@ def _decoder_prefill(cfg, params, memory, tokens, caches: Optional[EncDecCaches]
     ``memory``; returns its last hidden states (B, T, d).  With ``caches``,
     each layer's self K/V is written into ``self_k``/``self_v[:, :, :T]``
     and its cross K/V into ``cross_k``/``cross_v``."""
-    x = params["embed"][tokens]
+    x = sharding.constrain(embed_lookup(params["embed"], tokens), "batch", "seq", "act_embed")
     B, T = tokens.shape
     positions = _positions(B, T, x.device)
 
@@ -165,6 +175,7 @@ def loss_fn(cfg: ArchConfig, params, batch):
     memory = encode(cfg, params, batch["src_embeds"])
     x = _decoder_prefill(cfg, params, memory, _tokens(params, batch["tokens"]))
     logits = apply_norm(cfg.norm, params["final_norm"], x) @ params["head"]
+    logits = sharding.constrain(logits, "batch", "seq", "act_vocab")
     loss = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
     return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=loss.device)}
 
@@ -199,7 +210,7 @@ def decode_step(cfg: ArchConfig, params, tokens, caches: EncDecCaches):
     advanced by one; the cross-attention reads the cross K/V up to
     ``src_len``."""
     _check_family(cfg)
-    x = params["embed"][torch.as_tensor(tokens, device=caches.length.device).to(torch.long)]
+    x = embed_lookup(params["embed"], torch.as_tensor(tokens, device=caches.length.device).to(torch.long))
     B = x.shape[0]
     cache_len = caches.length
     for l, p in enumerate(_unstack(params["dec_layers"], cfg.dec_layers)):

@@ -21,7 +21,7 @@ per application, ``shared_k``/``shared_v``) go through K4 and K3, then
 the remaining Mamba-2 layers.  Neither has a chunked prefill, as in the
 reference.  Entry points:
 
-  * ``param_plan`` / ``init_params``
+  * ``param_plan`` / ``init_params`` / ``param_specs``
   * ``loss_fn(cfg, params, batch)`` — the training loss; under autograd
     each layer body runs under activation checkpointing when ``cfg.remat``
     is set (``_remat``, the reference's ``jax.checkpoint``), and K4 on the
@@ -36,6 +36,13 @@ reference.  Entry points:
 shared K/V and the Mamba-2 states alike): the reference returns new caches
 from pure functions, and the serving engine clones where its callers rely
 on the old cache staying intact.
+
+Under a process-group mesh (``sharding.use_rules`` with a ``DeviceMesh``)
+parameters and batches are DTensors and the reference's constraints apply
+(``sharding.constrain``): the embedding, the logits and the decode caches,
+which are allocated split as ``("layers", "batch", "kv_seq_decode",
+"kv_heads", "head_dim")`` and written in their local form
+(``attention.write_at``).
 """
 from __future__ import annotations
 
@@ -44,6 +51,9 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -53,12 +63,14 @@ from torch.utils.checkpoint import (
 
 from repro_torch._tree import tree_leaves
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import sharding
 from repro_torch.models.attention import _project_qkv, attn_decode, attn_plan, attn_prefill, write_at
 from repro_torch.models.common import (
     DTYPES,
     Leaf,
     apply_norm,
     init_from_plan,
+    specs_from_plan,
     mlp_apply,
     mlp_plan,
     norm_plan,
@@ -75,6 +87,7 @@ __all__ = [
     "Caches",
     "param_plan",
     "init_params",
+    "param_specs",
     "loss_fn",
     "prefill",
     "prefill_extend",
@@ -168,6 +181,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> Dict[str
     """Random weights in ``cfg.dtype`` on ``device``, drawn from ``generator``
     (which must live on the same device) with the reference's std rule."""
     return init_from_plan(param_plan(cfg), generator, device, DTYPES[cfg.dtype])
+
+
+def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """Each parameter's logical axes, in the tree of :func:`param_plan`."""
+    return specs_from_plan(param_plan(cfg))
+
+
+# the decode caches' logical axes (the reference's constraint on them)
+CACHE_AXES = ("layers", "batch", "kv_seq_decode", "kv_heads", "head_dim")
 
 
 def _unstack(node, n: int) -> List[Dict[str, Any]]:
@@ -278,17 +300,55 @@ def _segments(cfg):
         yield n_segs * every, cfg.n_layers, None
 
 
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding table.  A DTensor table runs the
+    lookup in its local form: each rank looks up the tokens that fall in its
+    block of the vocab (zeros elsewhere), so the rows come out as a sum over
+    the vocab's shards (``Partial``), and the table's gradient stays a plain
+    sum, which the tied head's gradient adds to (DTensor's own rule for the
+    lookup gives a masked partial sum that cannot add to another)."""
+    if not isinstance(embed, DTensor):
+        return embed[tokens]
+    mesh = embed.device_mesh
+    w_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in embed.placements]
+    embed = embed.redistribute(mesh, w_pl)  # an embed-axis split gathered, as FSDP gathers a layer
+    if isinstance(tokens, DTensor):
+        t_pl = [Replicate() if isinstance(w, Shard) else p for p, w in zip(tokens.placements, w_pl)]
+        tokens = tokens.redistribute(mesh, t_pl)
+    else:
+        t_pl = [Replicate()] * mesh.ndim
+    out_pl = [Partial() if isinstance(w, Shard) else t for w, t in zip(w_pl, t_pl)]
+    grad_pl = [w if isinstance(w, Shard) else (Partial() if isinstance(t, Shard) else Replicate())
+               for w, t in zip(w_pl, t_pl)]
+    first, rows = sharding.shard_offset(embed, 0), embed.to_local().shape[0]
+    split = rows != embed.shape[0]
+
+    def local(w, tok):
+        if not split:
+            return w[tok]
+        hit = (tok >= first) & (tok < first + rows)
+        return F.embedding(torch.where(hit, tok - first, 0), w) * hit[..., None].to(w.dtype)
+
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, t_pl, run_check=False)
+    return local_map(local, out_placements=out_pl, in_placements=(w_pl, t_pl), in_grad_placements=(grad_pl, t_pl),
+                     device_mesh=mesh)(embed, tokens)
+
+
 def _embed_tokens(cfg, params, tokens):
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
-    return x
+    return sharding.constrain(x, "batch", "seq", "act_embed")
 
 
 def _logits(cfg, params, x):
     x = apply_norm(cfg.norm, params["final_norm"], x)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return x @ w
+    logits = x @ w
+    if logits.ndim == 3:
+        logits = sharding.constrain(logits, "batch", "seq", "act_vocab")
+    return logits
 
 
 def _assemble_input(cfg, params, batch):
@@ -368,8 +428,9 @@ def _run_layers_prefill(cfg, params, x, prefix_len, cap: Optional[int] = None):
     caches = None
     if cap is not None:
         shape = (cfg.n_layers, B, cap, cfg.n_kv_heads, cfg.d_head)
-        caches = Caches(kv_k=torch.zeros(shape, dtype=x.dtype, device=dev),
-                        kv_v=torch.zeros(shape, dtype=x.dtype, device=dev), length=None)
+        caches = Caches(kv_k=sharding.zeros(shape, CACHE_AXES, dtype=x.dtype, device=dev),
+                        kv_v=sharding.zeros(shape, CACHE_AXES, dtype=x.dtype, device=dev), length=None)
+        first = torch.zeros((B,), dtype=torch.int32, device=dev)
 
     def body(x, p):
         h = apply_norm(cfg.norm, p["ln1"], x)
@@ -381,9 +442,12 @@ def _run_layers_prefill(cfg, params, x, prefix_len, cap: Optional[int] = None):
     for l, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
         x, k, v, aux_l = body(x, p)
         if caches is not None:
-            caches.kv_k[l, :, :T] = k
-            caches.kv_v[l, :, :T] = v
+            write_at(caches.kv_k[l], k, first)
+            write_at(caches.kv_v[l], v, first)
         aux = aux + aux_l
+    if caches is not None:
+        caches = caches._replace(kv_k=sharding.constrain(caches.kv_k, *CACHE_AXES),
+                                 kv_v=sharding.constrain(caches.kv_v, *CACHE_AXES))
     return x, caches, aux
 
 

@@ -1,12 +1,11 @@
 """Family dispatch facade: one object per architecture with a uniform API.
 
 Port of ``src/repro/models/model.py``: ``build(cfg)`` takes the encdec
-family to ``models.encdec`` and every other family to ``models.lm``.  The
-reference's ``param_specs`` (logical sharding specs) is left out: it
-places one tensor over several devices, which the port's row-sharded
-serving (``serving.mesh_engine``) never does; it waits for the
-multi-process slice on ``torch.distributed``.  ``init_params`` takes a ``torch.Generator``
-and a device where the reference takes a PRNG key.
+family to ``models.encdec`` and every other family to ``models.lm``.
+``param_specs`` gives each parameter's logical axes (``sharding.
+distribute`` places a leaf by them on a process-group mesh).
+``init_params`` takes a ``torch.Generator`` and a device where the
+reference takes a PRNG key.
 """
 from __future__ import annotations
 
@@ -26,6 +25,7 @@ class Model:
     cfg: ArchConfig
     param_plan: Callable[[], Any]
     init_params: Callable[[torch.Generator, Any], Any]
+    param_specs: Callable[[], Any]
     loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     prefill: Callable[..., Tuple[torch.Tensor, Any]]
     decode_step: Callable[..., Tuple[torch.Tensor, Any]]
@@ -37,6 +37,7 @@ def build(cfg: ArchConfig) -> Model:
         cfg=cfg,
         param_plan=lambda: mod.param_plan(cfg),
         init_params=lambda generator, device: mod.init_params(cfg, generator, device),
+        param_specs=lambda: mod.param_specs(cfg),
         loss_fn=lambda params, batch: mod.loss_fn(cfg, params, batch),
         prefill=lambda params, batch, **kw: mod.prefill(cfg, params, batch, **kw),
         decode_step=lambda params, tokens, caches: mod.decode_step(cfg, params, tokens, caches),

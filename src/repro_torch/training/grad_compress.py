@@ -7,9 +7,13 @@ quantization lost into the next step (1-bit-Adam family).  ``torch.round``
 rounds half to even, as ``jnp.round`` does; the divisions divide by f32
 tensors on the device, as the reference's do (see ``training.optimizer``).
 
-The reference's ``compressed_psum`` (a cross-device mean whose wire tensor
-is int8) is a collective (``all_gather``); it is not ported here and waits
-for the port's slice on ``torch.distributed``.
+:func:`compressed_psum` is the cross-device mean whose wire tensor is
+int8: each rank quantizes with one scale shared over the axis (an
+``all_reduce(MAX)`` of the ranks' ``|x|`` maxima), ``all_gather``s the int8
+symbols over the axis's process group, and sums them dequantized.  It runs
+on each rank's local tensor inside ``sharding.use_rules`` with a
+``DeviceMesh`` (one process a device), where the reference runs inside
+``shard_map`` with the axis bound.
 """
 from __future__ import annotations
 
@@ -19,11 +23,11 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["ef_compress", "ef_init"]
+__all__ = ["ef_compress", "ef_init", "compressed_psum"]
 
 
 def ef_init(params) -> Any:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 def ef_compress(grads, errors, bits: int = 8) -> Tuple[Any, Any]:
@@ -40,3 +44,39 @@ def ef_compress(grads, errors, bits: int = 8) -> Tuple[Any, Any]:
 
     out = [one(g, e) for g, e in zip(tree_leaves(grads), tree_leaves(errors))]
     return (tree_unflatten(grads, [o[0] for o in out]), tree_unflatten(grads, [o[1] for o in out]))
+
+
+def _int8_symbols(x: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 symbols of ``x``, the scale shared over ``group``): ``scale =
+    max(max|x| over the group / 127, 1e-12)`` in f32, divided on the
+    device; ``round(x / scale)`` half to even, clipped to ``[-127, 127]``."""
+    import torch.distributed as dist
+
+    xf = x.to(torch.float32)
+    absmax = torch.max(torch.abs(xf))
+    dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp_min(absmax / torch.full((), 127.0, dtype=torch.float32, device=x.device), 1e-12)
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
+def compressed_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Mean-reduce the local tensor ``x`` over mesh axis ``axis_name`` of the
+    installed process-group mesh, with int8 on the wire: each rank's
+    symbols (:func:`_int8_symbols`) are gathered from every rank of the
+    axis, and the f32 sum of the gathered symbols times the shared scale
+    over the axis size is returned in ``x``'s dtype."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import all_gather_into_tensor
+    from repro_torch.models.sharding import process_mesh
+
+    mesh = process_mesh()
+    if mesh is None:
+        raise RuntimeError("compressed_psum runs under sharding.use_rules with a process-group DeviceMesh")
+    group = mesh.get_group(axis_name)
+    n = dist.get_world_size(group)
+    q, scale = _int8_symbols(x, group)
+    gathered = torch.empty(n * q.numel(), dtype=torch.int8, device=q.device)
+    all_gather_into_tensor(gathered, q.reshape(-1), group)  # int8 on the wire
+    total = torch.sum(gathered.reshape((n,) + tuple(q.shape)).to(torch.float32), dim=0) * scale
+    return (total / torch.full((), float(n), dtype=torch.float32, device=x.device)).to(x.dtype)

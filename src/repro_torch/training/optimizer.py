@@ -11,6 +11,12 @@ by a scalar divides by an f32 tensor on the device (``_f32``): PyTorch's CUDA
 division by a Python number multiplies by its reciprocal, one rounding more
 than JAX's division.  The global norm adds the leaves' squared sums in the
 reference's flatten order (``repro_torch._tree``: dict keys sorted).
+
+The same code runs on DTensor parameters under ``sharding.use_rules``
+with a process-group mesh: moments take each parameter's placements, each
+gradient is brought to its parameter's (its partial sums reduced) and every
+new leaf keeps them, a sharded leaf's squared sum is reduced over its
+shards, and the scalars made here act as replicated.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import dataclasses
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
 
@@ -47,10 +54,19 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def init_opt_state(params) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     device = tree_leaves(params)[0].device
     return OptState(mu=tree_map(zeros, params), nu=tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _placed_as(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``x`` (a gradient, a moment, an update) in its parameter
+    ``p``'s placements, so a parameter keeps its split step after step (a
+    gradient's partial sums are reduced here); a plain tensor as it is."""
+    if isinstance(x, DTensor) and tuple(x.placements) != tuple(p.placements):
+        return x.redistribute(p.device_mesh, p.placements)
+    return x
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -78,13 +94,13 @@ def apply_updates(
     c2 = 1.0 - torch.pow(_f32(cfg.b2, gnorm), step.to(torch.float32))
 
     def upd(p, g, mu, nu):
-        g = g.to(torch.float32) * scale
+        g = _placed_as(g, p).to(torch.float32) * scale
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
         mhat = mu / c1
         nhat = nu / c2
         delta = mhat / (torch.sqrt(nhat) + cfg.eps) + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), mu, nu
+        return _placed_as((p.to(torch.float32) - lr * delta).to(p.dtype), p), _placed_as(mu, p), _placed_as(nu, p)
 
     out = [upd(*xs) for xs in zip(*(tree_leaves(t) for t in (params, grads, state.mu, state.nu)))]
     new_p, new_mu, new_nu = (tree_unflatten(params, [o[i] for o in out]) for i in range(3))

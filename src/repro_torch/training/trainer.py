@@ -11,6 +11,13 @@ resumes from ``LATEST`` with the batch sequence regenerated, since
 equals an uninterrupted one bit for bit only under
 ``torch.use_deterministic_algorithms(True)`` (the embedding's backward
 accumulates with atomics otherwise).
+
+Sharded (the reference's GSPMD step under ``sharding.use_rules``): inside
+``use_rules`` with a process-group ``DeviceMesh``, :func:`distribute_state`
+puts the parameters, moments and carried errors on the mesh by
+``model.param_specs()``, the step puts each batch leaf on it by
+``("batch", "seq", ...)``, and the model constrains its activations; the
+loss, its backward and AdamW then run on DTensors with the same code.
 """
 from __future__ import annotations
 
@@ -24,11 +31,13 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.models import sharding
 from repro_torch.models.model import Model
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.grad_compress import ef_compress, ef_init
 
-__all__ = ["TrainState", "init_train_state", "loss_and_grads", "make_train_step", "Trainer"]
+__all__ = ["TrainState", "init_train_state", "loss_and_grads", "make_train_step", "distribute_state",
+           "distribute_batch", "Trainer"]
 
 
 class TrainState(NamedTuple):
@@ -50,6 +59,31 @@ def init_train_state(model: Model, generator: torch.Generator, device, *,
     )
 
 
+def distribute_state(model: Model, state: TrainState) -> TrainState:
+    """``state`` (full tensors, the same on every rank) on the installed
+    process-group mesh: parameters, moments and carried errors placed by
+    ``model.param_specs()``, the step counts replicated."""
+    specs = model.param_specs()
+
+    def by_spec(tree):
+        return None if tree is None else sharding.distribute_tree(tree, specs)
+
+    return TrainState(
+        params=by_spec(state.params),
+        opt=opt_lib.OptState(mu=by_spec(state.opt.mu), nu=by_spec(state.opt.nu),
+                             step=sharding.distribute(state.opt.step, ())),
+        ef_error=by_spec(state.ef_error),
+        step=sharding.distribute(state.step, ()),
+    )
+
+
+def distribute_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each batch leaf on the installed process-group mesh, split over
+    ``"batch"`` on its first dimension and ``"seq"`` on its second; as it
+    is without such a mesh."""
+    return {k: sharding.distribute(v, ("batch", "seq") + (None,) * (v.ndim - 2)) for k, v in batch.items()}
+
+
 def loss_and_grads(model: Model, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
     """(loss, metrics, grads) of ``model.loss_fn`` at ``params``: grads in
     the parameters' dtypes and tree, zero for a weight the loss does not
@@ -65,7 +99,7 @@ def make_train_step(
     model: Model, opt_cfg: opt_lib.AdamWConfig, *, grad_compression: bool = False
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict]]:
     def train_step(state: TrainState, batch):
-        loss, metrics, grads = loss_and_grads(model, state.params, batch)
+        loss, metrics, grads = loss_and_grads(model, state.params, distribute_batch(batch))
         ef_error = state.ef_error
         if grad_compression:
             grads, ef_error = ef_compress(grads, ef_error)

@@ -2,8 +2,9 @@
 main path (phases 4-5), store path (phase 6), session path (phase 7),
 serving path (phase 8), launcher path (phase 9), mesh path (phase 15),
 MoE path (phase 10),
-vlm path (phase 11), ssm and hybrid paths (phase 12) and encdec path
-(phase 13) run at a tiny size on the CPU through the kernels' plain
+vlm path (phase 11), ssm and hybrid paths (phase 12), encdec path
+(phase 13), training (phase 14) and distributed path (phase 16, on spawned
+CPU ranks) run at a tiny size on the CPU through the kernels' plain
 versions (no launch counted)."""
 import contextlib
 import importlib.util
@@ -323,4 +324,36 @@ def test_chip_smoke_train_sweep_and_launcher_run_on_cpu():
     assert smoke.k4_calls_a_step(smoke.registry.get("zamba2-2.7b").tiny()) == 2
     assert smoke.k4_calls_a_step(smoke.registry.get("smollm-360m")) == 64
     assert smoke.k4_calls_a_step(smoke.registry.get("mamba2-370m").tiny()) == 0
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_distributed_path_runs_on_cpu_at_tiny_size(monkeypatch):
+    """Phase 16 at ``.tiny()`` on CPU ranks (gloo): A one rank, B-D one
+    group of two (the S-split decode cache of 64 slots, row 1 in the first
+    shard, in bf16 and f32; the grouped MoE; ``compressed_psum``), E four
+    ranks' train steps, each held to the single-process references (step
+    1's moments and update too, the rule rejecting its planted faults, and
+    in f32); one JSON line a sub-phase, nothing counted off the card."""
+    import json
+    import sys
+
+    smoke = _load_smoke()
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # the ranks import the rank functions by name
+    monkeypatch.syspath_prepend(str(ROOT))
+    smoke.ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = smoke.drive_distributed_path(torch.device("cpu"), tiny=True, lengths=(40, 9), cap=64, steps=3,
+                                           moe_tokens=(2, 32), psum_tokens=(2, 16), train_batch=4, train_seq=32)
+    lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith('{"phase": "16')]
+    assert [x["phase"] for x in lines] == ["16 A", "16 B", "16 B f32", "16 C", "16 D", "16 E", "16 E f32"]
+    assert [x["ranks"] for x in lines] == [1, 2, 2, 2, 2, 4, 4]
+    assert lines[1]["placements"] == "(Shard(dim=1), Shard(dim=2))"
+    assert max(lines[2]["rel"]) <= smoke.DIST_F32_TOL
+    step1, controls = lines[5]["step1"], lines[5]["controls"]
+    assert smoke.step_held(step1) and step1["moved"] > 0
+    assert set(controls) == {"no update", "half the batch"}
+    assert not any(smoke.step_held(x) for x in controls.values())
+    assert smoke.step_held(lines[6]["step1"], f32=True)
+    assert got == {name: 0 for name in smoke.ops.KERNELS}
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
