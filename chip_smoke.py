@@ -136,12 +136,13 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
               versions routed to the same experts (the layers where the plain
               step's own router would choose otherwise are printed); its wall
               and device ms are printed;
-           B. ``serve.run --arch qwen2-moe-a2.7b --full-width --ctx-len 3072
-              --check-sim`` three times, each freed before the next: a wave
-              of ``--requests 4 --concurrency 4`` as the simulator decides,
-              then waves of 2 pinned with ``--fixed-level 0`` and
-              ``--fixed-level 1`` (level 0 and lossy chunks load through the
-              launcher's batched decode); every request must make the
+           B. ``serve.run --arch qwen2-moe-a2.7b --full-width --check-sim``
+              three times, each freed before the next: a wave of
+              ``--requests 4 --concurrency 4`` as the simulator decides at
+              ``--ctx-len 3072``, then waves of 2 at ``--ctx-len 1536``
+              pinned with ``--fixed-level 0`` and ``--fixed-level 1`` (level
+              0 and lossy chunks load through the launcher's batched
+              decode); every request must make the
               simulator's decisions and equal ``materialize`` of its configs
               (level 0 bit for bit, lossy within K1's rule); each batched
               TEXT call is replayed on a copy of its input cache and must
@@ -308,15 +309,43 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
               version.
            A gloo group on the card stages DTensor's gathers through pinned
            host memory (``launch.mesh.STAGED`` counts the bytes).
+17. dryrun the dry-run tooling (``launch/specs.py``, ``dryrun.py``,
+           ``hlo_stats.py``), after phase 16; its host-only children start
+           after phase 10 and run beside phases 11-16 (no card, one thread
+           each):
+           A. ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELLS``
+              (smollm-360m train_4k on both meshes, qwen2-moe-a2.7b
+              decode_32k, mamba2-370m long_500k), each in a child process
+              as rank 0 of a fake group of 256 or 512 ranks on meta
+              tensors: every record ``ok``; one JSON line a cell (FLOPs,
+              collective counts, wire bytes, a rank's argument bytes, the
+              activation peak);
+           B. smollm-360m at full width on a (1, 1) mesh: three
+              ``make_cell`` cells (train at 8 x 1,024, prefill at 2 x 4,096,
+              decode at 8 x 8,192) run on meta (a fake group of world 1, in
+              a child) and for real on one NCCL rank of the card (the
+              model's initialisation from a seed; K4 under autograd and in
+              the prefill, K3 in the decode): FLOPs, collective counts and a
+              rank's argument bytes equal; the dry run's
+              ``temp_size_in_bytes`` printed beside the card's
+              ``max_memory_allocated`` (recorded, not held).
+18. examples the four ``examples/torch`` scripts, each in a child process at
+           ``EXAMPLES``' arguments (``bandwidth_adaptation`` on the host,
+           started after phase 10; the others together on the card, started
+           beside phase 17): each
+           exits 0 and prints its reference example's lines
+           (``EXAMPLE_LINES``; ``bandwidth_adaptation`` the reference's
+           timeline line for line), launching ``EXAMPLE_KERNELS``.
 
 The kernels' launch counters are zeroed before phase 4 and read after phase
 5, then zeroed before each of phases 6, 7, 8, 9, 15, 10, 11, 12 A, 12 B, 13,
-14 A, 14 B and 16 and read after it (14 C's subprocesses and 16's ranks
-count their own, read by the parent); the run fails if a kernel that a path
-runs was not launched in it (all six on the serve + text and store paths;
-K1, K2 and K3 on the session, serving and mesh paths; K1-K5 on the
-launcher, moe and vlm paths; K3 and K4 on the hybrid and encdec paths; K4
-on the train, train sweep, train launcher and distributed paths), or if
+14 A, 14 B, 16, 17 and 18 and read after it (14 C's subprocesses, 16's
+and 17 B's ranks and 18's examples count their own, read by the parent);
+the run fails if a kernel that a path runs was not launched in it (all six
+on the serve + text and store paths; K1, K2 and K3 on the session, serving
+and mesh paths; K1-K5 on the launcher, moe and vlm paths; K3 and K4 on the
+hybrid, encdec and dryrun paths; K4 on the train, train sweep, train
+launcher and distributed paths; K3, K4 and K5 on the examples path), or if
 the ssm path launched any.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 with launches summed over the paths.  Needs
@@ -500,6 +529,9 @@ MOE_CHUNK = 768
 MOE_LOSSY = 1
 MOE_REQUESTS = 4
 MOE_PINNED = 2
+# the pinned waves' context: half the decided wave's, still 4 chunks a
+# request (each full-width run profiles and encodes its own context)
+MOE_PINNED_CTX = MOE_CTX // 2
 MOE_STEP_TOL = 2e-2
 # phase 11: the vlm family at full width; its text context (after its 256
 # image rows), the chunks of its cached rows, the lossy level of its second
@@ -610,6 +642,88 @@ DIST_KERNELS = ("flash_attention",)
 # the host's profiler events that are collectives (gloo's and NCCL's calls,
 # the c10d dispatcher ops that issue them and wait for them)
 COLLECTIVE_EVENTS = ("c10d", "gloo", "nccl")
+# phase 17: the dry-run tooling (``launch/specs.py``, ``dryrun.py``,
+# ``hlo_stats.py``).  A: ``python -m repro_torch.launch.dryrun`` on these
+# cells, one child process each, on meta tensors as rank 0 of a fake group of
+# 256 or 512 ranks (host only: started after phase 10); each record must be
+# ``ok``.  B: smollm-360m at full width on a (1, 1) mesh, three
+# ``launch.specs.make_cell`` cells at these shapes (train at phase 14's),
+# each run on meta (a fake group of world 1, a host-only child started after
+# phase 10) and on the card (one NCCL rank, random weights from a
+# seed): FLOPs, collective counts and a rank's argument bytes equal, and the
+# kernels of ``GROUND_KERNELS`` launched on the card
+DRYRUN_CELLS = (("smollm-360m", "train_4k", "single"), ("smollm-360m", "train_4k", "multi"),
+                ("qwen2-moe-a2.7b", "decode_32k", "single"), ("mamba2-370m", "long_500k", "single"))
+GROUND_ARCH = TRAIN_ARCH
+GROUND_SHAPES = {"train": dict(kind="train", seq=TRAIN_SEQ, batch=TRAIN_BATCH),
+                 "prefill": dict(kind="prefill", seq=4096, batch=2),
+                 "decode": dict(kind="decode", seq=8192, batch=8)}
+GROUND_KERNELS = {"train": ("flash_attention",), "prefill": ("flash_attention",), "decode": ("decode_attention",)}
+# the meta half of B in a child process (a fake group is one a process):
+# argv = [the repo's root, the JSON to write, "tiny" or "full", kinds...]
+GROUND_META = """import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+out = chip_smoke.ground_meta(tiny=sys.argv[3] == "tiny", kinds=sys.argv[4:])
+with open(sys.argv[2], "w") as f:
+    json.dump(out, f)
+"""
+# phase 18: the port's examples (``examples/torch``), one child process each
+# (``bandwidth_adaptation`` plans on the host only: started after phase 10),
+# at these arguments; each must exit 0 and print its reference
+# example's lines (``EXAMPLE_LINES``: every line one of its patterns, every
+# pattern some line), ``bandwidth_adaptation`` the reference's timeline line
+# for line (``BANDWIDTH_TIMELINE``), and launch the kernels of
+# ``EXAMPLE_KERNELS`` (the tiny model's plans are all TEXT: no K1 or K2)
+EXAMPLES = {"quickstart": [], "serve_batched": [], "train_100m": ["--steps", "20"], "bandwidth_adaptation": []}
+EXAMPLE_KERNELS = {"quickstart": ("flash_attention", "kv_quant", "decode_attention"),
+                   "serve_batched": ("flash_attention", "kv_quant", "decode_attention"),
+                   "train_100m": ("flash_attention",), "bandwidth_adaptation": ()}
+_NUM = r"[\d.]+"
+EXAMPLE_LINES = {
+    "quickstart": [
+        r"\[1\] context: \d+ tokens",
+        rf"\[2\] KV cache: \(\d+, 2, \d+, \d+\) = {_NUM} MB fp16",
+        rf"\[3\] level \d: {_NUM} MB  \({_NUM}x vs fp16\)",
+        rf"\[4\] per-chunk configs: \[('(L\d|TEXT)'(, )?)+\]  TTFT={_NUM} ms \(SLO 200 ms, violated=(True|False)\)",
+        r"\[5\] greedy tokens \(exact cache\):    \[[\d, ]+\]",
+        r"    greedy tokens \(CacheGen cache\): \[[\d, ]+\]",
+        rf"    agreement: {_NUM}%",
+    ],
+    "serve_batched": [
+        rf"\[pool\] \d+ contexts stored \({_NUM} KB each @ level 1\)",
+        rf"\[req \d+\] ctx\d+ configs=\[('(L\d|TEXT)'(, )?)+\] ttft_sim= *{_NUM} ms \(SLO ok=(True|False)\) "
+        rf"wall={_NUM}s agree=\d+%",
+    ],
+    "train_100m": [
+        rf"\[train\] \S+: ~{_NUM}M params",
+        rf"\[trainer\] step \d+/\d+ loss={_NUM} gnorm={_NUM} \({_NUM} it/s\)",
+        rf"\[train\] done: loss {_NUM} -> {_NUM}",
+    ],
+    "bandwidth_adaptation": [r".*"],
+}
+# ``examples/bandwidth_adaptation.py``'s output (the reference's, host only)
+BANDWIDTH_TIMELINE = """chunk  config          fetch          compute      MB
+    0      L1   0.00-  0.49    0.49-   0.52  122.10
+    1      L1   0.49-  0.98    0.98-   1.01  122.10
+    2      L1   0.98-  1.47    1.47-   1.50  122.10
+    3      L1   1.47-  1.95    1.95-   1.98  122.10
+    4    TEXT   1.95-  1.95    1.98-   2.88    0.01
+    5    TEXT   1.95-  1.95    2.88-   3.78    0.01
+    6    TEXT   1.95-  1.95    3.78-   4.68    0.01
+TTFT = 4.68s (SLO 5.0s, violated=False)"""
+# an example run with its launch counts and wall seconds printed at exit
+# (``[launch counts]``):
+# argv = [the example's path, its arguments...]
+EXAMPLE_COUNTED = """import json, runpy, sys, time
+from repro_torch.kernels import ops
+sys.argv = sys.argv[1:]
+t0 = time.perf_counter()
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    print("[launch counts] " + json.dumps(dict(ops.launch_counts(), wall_s=time.perf_counter() - t0)), flush=True)
+"""
 
 # ``python -m repro_torch.launch.train`` with its arguments, printing the
 # subprocess's kernel launches as ``[launch counts] {...}`` at exit
@@ -1794,7 +1908,8 @@ def replaying_text(replayed):
 
 
 def drive_moe_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), ctx_len=MOE_CTX,
-                   chunk=MOE_CHUNK, gen_tokens=GEN_TOKENS, launcher_ctx=MOE_CTX, full_width=True):
+                   chunk=MOE_CHUNK, gen_tokens=GEN_TOKENS, launcher_ctx=MOE_CTX, full_width=True,
+                   pinned_ctx=None):
     """Phase 10: the MoE family (``cfg``, qwen2-moe-a2.7b at full width on
     the card) through the engine and the launcher.
 
@@ -1812,10 +1927,11 @@ def drive_moe_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), c
     (bit for bit), with its wall and device time.  (Off the card the
     "kernels" are the plain versions in the inputs' dtype, whose bf16
     attention weights differ more from the f32 plain step than K3 does.)
-    B: ``serve.run`` with ``--check-sim`` at ``launcher_ctx`` tokens
-    (``--full-width`` if ``full_width``): one wave of ``MOE_REQUESTS`` as
-    the simulator decides, then one of ``MOE_PINNED`` at level 0 and one at
-    level ``MOE_LOSSY``; every request must make the simulator's decisions
+    B: ``serve.run`` with ``--check-sim`` (``--full-width`` if
+    ``full_width``): one wave of ``MOE_REQUESTS`` as the simulator decides
+    at ``launcher_ctx`` tokens, then one of ``MOE_PINNED`` at level 0 and
+    one at level ``MOE_LOSSY`` at ``pinned_ctx`` (``launcher_ctx`` if
+    None); every request must make the simulator's decisions
     and equal ``materialize`` of its configs (level 0 bit for bit, lossy
     within K1's rule, TEXT chunks bit for bit to their batched call
     replayed), and the runs together must load level-0 and lossy chunks.
@@ -1959,13 +2075,14 @@ def drive_moe_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), c
         # MOE_LOSSY, so that stored levels load through it too; each run is
         # freed before the next draws its weights and profiles its tables
         laps = Laps(dev)
-        base = ["--arch", MOE_ARCH, "--ctx-len", str(launcher_ctx), "--check-sim", "--device", str(dev)]
+        base = ["--arch", MOE_ARCH, "--check-sim", "--device", str(dev)]
         base += ["--full-width"] if full_width else []
-        waves = {"decided": (MOE_REQUESTS, None), "level 0": (MOE_PINNED, 0),
-                 f"level {MOE_LOSSY}": (MOE_PINNED, MOE_LOSSY)}
+        pinned_ctx = launcher_ctx if pinned_ctx is None else pinned_ctx
+        waves = {"decided": (MOE_REQUESTS, None, launcher_ctx), "level 0": (MOE_PINNED, 0, pinned_ctx),
+                 f"level {MOE_LOSSY}": (MOE_PINNED, MOE_LOSSY, pinned_ctx)}
         launched, totals = {}, {"level 0": 0, "lossy": 0, "TEXT": 0}
-        for name, (n_req, level) in waves.items():
-            argv = base + ["--requests", str(n_req), "--concurrency", str(n_req)]
+        for name, (n_req, level, ctx) in waves.items():
+            argv = base + ["--ctx-len", str(ctx), "--requests", str(n_req), "--concurrency", str(n_req)]
             argv += [] if level is None else ["--fixed-level", str(level)]
             print(f"moe launcher {name}:", " ".join(argv))
             replayed = {}
@@ -1980,7 +2097,7 @@ def drive_moe_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(), c
             n_chunks = len(run["streamer"].store.meta("ctx"))
             if level is not None:
                 require(configs == [[level] * n_chunks] * n_req, f"{what}: configs {configs}")
-            kinds, worst_text = match_materialize(run, run["sessions"], what, launcher_ctx, replayed)
+            kinds, worst_text = match_materialize(run, run["sessions"], what, ctx, replayed)
             laps.lap(f"materialize check {name}")
             wave = run["waves"][0]
             if level is not None:
@@ -3490,6 +3607,280 @@ def drive_distributed_path(dev, phase=lambda name: contextlib.nullcontext(), car
     return launches
 
 
+class Children:
+    """Child processes of phases 17 and 18, each writing its standard output
+    and error to files in ``tmp``: ``start`` one, ``wait`` for it (its exit
+    code and output), ``close`` ends those still running.  Host-only
+    children see no card (``CUDA_VISIBLE_DEVICES`` empty) and run one thread
+    each, so the card's phases can run beside them."""
+
+    def __init__(self, tmp):
+        self.tmp, self.procs = tmp, {}
+
+    def start(self, key, cmd, host_only=False):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        if host_only:
+            env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        files = [open(os.path.join(self.tmp, f"{key}.{ext}"), "w") for ext in ("out", "err")]
+        self.procs[key] = (subprocess.Popen(cmd, stdout=files[0], stderr=files[1], env=env, cwd=ROOT), files)
+
+    def wait(self, key, timeout=900):
+        proc, files = self.procs.pop(key)
+        rc = proc.wait(timeout)
+        for f in files:
+            f.close()
+        out, err = (Path(self.tmp, f"{key}.{ext}").read_text() for ext in ("out", "err"))
+        return rc, out, err
+
+    def close(self):
+        for proc, files in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            for f in files:
+                f.close()
+        self.procs.clear()
+
+
+def start_host_children(children, tiny=False, cells=DRYRUN_CELLS, kinds=tuple(GROUND_SHAPES)):
+    """Start phase 17's host-only children (A's dry-run cells, B's meta
+    half) and phase 18's ``bandwidth_adaptation`` in ``children``."""
+    for arch, shape, mk in cells:
+        children.start(f"dryrun.{arch}.{shape}.{mk}", [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                                                       arch, "--shape", shape, "--mesh", mk, "--out", children.tmp],
+                       host_only=True)
+    children.start("ground", [sys.executable, "-c", GROUND_META, str(ROOT), os.path.join(children.tmp, "ground.json"),
+                              "tiny" if tiny else "full", *kinds], host_only=True)
+    children.start("example.bandwidth_adaptation", [sys.executable, "-c", EXAMPLE_COUNTED,
+                                                    str(ROOT / "examples" / "torch" / "bandwidth_adaptation.py")],
+                   host_only=True)
+
+
+def _ground_cfg(tiny):
+    cfg = registry.get(GROUND_ARCH)
+    return cfg.tiny() if tiny else cfg
+
+
+def ground_cell(cfg, kind, mesh, shapes=GROUND_SHAPES):
+    """``launch.specs.make_cell`` at ``shapes[kind]``, added to ``SHAPES`` for
+    the call (as the reference's launch test overrides ``SHAPES``)."""
+    from repro_torch.launch import specs
+
+    name = f"ground_{kind}"
+    specs.SHAPES[name] = shapes[kind]
+    try:
+        return specs.make_cell(cfg, name, mesh)
+    finally:
+        del specs.SHAPES[name]
+
+
+def _counted_line(flops, st, args_bytes, **extra):
+    return dict(flops=flops, counts=st.counts, result_bytes=st.total_result_bytes,
+                wire_bytes=st.total_wire_bytes, args=args_bytes, **extra)
+
+
+def ground_meta(tiny=False, kinds=tuple(GROUND_SHAPES)):
+    """17 B's meta half (in a child process): each cell run once on meta
+    tensors as rank 0 of a fake group of world 1 (``launch.dryrun``)."""
+    from repro_torch.launch import dryrun
+
+    mesh = dryrun.fake_mesh((1, 1), ("data", "model"))
+    cfg, out = _ground_cfg(tiny), {}
+    for kind in kinds:
+        cell = ground_cell(cfg, kind, mesh)
+        _, flops, st, temp, trace_s = dryrun.run_counted(cell, mesh, 1)
+        out[kind] = _counted_line(flops, st, dryrun.local_bytes(cell.inputs), temp=temp, trace_s=round(trace_s, 2))
+    return out
+
+
+def _real_like(tree, dev, gen, high):
+    """Each meta tensor of ``tree`` as a real one of its shape and dtype on
+    ``dev`` (a DTensor with its placements): normal floats, integers in
+    ``[0, high)``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(x):
+        if x.is_floating_point():
+            full = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+        else:
+            full = torch.randint(0, high, x.shape, generator=gen, device=dev).to(x.dtype)
+        if isinstance(x, DTensor):
+            return distribute_tensor(full, x.device_mesh, x.placements, src_data_rank=None)
+        return full
+
+    return tree_map(one, tree)
+
+
+def ground_rank(rank, dm, tmp):
+    """17 B's real half, on one rank of a process group of world 1: each
+    cell's step on real inputs (the model's own initialisation for the
+    weights, random batches and caches from a seed) under the same counters
+    as the dry run, with the kernels' launches and the card's peak memory."""
+    from repro_torch.launch import dryrun, hlo_stats
+
+    args = _dist_args(tmp, "ground")
+    dev = _dist_rank_start(args)
+    cfg = _ground_cfg(args["tiny"])
+    model = build(cfg)
+    gen = torch.Generator(dev).manual_seed(SEED + 26)
+    out = {}
+    for kind in args["kinds"]:
+        cell = ground_cell(cfg, kind, dm)
+        with sharding.use_rules(dm, cell.rules):
+            if kind == "train":
+                inputs = (distribute_state(model, init_train_state(model, gen, dev)),
+                          _real_like(cell.inputs[1], dev, gen, cfg.vocab_size))
+            else:
+                params = sharding.distribute_tree(model.init_params(gen, dev), model.param_specs())
+                inputs = (params,) + tuple(_real_like(t, dev, gen, high) for t, high in
+                                           zip(cell.inputs[1:], (cfg.vocab_size, GROUND_SHAPES[kind]["seq"] - 1)))
+        _sync(dev)
+        ops.reset_launch_counts()
+        before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        flops, colls = hlo_stats.FlopCounter(), hlo_stats.CollectiveCounter()
+        t0 = time.perf_counter()
+        with sharding.use_rules(dm, cell.rules), colls, flops:
+            res = cell.fn(*inputs)
+        _sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        value = _full(res[1]["loss"]) if kind == "train" else _full(res[0])
+        require(bool(torch.isfinite(value.float()).all()), f"17 B {kind}: the real step's output is not finite")
+        out[kind] = _counted_line(flops.flops, hlo_stats.collective_stats(colls.records, dm.size()),
+                                  dryrun.local_bytes(inputs), launches=ops.launch_counts(), wall_ms=round(wall_ms, 1),
+                                  before=before, peak=torch.cuda.max_memory_allocated(dev) if before is not None else None,
+                                  loss=float(value) if kind == "train" else None)
+        del res, inputs, cell
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def drive_dryrun_path(dev, children, phase=lambda name: contextlib.nullcontext(), card="cpu", tiny=False,
+                      cells=DRYRUN_CELLS, kinds=tuple(GROUND_SHAPES)):
+    """Phase 17: the dry-run tooling.  ``children`` holds the host-only
+    children of :func:`start_host_children` (started with the same
+    ``cells``, ``tiny`` and ``kinds``).
+
+    A. each dry-run cell's child must exit 0 and its record be ``ok``; one
+       JSON line a cell: FLOPs, collective counts and wire bytes, a rank's
+       argument bytes, the activation peak, the trace's seconds;
+    B. for each kind, the meta run (the child's) and the real run on one
+       rank of ``dev`` (``launch.mesh.run_ranks``: NCCL on the card) must
+       count the same FLOPs and collectives, and the meta run's argument
+       bytes must equal the real tensors' bytes; on the card the real run
+       must launch ``GROUND_KERNELS[kind]``; one JSON line a kind with the
+       dry run's ``temp_size_in_bytes`` beside the card's
+       ``max_memory_allocated`` (recorded, not held).
+    Returns B's real runs' launches, summed."""
+    on_card = dev.type == "cuda"
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    with phase("dryrun"), tempfile.TemporaryDirectory(prefix="chip_smoke_ground_") as tmp:
+        for arch, shape, mk in cells:
+            key = f"dryrun.{arch}.{shape}.{mk}"
+            rc, out, err = children.wait(key)
+            require(rc == 0, f"17 A: {key} exited {rc}: {err[-2000:]}")
+            rec = json.loads(Path(children.tmp, f"{arch}.{shape}.{mk}.json").read_text())
+            require(rec["status"] == "ok", f"17 A: {key} is {rec['status']}: {rec.get('error')} "
+                    f"{rec.get('traceback', '')[-2000:]}")
+            print(json.dumps({"phase": "17 A", "arch": arch, "shape": shape, "mesh": mk, "flops": rec["cost"]["flops"],
+                              "counts": {k: v for k, v in rec["collectives"]["counts"].items() if v},
+                              "wire_bytes": rec["collectives"]["total_wire_bytes"],
+                              "argument_bytes": rec["memory"].get("argument_size_in_bytes"),
+                              "temp_bytes": rec["memory"].get("temp_size_in_bytes"),
+                              "trace_s": rec["trace_s"]}), flush=True)
+        rc, out, err = children.wait("ground")
+        require(rc == 0, f"17 B: the meta run exited {rc}: {err[-2000:]}")
+        meta = json.loads(Path(children.tmp, "ground.json").read_text())
+        torch.save(dict(lib=_build.load_library()._name if on_card else None, tiny=tiny, kinds=list(kinds)),
+                   os.path.join(tmp, "ground.pt"))
+        real = mesh_lib.run_ranks(ground_rank, _dist_mesh(dev, (1, 1)), (tmp,))[0]
+        for kind in kinds:
+            m, r = meta[kind], real[kind]
+            for k in launches:
+                launches[k] += r["launches"][k]
+            require(m["flops"] == r["flops"], f"17 B {kind}: the dry run counts {m['flops']} FLOPs, the card "
+                    f"{r['flops']}")
+            require(m["counts"] == r["counts"], f"17 B {kind}: collectives {m['counts']} vs {r['counts']}")
+            require(m["args"] == r["args"], f"17 B {kind}: a rank's argument bytes {m['args']} vs the real "
+                    f"tensors' {r['args']}")
+            if on_card:
+                for name in GROUND_KERNELS[kind]:
+                    require(r["launches"][name] > 0, f"17 B {kind}: {name} was not launched: {r['launches']}")
+            temp = m["temp"]
+            print(json.dumps({"phase": "17 B", "kind": kind, "shape": GROUND_SHAPES[kind], "flops": r["flops"],
+                              "counts": {k: v for k, v in r["counts"].items() if v}, "argument_bytes": r["args"],
+                              "launches": {k: v for k, v in r["launches"].items() if v},
+                              "temp_bytes": temp, "max_memory_allocated": r["peak"], "allocated_before": r["before"],
+                              "temp_over_peak": (temp / r["peak"] if r["peak"] and isinstance(temp, int) else None),
+                              "temp_over_step_peak": (temp / (r["peak"] - r["before"]) if r["peak"]
+                                                      and isinstance(temp, int) and r["peak"] > r["before"] else None),
+                              "meta_trace_s": m["trace_s"], "real_wall_ms": r["wall_ms"], "loss": r["loss"],
+                              "card": card}), flush=True)
+    return launches
+
+
+def _example_lines(name, out):
+    """``out``'s lines but the launch counts, each held to the example's
+    patterns; returns (lines, the example's wall seconds, launch counts)."""
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    counted = [ln for ln in lines if ln.startswith("[launch counts] ")]
+    require(len(counted) == 1, f"18 {name}: no launch counts printed")
+    lines = [ln for ln in lines if not ln.startswith("[launch counts] ")]
+    pats = [re.compile(p) for p in EXAMPLE_LINES[name]]
+    for ln in lines:
+        require(any(p.fullmatch(ln) for p in pats), f"18 {name}: a line not of its reference's: {ln!r}")
+    for p in pats:
+        require(any(p.fullmatch(ln) for ln in lines), f"18 {name}: no line like {p.pattern!r}")
+    if name == "bandwidth_adaptation":
+        require("\n".join(lines) == BANDWIDTH_TIMELINE, f"18 {name}: the timeline is not the reference's:\n"
+                + "\n".join(lines))
+    counts = json.loads(counted[0][len("[launch counts] "):])
+    return lines, counts.pop("wall_s"), counts
+
+
+def start_examples(dev, children, examples=None):
+    """Start the examples of ``examples`` (name -> arguments; by default
+    ``EXAMPLES``, with ``--device cpu`` off the card) that are not running
+    yet, each in a child process (``EXAMPLE_COUNTED``)."""
+    for name, args in (EXAMPLES if examples is None else examples).items():
+        if f"example.{name}" not in children.procs:
+            children.start(f"example.{name}", [sys.executable, "-c", EXAMPLE_COUNTED,
+                                               str(ROOT / "examples" / "torch" / f"{name}.py"), *args]
+                           + ([] if dev.type == "cuda" or name == "bandwidth_adaptation" else ["--device", "cpu"]))
+
+
+def drive_examples_path(dev, children, phase=lambda name: contextlib.nullcontext(), card="cpu", examples=None):
+    """Phase 18: the port's four examples at ``examples`` (as
+    :func:`start_examples`, which started them beside phase 17 on the card;
+    ``bandwidth_adaptation`` from :func:`start_host_children`).  Each must
+    exit 0, print its reference example's lines (:func:`_example_lines`)
+    and, on the card, launch ``EXAMPLE_KERNELS``.  Returns the launches,
+    summed."""
+    examples = dict(EXAMPLES if examples is None else examples)
+    on_card = dev.type == "cuda"
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    with phase("examples"):
+        start_examples(dev, children, examples)
+        for name in examples:
+            rc, out, err = children.wait(f"example.{name}")
+            require(rc == 0, f"18 {name} exited {rc}: {err[-3000:]}")
+            lines, wall_s, counts = _example_lines(name, out)
+            for k in launches:
+                launches[k] += counts[k]
+            if on_card:
+                for k in EXAMPLE_KERNELS[name]:
+                    require(counts[k] > 0, f"18 {name}: {k} was not launched: {counts}")
+            print(json.dumps({"phase": "18", "example": name, "args": examples[name],
+                              "launches": {k: v for k, v in counts.items() if v}, "wall_s": round(wall_s, 1),
+                              "card": card}), flush=True)
+            for ln in lines:
+                print(f"  {ln}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3498,6 +3889,34 @@ def main() -> int:
     phase_ms = {}
 
     gen = torch.Generator(device=dev)
+
+    # ------------------------------------------------------------------ 1 env
+    with Phase("env", phase_ms):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip()
+        print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
+        print(smi)
+        print(f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
+
+    # ---------------------------------------------------------------- 2 build
+    with Phase("build", phase_ms):
+        t0 = time.perf_counter()
+        _build.load_library()
+        print(f"built and loaded the kernel library in {time.perf_counter() - t0:.1f} s")
+
+    # phases 17 and 18's child processes (host-only ones start after phase 10)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_children_") as tmp:
+        children = Children(tmp)
+        try:
+            return _card_phases(dev, gen, phase_ms, smi, children)
+        finally:
+            children.close()
+
+
+def _card_phases(dev, gen, phase_ms, smi, children) -> int:
+    """Phases 3-18 (main's body after the build)."""
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -3517,22 +3936,6 @@ def main() -> int:
         buffer, so K1/K2/K5/K6 must take a narrower access than 16 bytes."""
         view = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:].view(t.shape)
         return view.copy_(t)
-
-    # ------------------------------------------------------------------ 1 env
-    with Phase("env", phase_ms):
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip()
-        print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
-        print(smi)
-        print(f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
-
-    # ---------------------------------------------------------------- 2 build
-    with Phase("build", phase_ms):
-        t0 = time.perf_counter()
-        _build.load_library()
-        print(f"built and loaded the kernel library in {time.perf_counter() - t0:.1f} s")
 
     # -------------------------------------------------------------- 3 kernels
     cfg = registry.get("smollm-360m")
@@ -4320,8 +4723,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    drive_moe_path(registry.get(MOE_ARCH), dev, gen, phase=lambda name: Phase(name, phase_ms))
+    drive_moe_path(registry.get(MOE_ARCH), dev, gen, phase=lambda name: Phase(name, phase_ms),
+                   pinned_ctx=MOE_PINNED_CTX)
     paths["moe"] = ops.launch_counts()
+    # phases 17 and 18's host-only children run beside phases 11-16, after
+    # the most host-bound ones (9, 15, 10)
+    start_host_children(children)
 
     # ----------------------------------------------------------------- 11 vlm
     gc.collect()
@@ -4366,11 +4773,25 @@ def main() -> int:
     require(ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0),
             "the distributed path's single-process references were counted in this process")
 
+    # ------------------------------------------------------------- 17 dryrun
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    start_examples(dev, children)  # phase 18's examples run beside phase 17 (each counts its own launches)
+    paths["dryrun"] = drive_dryrun_path(dev, children, phase=lambda name: Phase(name, phase_ms), card=smi)
+
+    # ----------------------------------------------------------- 18 examples
+    paths["examples"] = drive_examples_path(dev, children, phase=lambda name: Phase(name, phase_ms), card=smi)
+    require(ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0),
+            "the dryrun and examples paths launched in this process")
+
     # --------------------------------------------------------------- summary
     runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
             "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "mesh": MESH_KERNELS, "moe": MOE_KERNELS, "vlm": VLM_KERNELS,
             "ssm": SSM_KERNELS, "hybrid": HYBRID_KERNELS, "encdec": ENCDEC_KERNELS, "train": TRAIN_KERNELS,
-            "train sweep": TRAIN_KERNELS, "train launcher": TRAIN_KERNELS, "distributed": DIST_KERNELS}
+            "train sweep": TRAIN_KERNELS, "train launcher": TRAIN_KERNELS, "distributed": DIST_KERNELS,
+            "dryrun": tuple(sorted(set(itertools.chain(*GROUND_KERNELS.values())))),
+            "examples": tuple(sorted(set(itertools.chain(*EXAMPLE_KERNELS.values()))))}
     require(set().union(*runs.values()) == set(ops.KERNELS), "the paths do not cover every kernel")
     require(not any(paths["ssm"].values()), f"the attention-free ssm path launched kernels: {paths['ssm']}")
     for path, counts in paths.items():

@@ -23,10 +23,25 @@ training path decodes, so on the card a K3 call with grad enabled and an
 input that requires grad raises instead of returning a result whose
 gradient would silently be zero.  On the CPU both plain versions
 differentiate as any PyTorch code.
+
+A tensor on ``meta`` (the dry run's abstract inputs, ``launch.dryrun``)
+takes the card's route with the plain version in the kernel's place and
+counts no launch: abstract evaluation of what the card runs, as XLA lowers
+a program without running it.  So K4 under autograd on meta is
+``_FlashAttention`` too (its backward the same VJP as on the card), and K3
+under grad raises there as it does on the card.  Any other device type
+raises.
+
+While a dry run's FLOP counter is active (:data:`FLOP_COUNTERS`), each K3
+and K4 call adds its plain version's product FLOPs to it explicitly
+(:func:`attention_flops`) and whatever the counter saw inside the call is
+dropped: the kernels launch through ``ctypes``, where no dispatch mode sees
+them, so one rule counts each attention call exactly once on every route.
+The backward's plain VJP is counted op by op.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -45,7 +60,9 @@ from repro_torch.kernels.kvquant import (
 
 __all__ = [
     "BF16_TOL",
+    "FLOP_COUNTERS",
     "KERNELS",
+    "attention_flops",
     "bf16_ulp_excess",
     "decode_attention",
     "flash_attention",
@@ -122,36 +139,73 @@ def bf16_ulp_excess(got: torch.Tensor, want: torch.Tensor, *, ulps: float, atol:
 
 
 def _on_card(t: torch.Tensor) -> bool:
-    if t.is_cuda:
+    """Whether ``t`` takes the card's route: a CUDA tensor (the kernel) or a
+    meta tensor (abstract evaluation: the plain version, no launch)."""
+    if t.is_cuda or t.device.type == "meta":
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
+def _pick(t: torch.Tensor, kernel, plain):
+    """The kernel for a CUDA tensor, the plain version for a CPU or meta one."""
+    return kernel if _on_card(t) and t.is_cuda else plain
+
+
+# the dry run's active FLOP counters (objects with an int ``flops``):
+# ``launch.hlo_stats.FlopCounter`` adds itself while it is entered
+FLOP_COUNTERS: List = []
+
+
+def attention_flops(kind: str, q: torch.Tensor, k: torch.Tensor) -> int:
+    """The product FLOPs of K3's or K4's plain version on these shapes, two
+    per multiply-add: K4 (``"flash"``) scores every query against all Tk
+    keys and weights all Tk values (the plain version's full-Tk query
+    chunks, the causal mask applied after the product), ``4 B Hq Tq Tk D``;
+    K3 (``"decode"``) the one query against all S slots, ``4 B Hq S D``."""
+    if kind == "flash":
+        B, Tq, Hq, D = q.shape
+        return 4 * B * Hq * Tq * k.shape[1] * D
+    B, Hq, D = q.shape
+    return 4 * B * Hq * k.shape[1] * D
+
+
+def _counted(flops: int, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, with each active FLOP counter set to what it
+    held before the call plus ``flops``."""
+    if not FLOP_COUNTERS:
+        return fn(*args, **kwargs)
+    before = [c.flops for c in FLOP_COUNTERS]
+    out = fn(*args, **kwargs)
+    for c, n in zip(FLOP_COUNTERS, before):
+        c.flops = n + flops
+    return out
+
+
 def kv_dequant_tokens(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
     """K1: lossy-level token groups (B, G, g, C); see ``kernels.kvquant``."""
-    fn = kv_dequant_tokens_cuda if _on_card(d_sym) else kv_dequant_tokens_plain
+    fn = _pick(d_sym, kv_dequant_tokens_cuda, kv_dequant_tokens_plain)
     return fn(d_sym, anchors, bins, qmax=qmax, out_dtype=out_dtype)
 
 
 def kv_lossless_tokens(d_sym, a_sym, scales, *, out_dtype=torch.float32):
     """K2: level-0 token groups (B, G, g, C); see ``kernels.kvquant``."""
-    fn = kv_lossless_tokens_cuda if _on_card(d_sym) else kv_lossless_tokens_plain
+    fn = _pick(d_sym, kv_lossless_tokens_cuda, kv_lossless_tokens_plain)
     return fn(d_sym, a_sym, scales, out_dtype=out_dtype)
 
 
 def kv_quant(kv_grouped, bins, *, qmax: int):
     """K5: (B, G, g, C) f32 grouped tokens -> (B, G, g-1, C) uint16 delta
     symbols; see ``kernels.kvquant``."""
-    fn = kv_quant_cuda if _on_card(kv_grouped) else kv_quant_plain
+    fn = _pick(kv_grouped, kv_quant_cuda, kv_quant_plain)
     return fn(kv_grouped, bins, qmax=qmax)
 
 
 def kv_dequant(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
     """K6: (B, G, g-1, C) delta symbols -> dequantized delta tokens plus
     their anchors, (B, G, g-1, C); see ``kernels.kvquant``."""
-    fn = kv_dequant_cuda if _on_card(d_sym) else kv_dequant_plain
+    fn = _pick(d_sym, kv_dequant_cuda, kv_dequant_plain)
     return fn(d_sym, anchors, bins, qmax=qmax, out_dtype=out_dtype)
 
 
@@ -163,10 +217,10 @@ def _no_backward(name: str, *inputs: torch.Tensor) -> None:
 
 def decode_attention(q, k, v, kv_len, *, scale=None):
     """K3: q (B, Hq, D) vs cache k/v (B, S, Hkv, D); see ``kernels.decode_attention``."""
-    if not _on_card(q):
-        return decode_attention_plain(q, k, v, kv_len, scale=scale)
-    _no_backward("decode_attention", q, k, v)
-    return decode_attention_cuda(q, k, v, kv_len, scale=scale)
+    if _on_card(q):
+        _no_backward("decode_attention", q, k, v)
+    fn = _pick(q, decode_attention_cuda, decode_attention_plain)
+    return _counted(attention_flops("decode", q, k), fn, q, k, v, kv_len, scale=scale)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -177,7 +231,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, prefix_len, causal, scale):
         ctx.save_for_backward(q, k, v, prefix_len)
         ctx.causal, ctx.scale = causal, scale
-        return flash_attention_cuda(q, k, v, prefix_len, causal=causal, scale=scale)
+        fn = _pick(q, flash_attention_cuda, flash_attention_plain)
+        return fn(q, k, v, prefix_len, causal=causal, scale=scale)
 
     @staticmethod
     def backward(ctx, do):
@@ -189,8 +244,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, prefix_len: Optional[torch.Tensor] = None, *,
                     causal: bool = True, scale=None):
     """K4: q (B, Tq, Hq, D) vs k/v (B, Tk, Hkv, D); see ``kernels.flash_attention``."""
-    if not _on_card(q):
-        return flash_attention_plain(q, k, v, prefix_len, causal=causal, scale=scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, prefix_len, causal, scale)
-    return flash_attention_cuda(q, k, v, prefix_len, causal=causal, scale=scale)
+    flops = attention_flops("flash", q, k)
+    if _on_card(q) and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _counted(flops, _FlashAttention.apply, q, k, v, prefix_len, causal, scale)
+    fn = _pick(q, flash_attention_cuda, flash_attention_plain)
+    return _counted(flops, fn, q, k, v, prefix_len, causal=causal, scale=scale)

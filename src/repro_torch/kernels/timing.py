@@ -9,6 +9,7 @@ counted for it.  ``bound_ms`` is the least time the card could take.
 from __future__ import annotations
 
 import re
+import sys
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -44,27 +45,34 @@ def time_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn: Callable[[], object], *kernel_names: str, iters: int = 5) -> Optional[float]:
+def device_ms(fn: Callable[[], object], *kernel_names: str, iters: int = 5,
+              attempts: int = 6) -> Optional[float]:
     """Device time per call of ``fn``, whose kernels named exactly
     ``kernel_names`` each launch once a call: the sum of their mean times
     per launch in the profiler's CUDA trace of ``iters`` calls (a mean per
     recorded launch, so a trace that drops launches does not shrink it).
-    A trace that holds none of them is taken once more (CUPTI now and then
-    hands back a trace without a call's kernels); None if that one holds
-    none either."""
+    CUPTI now and then hands back a trace without a call's kernels, and
+    then sometimes several in a row, so a trace that holds none of them is
+    taken again, up to ``attempts`` traces in all, every other one with the
+    CPU activity as well; each such trace is reported on stderr with the
+    kernels it did hold.  None if no trace holds them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(attempts):
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if attempt % 2 else [])
+        with profile(activities=activities) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time_total / e.count for e in prof.key_averages()
-                 if kernel_name(e.key) in kernel_names and e.count)
+        events = [e for e in prof.key_averages() if e.count and e.device_time_total]
+        us = sum(e.device_time_total / e.count for e in events if kernel_name(e.key) in kernel_names)
         if us:
             return us / 1e3
+        held = sorted({kernel_name(e.key) for e in events})
+        print(f"device_ms: trace {attempt + 1} of {attempts} holds none of {list(kernel_names)}; "
+              f"its device events: {held[:8]}{' ...' if len(held) > 8 else ''}", file=sys.stderr, flush=True)
     return None
 
 

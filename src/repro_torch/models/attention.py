@@ -20,12 +20,14 @@ sharding constraints apply (``sharding.constrain``).  Prefill runs K4 on
 each rank's own batch rows and query heads (``local_map``), whatever the
 mesh, as the reference's ``kops.mha`` does.  Decode follows the
 reference's dispatch: K3 only without such a mesh; with one whose
-``"kv_seq_decode"`` rule names an axis, the sequence-parallel decode
+``"kv_seq_decode"`` rule splits S, the sequence-parallel decode
 (:func:`_decode_mha_sp`: each rank's block of the cache's S axis gives a
 partial ``(m, l, acc)``, combined by one ``all_reduce(MAX)`` and two
-``all_reduce(SUM)`` over that axis); with any other, the plain decode on
-each rank's rows.  The new token's K/V lands only on the rank that holds
-its slot (:func:`write_at`).
+``all_reduce(SUM)`` over that axis, or over the axes a tuple rule names as
+one group); with any other, K3 on each rank's rows.  A rule whose axes
+hold one rank splits nothing, so it takes the rows' K3 with no collective,
+as XLA drops a collective over one device.  The new token's K/V lands only
+on the rank that holds its slot (:func:`write_at`).
 """
 from __future__ import annotations
 
@@ -39,7 +41,6 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import sharding
 from repro_torch.models.common import Leaf, rope
@@ -100,6 +101,26 @@ def _split_heads(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
     return x.reshape(B, T, n_heads, d_head)
 
 
+class _MergeHeads(torch.autograd.Function):
+    """(B, T, H, Dh) -> (B, T, H * Dh), whose backward splits the gradient's
+    last axis into heads by :func:`_split_heads`: a gradient that arrives
+    split over more shards than divide the heads (``wo``'s rows over
+    ``"model"``) is gathered on that axis first, as the forward's split is."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.heads = x.shape[2:]
+        return x.reshape(*x.shape[:2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _split_heads(g, *ctx.heads)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    return _MergeHeads.apply(x) if isinstance(x, DTensor) else x.reshape(*x.shape[:2], -1)
+
+
 def _kv_heads_for(q_heads: range, rep: int, k_first: int, n_k: int):
     """The local K/V heads that the global query heads ``q_heads`` read (GQA
     ratio ``rep``), given the rank's K/V heads start at global head
@@ -114,12 +135,13 @@ def _kv_heads_for(q_heads: range, rep: int, k_first: int, n_k: int):
     return torch.tensor(idx)
 
 
-def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, prefix_len, causal: bool):
-    """K4 on each rank's own batch rows and query heads of DTensors ``q``
-    (B, T, Hq, D), ``k``/``v`` (B, T, Hkv, D): the sequence axis is whole on
-    every rank (``"seq"`` is never split), K/V are brought to ``q``'s batch
-    split, and each rank reads the K/V heads its query heads need.  Runs
-    under autograd (``kernels.ops``' Function through ``local_map``)."""
+def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, prefix_len, causal: bool, attend=None):
+    """K4 (or ``attend``, the same contract) on each rank's own batch rows
+    and query heads of DTensors ``q`` (B, Tq, Hq, D), ``k``/``v`` (B, Tk,
+    Hkv, D): the sequence axes are whole on every rank (``"seq"`` is never
+    split), K/V are brought to ``q``'s batch split, and each rank reads the
+    K/V heads its query heads need.  Runs under autograd (``kernels.ops``'
+    Function through ``local_map``)."""
     mesh = q.device_mesh
     kv_pl = [pq if isinstance(pq, Shard) and pq.dim == 0 else pk for pq, pk in zip(q.placements, k.placements)]
     k, v = k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl)
@@ -135,8 +157,8 @@ def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, prefix_len, cau
     kv_grad = [Partial() if isinstance(pq, Shard) and pq.dim == 2 and isinstance(pk, Replicate) else pk
                for pq, pk in zip(q.placements, kv_pl)]
 
-    def local(q, k, v):
-        return ops.flash_attention(q, k[:, :, heads], v[:, :, heads], plen, causal=causal)
+    def local(q, k, v):  # ``ops.flash_attention`` read at the call (a caller may wrap it)
+        return (attend or ops.flash_attention)(q, k[:, :, heads], v[:, :, heads], plen, causal=causal)
 
     return local_map(local, out_placements=list(q.placements), in_placements=(list(q.placements), kv_pl, kv_pl),
                      in_grad_placements=(list(q.placements), kv_grad, kv_grad), device_mesh=mesh)(q, k, v)
@@ -161,8 +183,7 @@ def attn_prefill(
         o = _flash_attention_sharded(q, k, v, prefix_len, causal)
     else:
         o = ops.flash_attention(q, k, v, prefix_len, causal=causal)
-    B, T, _, _ = q.shape
-    out = o.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"]
+    out = _merge_heads(o) @ p["wo"]
     k_cache = k_pre if cfg.prerope_kv_cache else k
     return out, (k_cache, v)
 
@@ -178,7 +199,10 @@ def write_at(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> Non
     A DTensor ``cache`` (split over rows and slots) is written in its local
     form: each rank writes the rows and slots of its own block, from
     ``new`` brought to the cache's row split, so a slot lands on the one
-    rank that holds it.
+    rank that holds it.  The local write has the same shapes whatever the
+    data (no mask indexing, so it runs on meta tensors and reads nothing
+    back to the host): one slot a row is scattered, a longer write selects
+    each slot of the block from ``new`` or the cache.
     """
     if isinstance(cache, DTensor):
         return _write_at_sharded(cache, new, start)
@@ -200,10 +224,19 @@ def _write_at_sharded(cache: DTensor, new, start: torch.Tensor) -> None:
     if new.shape[0] != b_loc:
         new = new[b0:b0 + b_loc]
     first = start.to(torch.int64)[b0:b0 + b_loc].to(local.device).clamp(0, S - T)
-    pos = first[:, None] + torch.arange(T, device=local.device)[None, :] - s0
-    mine = (pos >= 0) & (pos < s_loc)
-    rows = torch.arange(b_loc, device=local.device)[:, None].expand(b_loc, T)
-    local[rows[mine], pos[mine]] = new.to(local.dtype)[mine]
+    new = new.to(local.dtype)
+    rows = torch.arange(b_loc, device=local.device)
+    heads = (None,) * (local.ndim - 2)  # a row's (or slot's) mask over the trailing axes
+    if T == 1:  # one slot a row: a row whose slot is elsewhere writes its own value back
+        pos = first - s0
+        slot = pos.clamp(0, s_loc - 1)
+        mine = ((pos >= 0) & (pos < s_loc))[(slice(None),) + heads]
+        local[rows, slot] = torch.where(mine, new[:, 0], local[rows, slot])
+        return
+    # every slot of the block takes new's token t = slot + s0 - first, where one is
+    t = torch.arange(s_loc, device=local.device)[None, :] + s0 - first[:, None]
+    have = ((t >= 0) & (t < T))[(slice(None), slice(None)) + heads]
+    local.copy_(torch.where(have, new[rows[:, None], t.clamp(0, T - 1)], local))
 
 
 def attn_decode(
@@ -239,21 +272,30 @@ def attn_decode(
     return out.to(p["wo"].dtype) @ p["wo"]
 
 
+def _seq_group(mesh, seq_axis):
+    """The process group of the mesh axes ``seq_axis`` (one name, or a tuple
+    taken as one flattened axis), or None where they hold one rank."""
+    axes = (seq_axis,) if isinstance(seq_axis, str) else tuple(seq_axis)
+    if int(np.prod([mesh.size(mesh.mesh_dim_names.index(a)) for a in axes])) == 1:
+        return None
+    return mesh.get_group(axes[0]) if len(axes) == 1 else mesh[axes]._flatten().get_group()
+
+
 def _decode_mha_sp(q, kc, vc, kv_len, mesh):
     """Decode attention of q (B, Hq, D) against DTensor caches (B, S, Hkv, D)
     in their local form, each rank on its own rows.  Where the rules'
-    ``"kv_seq_decode"`` axis splits the cache's S evenly (the
-    sequence-parallel decode): each rank masks its block's positions ``s0 + arange(S_loc)``
-    against ``kv_len``, computes a partial ``(m, l, acc)`` in f32, and the
-    blocks combine by ``all_reduce(MAX)`` of ``m`` and ``all_reduce(SUM)`` of
-    the rescaled ``l`` and ``acc`` over that axis's group.  Elsewhere the
-    rank's rows are whole and the plain decode runs on them.  Both compute in
-    f32 from the cache's values, as K3 does (the reference's einsums round
-    the bf16 scores first)."""
+    ``"kv_seq_decode"`` axes split the cache's S evenly over more than one
+    rank (the sequence-parallel decode): each rank masks its block's
+    positions ``s0 + arange(S_loc)`` against ``kv_len``, computes a partial
+    ``(m, l, acc)`` in f32, and the blocks combine by ``all_reduce(MAX)`` of
+    ``m`` and ``all_reduce(SUM)`` of the rescaled ``l`` and ``acc`` over
+    those axes' group.  Elsewhere the rank's rows are whole and K3 runs on
+    them.  Both compute in f32 from the cache's values, as K3 does (the
+    reference's einsums round the bf16 scores first)."""
     if not isinstance(kc, DTensor):
         raise TypeError("the process-group decode takes DTensor caches")
     spec = sharding.divisible(sharding.logical_to_spec(("batch", "kv_seq_decode", None, None)), kc.shape, mesh)
-    seq_axis = spec[1]
+    group = None if spec[1] is None else _seq_group(mesh, spec[1])
     want = sharding.placements(spec, mesh)
     kc, vc = kc.redistribute(mesh, want), vc.redistribute(mesh, want)
     rows = sharding.split_only(kc)
@@ -263,12 +305,9 @@ def _decode_mha_sp(q, kc, vc, kv_len, mesh):
     Hq, D = q_loc.shape[1], q_loc.shape[2]
     lens = kv_len[b0:b0 + B].to(k_loc.device)
     q_loc, k_loc, v_loc = q_loc.float(), k_loc.float(), v_loc.float()  # K3's arithmetic: f32 from the cache
-    if seq_axis is None:
-        o = decode_attention_plain(q_loc, k_loc, v_loc, lens).to(q.dtype)
+    if group is None:
+        o = ops.decode_attention(q_loc, k_loc, v_loc, lens).to(q.dtype)
     else:
-        if not isinstance(seq_axis, str):
-            raise ValueError(f"the sequence-parallel decode splits S over one mesh axis, not {seq_axis}")
-        group = mesh.get_group(seq_axis)
         S_loc, Hkv = k_loc.shape[1], k_loc.shape[2]
         rep = Hq // Hkv
         scale = 1.0 / np.sqrt(D)
@@ -295,24 +334,25 @@ def _decode_mha_sp(q, kc, vc, kv_len, mesh):
 def memory_kv(cfg: ArchConfig, p, mem: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Project encoder memory (B, S, d) once into cross-attention K/V, each
     (B, S, Hkv, Dh): no RoPE."""
-    B, S, _ = mem.shape
     k = mem @ p["wk"]
     v = mem @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    return k.reshape(B, S, cfg.n_kv_heads, cfg.d_head), v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    return _split_heads(k, cfg.n_kv_heads, cfg.d_head), _split_heads(v, cfg.n_kv_heads, cfg.d_head)
 
 
 def cross_attn_prefill(cfg: ArchConfig, p, x: torch.Tensor, mem_kv) -> torch.Tensor:
     """Decoder states (B, T, d) against the memory's K/V: every query sees
     every memory row (no mask, no RoPE), through K4's plain version (the
-    reference's ``chunked_mha``; its query chunk bounds memory only);
-    returns (B, T, d)."""
-    B, T, _ = x.shape
+    reference's ``chunked_mha``; its query chunk bounds memory only), on
+    DTensors in each rank's rows and heads; returns (B, T, d)."""
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(B, T, cfg.n_heads, cfg.d_head)
+    q = _split_heads(q, cfg.n_heads, cfg.d_head)
     k, v = mem_kv
-    o = flash_attention_plain(q, k, v, causal=False)
-    return o.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"]
+    if isinstance(q, DTensor):
+        o = _flash_attention_sharded(q, k, v, None, False, attend=flash_attention_plain)
+    else:
+        o = flash_attention_plain(q, k, v, causal=False)
+    return _merge_heads(o) @ p["wo"]

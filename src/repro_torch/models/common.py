@@ -8,7 +8,8 @@ truth for each parameter's shape, logical sharding axes and init scale;
 the reference's std rule (its random numbers differ: the tests share
 weights through ``models.convert.params_from_numpy`` instead) and
 :func:`specs_from_plan` derives the matching tree of logical axes, so the
-two can never drift.
+two can never drift; :func:`abstract_from_plan` gives the tree as meta
+tensors (the dry run's inputs).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ __all__ = [
     "Leaf",
     "init_from_plan",
     "specs_from_plan",
+    "abstract_from_plan",
     "rmsnorm",
     "layernorm",
     "apply_norm",
@@ -92,6 +94,14 @@ def init_from_plan(plan: Dict[str, Any], generator: torch.Generator, device, dty
 def specs_from_plan(plan: Dict[str, Any]) -> Dict[str, Any]:
     """The plan's tree with each leaf's logical axes in its place."""
     return {name: node.logical if isinstance(node, Leaf) else specs_from_plan(node) for name, node in plan.items()}
+
+
+def abstract_from_plan(plan: Dict[str, Any], dtype=torch.float32) -> Dict[str, Any]:
+    """The plan's tree with a meta tensor of each leaf's shape and ``dtype``
+    in its place (the reference's ``ShapeDtypeStruct`` tree): shapes to
+    trace a step with, and no memory behind them."""
+    return {name: torch.empty(node.shape, dtype=dtype, device="meta") if isinstance(node, Leaf)
+            else abstract_from_plan(node, dtype) for name, node in plan.items()}
 
 
 # ---------------------------------------------------------------------------

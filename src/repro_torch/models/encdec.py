@@ -45,7 +45,7 @@ from repro_torch.models.common import (
     norm_plan,
     softmax_cross_entropy,
 )
-from repro_torch.models.lm import _remat, _stack_plan, _unstack, embed_lookup
+from repro_torch.models.lm import CACHE_AXES, _remat, _stack_plan, _unstack, embed_lookup
 
 __all__ = ["EncDecCaches", "param_plan", "init_params", "encode", "loss_fn", "prefill", "decode_step"]
 
@@ -192,10 +192,10 @@ def prefill(cfg: ArchConfig, params, batch, *, pad_to: Optional[int] = None):
     self_shape = (cfg.dec_layers, B, pad_to or T, cfg.n_kv_heads, cfg.d_head)
     cross_shape = (cfg.dec_layers, B, S_src, cfg.n_kv_heads, cfg.d_head)
     caches = EncDecCaches(
-        self_k=torch.zeros(self_shape, dtype=dt, device=dev),
-        self_v=torch.zeros(self_shape, dtype=dt, device=dev),
-        cross_k=torch.empty(cross_shape, dtype=dt, device=dev),
-        cross_v=torch.empty(cross_shape, dtype=dt, device=dev),
+        self_k=sharding.zeros(self_shape, CACHE_AXES, dtype=dt, device=dev),
+        self_v=sharding.zeros(self_shape, CACHE_AXES, dtype=dt, device=dev),
+        cross_k=sharding.zeros(cross_shape, CACHE_AXES, dtype=dt, device=dev),
+        cross_v=sharding.zeros(cross_shape, CACHE_AXES, dtype=dt, device=dev),
         src_len=torch.full((B,), S_src, dtype=torch.int32, device=dev),
         length=torch.full((B,), T, dtype=torch.int32, device=dev),
     )

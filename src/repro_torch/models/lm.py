@@ -190,6 +190,9 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
 
 # the decode caches' logical axes (the reference's constraint on them)
 CACHE_AXES = ("layers", "batch", "kv_seq_decode", "kv_heads", "head_dim")
+# the Mamba-2 states' logical axes (the reference's decode cells')
+CONV_AXES = ("layers", "batch", None, "ssm_inner")
+SSM_AXES = ("layers", "batch", "ssm_heads", None, "state")
 
 
 def _unstack(node, n: int) -> List[Dict[str, Any]]:
@@ -458,13 +461,13 @@ def _prefill_recurrent(cfg, params, x, positions, cap):
     ``cap`` slots, the rest zeros) are stored as they come."""
     B, T = x.shape[:2]
     d_in, H, P, G, N, conv_ch = _mamba_dims(cfg)
-    conv = torch.zeros((cfg.n_layers, B, cfg.ssm_conv - 1, conv_ch), dtype=x.dtype, device=x.device)
-    ssm = torch.zeros((cfg.n_layers, B, H, P, N), dtype=torch.float32, device=x.device)
+    conv = sharding.zeros((cfg.n_layers, B, cfg.ssm_conv - 1, conv_ch), CONV_AXES, dtype=x.dtype, device=x.device)
+    ssm = sharding.zeros((cfg.n_layers, B, H, P, N), SSM_AXES, dtype=torch.float32, device=x.device)
     shared_k = shared_v = None
     if cfg.family == "hybrid":
         shape = (cfg.n_layers // cfg.shared_block_every, B, cap, cfg.n_kv_heads, cfg.d_head)
-        shared_k = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        shared_v = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        shared_k = sharding.zeros(shape, CACHE_AXES, dtype=x.dtype, device=x.device)
+        shared_v = sharding.zeros(shape, CACHE_AXES, dtype=x.dtype, device=x.device)
     layers = _unstack(params["layers"], cfg.n_layers)
     body = _remat(cfg, functools.partial(_mamba_layer_prefill, cfg))
     for l0, l1, app in _segments(cfg):

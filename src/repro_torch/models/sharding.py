@@ -225,12 +225,20 @@ def distribute(x: torch.Tensor, logical: Sequence[Optional[str]]) -> torch.Tenso
 
 def zeros(shape: Sequence[int], logical: Sequence[Optional[str]], *, dtype, device) -> torch.Tensor:
     """Zeros of ``shape``: under a process-group mesh a DTensor placed by its
-    logical axes, each rank allocating only its block; else a plain tensor."""
+    logical axes, each rank allocating only its block (on ``meta`` a block
+    with no memory behind it: the dry run's caches); else a plain tensor."""
     mesh = process_mesh()
     if mesh is None:
         return torch.zeros(shape, dtype=dtype, device=device)
-    return dtensor_zeros(*shape, dtype=dtype, device_mesh=mesh,
-                  placements=placements(divisible(logical_to_spec(logical), shape, mesh), mesh))
+    place = placements(divisible(logical_to_spec(logical), shape, mesh), mesh)
+    if torch.device(device).type != "meta":
+        return dtensor_zeros(*shape, dtype=dtype, device_mesh=mesh, placements=place)
+    local = list(shape)
+    for i, p in enumerate(place):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device="meta"), mesh, place, run_check=False,
+                              shape=torch.Size(shape), stride=torch.empty(shape, device="meta").stride())
 
 
 def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:

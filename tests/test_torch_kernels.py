@@ -439,6 +439,46 @@ def test_profiler_keys_match_kernels_by_exact_name(key, name):
     assert timing.kernel_name(key) == name
 
 
+@pytest.mark.parametrize("misses", [0, 3, 6])
+def test_device_ms_takes_the_trace_again_until_it_holds_the_kernels(monkeypatch, capsys, misses):
+    """A trace without the timed kernels is taken again, every other one
+    with the CPU activity as well, up to six in all; None after six."""
+    import types
+
+    import torch.profiler
+
+    traces = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            traces.append(list(activities))
+            held = "lossless_tokens_kernel<__nv_bfloat16, 8>" if len(traces) > misses else "elementwise_kernel"
+            self.averages = [types.SimpleNamespace(key=held, count=5, device_time_total=650.0),
+                             types.SimpleNamespace(key="cudaLaunchKernel", count=5, device_time_total=0.0)]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return self.averages
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    got = timing.device_ms(lambda: calls.append(1), "lossless_tokens_kernel")
+    CUDA, CPU = torch.profiler.ProfilerActivity.CUDA, torch.profiler.ProfilerActivity.CPU
+    assert len(traces) == min(misses + 1, 6)
+    assert traces == ([[CUDA], [CUDA, CPU]] * 3)[:len(traces)]
+    assert len(calls) == 1 + 5 * len(traces)
+    assert got == (None if misses == 6 else pytest.approx(0.13))
+    err = capsys.readouterr().err.splitlines()
+    assert len(err) == min(misses, 6)
+    assert all("holds none of ['lossless_tokens_kernel']" in ln and "elementwise_kernel" in ln for ln in err)
+
+
 def _expand_heads(t, rep):
     return t.repeat_interleave(rep, dim=2).transpose(1, 2)
 
