@@ -35,6 +35,20 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            (CUDA events), each kernel's device time (profiler, by exact
            name; the run fails without one) and the least time the card
            could take (bytes over 3.35 TB/s vs flops over 989 TFLOP/s).
+           The rANS coder's K7 (decode) and K8 (encode) on random skewed
+           tables built on the card, held with ``torch.equal`` (symbols,
+           words with their unused tail, word counts, final states and
+           pointers): a stacked wave of 4 smollm-360m chunks at levels 0-3
+           (81,920 lanes; anchors 154 steps, deltas 1,382 steps over the
+           padded delta stack), K8 over ``encode_all_levels``' lossy delta
+           stack, qwen2-moe-a2.7b's 768-token chunk (98,304 lanes, tables
+           at 2.0e9 slots), a lane whose table starts at 2^31 slots, 20,481
+           lanes, n_sym = 1 and zero-width words; planted faults (a word
+           flipped, where ``check=True`` must raise too; a lane's table off
+           by one; one emit dropped from K8's stream) must break the
+           equality; their bound counts the table entries this run's data
+           reads once, and beside it the time at one 32-byte sector a
+           table gather (``rans_bound``).
 4. serve   smollm-360m at full width (random bf16 weights from a seed):
            four requests go through ``calculate_kv`` (K4), their KV is
            profiled and encoded at every level in 1536-token chunks (K5),
@@ -341,12 +355,12 @@ The kernels' launch counters are zeroed before phase 4 and read after phase
 5, then zeroed before each of phases 6, 7, 8, 9, 15, 10, 11, 12 A, 12 B, 13,
 14 A, 14 B, 16, 17 and 18 and read after it (14 C's subprocesses, 16's
 and 17 B's ranks and 18's examples count their own, read by the parent);
-the run fails if a kernel that a path runs was not launched in it (all six
-on the serve + text and store paths; K1, K2 and K3 on the session, serving
-and mesh paths; K1-K5 on the launcher, moe and vlm paths; K3 and K4 on the
-hybrid, encdec and dryrun paths; K4 on the train, train sweep, train
-launcher and distributed paths; K3, K4 and K5 on the examples path), or if
-the ssm path launched any.  The last line is
+the run fails if a kernel that a path runs was not launched in it (all eight
+on the serve + text and store paths; K7, K1, K2 and K3 on the session,
+serving and mesh paths; K1-K5, K7 and K8 on the launcher, moe and vlm
+paths; K3 and K4 on the hybrid, encdec and dryrun paths; K4 on the train,
+train sweep, train launcher and distributed paths; K3, K4, K5 and K8 on the
+examples path), or if the ssm path launched any.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 with launches summed over the paths.  Needs
 one CUDA card; exits 2 with no result when there is none.
@@ -378,7 +392,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.core import codec, quant  # noqa: E402
+from repro_torch.core import codec, quant, rans  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, ops, timing  # noqa: E402
 from repro_torch.kernels.timing import bound_ms as bound  # noqa: E402
 from repro_torch.kernels.timing import device_ms, time_ms  # noqa: E402
@@ -404,6 +418,12 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     kv_quant_cuda,
     kv_quant_plain,
     vector_width,
+)
+from repro_torch.kernels.rans import (  # noqa: E402
+    rans_decode_cuda,
+    rans_decode_plain,
+    rans_encode_cuda,
+    rans_encode_plain,
 )
 from repro_torch._tree import tree_flatten_with_path, tree_leaves, tree_map  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
@@ -491,9 +511,9 @@ GEN_BATCH_REL = TEXT_BATCH_REL
 STEP_SAMPLES = 8
 # the kernels each path runs: every path needs each of its kernels launched
 ALL_KERNELS = tuple(ops.KERNELS)
-SESSION_KERNELS = ("kv_dequant_tokens", "kv_lossless_tokens", "decode_attention")
+SESSION_KERNELS = ("rans_decode", "kv_dequant_tokens", "kv_lossless_tokens", "decode_attention")
 SERVING_KERNELS = SESSION_KERNELS
-LAUNCHER_KERNELS = SESSION_KERNELS + ("flash_attention", "kv_quant")
+LAUNCHER_KERNELS = SESSION_KERNELS + ("flash_attention", "kv_quant", "rans_encode")
 MOE_KERNELS = LAUNCHER_KERNELS  # the unfused K6 runs only in its checks
 # phase 15: row-sharded serving runs the serving path's kernels on every shard
 MESH_KERNELS = SERVING_KERNELS
@@ -676,8 +696,8 @@ with open(sys.argv[2], "w") as f:
 # for line (``BANDWIDTH_TIMELINE``), and launch the kernels of
 # ``EXAMPLE_KERNELS`` (the tiny model's plans are all TEXT: no K1 or K2)
 EXAMPLES = {"quickstart": [], "serve_batched": [], "train_100m": ["--steps", "20"], "bandwidth_adaptation": []}
-EXAMPLE_KERNELS = {"quickstart": ("flash_attention", "kv_quant", "decode_attention"),
-                   "serve_batched": ("flash_attention", "kv_quant", "decode_attention"),
+EXAMPLE_KERNELS = {"quickstart": ("flash_attention", "kv_quant", "rans_encode", "decode_attention"),
+                   "serve_batched": ("flash_attention", "kv_quant", "rans_encode", "decode_attention"),
                    "train_100m": ("flash_attention",), "bandwidth_adaptation": ()}
 _NUM = r"[\d.]+"
 EXAMPLE_LINES = {
@@ -814,6 +834,98 @@ def device_total_ms(fn, iters=3):
 def require(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def coder_stack(sets, k, dev, gen, fill=None):
+    """Random skewed rANS tables built on the card: one set of ``n`` tables
+    over alphabet ``A`` for each ``(n, A)`` of ``sets``, stacked as
+    ``rans.stack_tables(..., pad_alphabet=True)`` stacks them (freqs
+    zero-padded, cums edge-padded to the widest alphabet).  Every frequency
+    is >= 1 and each row sums to 2**k.  ``fill`` lists the ``(start, stop)``
+    rows to draw (the others stay zero and must not be read); all by
+    default."""
+    M = 1 << k
+    n_t, A_max = sum(n for n, _ in sets), max(A for _, A in sets)
+    freqs = torch.zeros((n_t, A_max), dtype=torch.int64, device=dev)
+    cums = torch.full((n_t, A_max + 1), M, dtype=torch.int64, device=dev)
+    s2s = torch.zeros((n_t, M), dtype=torch.int16, device=dev)
+    slots = torch.arange(M, device=dev)
+    base, rows_a = 0, []
+    for n, A in sets:
+        rows_a.append((base, base + n, A))
+        base += n
+    for start, stop in fill or [(0, n_t)]:
+        for lo, hi, A in rows_a:
+            for r0 in range(max(lo, start), min(hi, stop), 8192):
+                r1 = min(r0 + 8192, hi, stop)
+                w = torch.rand((r1 - r0, A), generator=gen, device=dev) ** 4
+                f = 1 + torch.floor(w / w.sum(1, keepdim=True) * (M - A)).long()
+                f[:, 0] += M - f.sum(1)
+                freqs[r0:r1, :A] = f
+                cums[r0:r1, 0] = 0
+                cums[r0:r1, 1:A + 1] = f.cumsum(1)
+                s2s[r0:r1] = torch.searchsorted(cums[r0:r1, 1:A + 1].contiguous(), slots.expand(r1 - r0, M).contiguous(),
+                                                right=True).to(torch.int16)
+    return rans.CoderTables(freqs, cums, s2s, k)
+
+
+def coder_symbols(stack, t_idx, n_sym, gen):
+    """(n_lanes, n_sym) int32 symbols, each lane's drawn from its table's
+    distribution (so within its set's alphabet)."""
+    M = 1 << stack.precision
+    slots = torch.randint(0, M, (t_idx.shape[0], n_sym), generator=gen, device=t_idx.device)
+    return stack.slot2sym[t_idx.long()[:, None], slots].to(torch.int32)
+
+
+def table_pairs(t_idx, syms, alphabet):
+    """The distinct (table, symbol) pairs of this run's data: the freqs and
+    cums entries a K7 or K8 launch must read."""
+    return int(torch.unique(t_idx.long()[:, None] * alphabet + syms.long()).numel())
+
+
+def rans_bound(kind, n_lanes, n_sym, pairs, n_words_read=0):
+    """The least time of one K7 or K8 launch, and beside it the time at one
+    32-byte sector a table gather.  Bytes, each input read once and each
+    output written once: K7 the words it consumes, the symbols it writes,
+    n_words, state, table_idx, x and ptr; K8 the symbols, the whole
+    (n_sym, n_lanes) word buffer, table_idx, n_words and x; and the table
+    entries this run's data reads, ``pairs`` distinct (table, symbol)
+    pairs (``table_pairs``) of one 8-byte freq and one 8-byte cum each, and
+    for K7 one 2-byte slot2sym entry a pair (a lower bound: a symbol is
+    read from at least one of its slots; the slots a lane visits are not
+    counted one by one).  Operations at the card's int32 rate (about 12 a
+    K7 step, 30 a K8 step with its 32-bit division).  The sector time
+    charges instead one 32-byte sector for each table gather a step makes
+    (K7: slot2sym, freqs, cums; K8: freqs, cums), as if no gather hit a
+    cache: what the scattered gathers cost when every one goes to HBM, not
+    a bound.  Returns ``(bound_ms, by), sector_ms``."""
+    steps = n_lanes * n_sym
+    if kind == "decode":
+        base, n_ops, gathers, table = (n_words_read * 2 + steps * 4 + n_lanes * (4 + 4 + 4 + 8 + 8), 12 * steps, 3,
+                                       pairs * (2 + 8 + 8))
+    else:
+        base, n_ops, gathers, table = (steps * 4 + n_lanes * max(n_sym, 1) * 4 + n_lanes * (4 + 4 + 8), 30 * steps,
+                                       2, pairs * (8 + 8))
+    return (bound(base + table, n_ops, timing.INT32_OPS),
+            bound(base + 32 * gathers * steps, n_ops, timing.INT32_OPS)[0])
+
+
+def held_rans(stack, t_idx, syms, what):
+    """K8 then K7 on the card against their plain versions (torch.equal on
+    every output), K7 inverting K8 to the initial state.  Returns K7's
+    arguments (its words as the wire hands them over: int16 bits, ``cap`` =
+    the most words a lane holds), K8's and K7's plain outputs."""
+    got, enc = rans_encode_cuda(syms, t_idx, stack), rans_encode_plain(syms, t_idx, stack)
+    require(all(torch.equal(a, b) for a, b in zip(got, enc)), f"K8 differs from its plain version ({what})")
+    w, n, x = got
+    cap = int(n.max())
+    args = (rans.wire_bits(w[:, :cap], 16, w.device), n, rans.wire_bits(x, 32, x.device), t_idx, stack,
+            syms.shape[1])
+    got, dec = rans_decode_cuda(*args), rans_decode_plain(*args)
+    require(all(torch.equal(a, b) for a, b in zip(got, dec)), f"K7 differs from its plain version ({what})")
+    require(torch.equal(got[0], syms) and bool((got[1] == 1 << 16).all()) and bool((got[2] == -1).all()),
+            f"K7 does not invert K8 ({what})")
+    return args, enc, dec
 
 
 def drive_main_path(cfg, dev, gen, phase=lambda name: contextlib.nullcontext(),
@@ -1058,6 +1170,26 @@ def drive_session_path(cfg, stored, phase=lambda name: contextlib.nullcontext(),
               f"total {clean.wall_total_s:.4f} s")
         print(f"session realized decode rate {bitstream / clean.wall_decode_s:.4g} B/s (bitstream bytes / wall "
               f"decode s) vs the stated {DECODE_BYTES_PER_S:.4g} B/s (informational)")
+        # where a decode's wall time goes: the session's decoded chunks once
+        # more through decode_chunks (uncounted), its host steps apart, K7's
+        # two launches by the profiler
+        blobs = [streamer.store.get_kv("ctx", m.chunk_idx, c) for m, c in zip(metas, clean.configs) if c != TEXT]
+        ct, split = streamer.store.tables, Laps(engine.device)
+        with uncounted():
+            parsed = [codec.bitstream.unpack(b) for b in blobs]
+            split.lap("unpack")
+            stacked = [codec._stack_streams(parsed, range(len(blobs)), p) for p in ("a", "d")]
+            split.lap("stack the streams")
+            for w, _, x in stacked:
+                rans.wire_bits(w, 16, engine.device), rans.wire_bits(x, 32, engine.device)
+            split.lap("copy the words and states")
+            codec.decode_chunks(blobs, ct, out_dtype=torch.bfloat16)
+            split.lap("decode_chunks")
+            k7 = device_ms(lambda: codec.decode_chunks(blobs, ct, out_dtype=torch.bfloat16), "rans_decode_kernel",
+                           iters=2) if engine.device.type == "cuda" else None
+        laps.lap("decode breakdown")
+        print(f"session decode of {len(blobs)} chunks ({sum(map(len, blobs))} bytes), wall ms {split.ms}; K7 "
+              f"{k7} ms a launch on the device (two a call; informational)")
 
         fault_plan = FaultPlan(**FAULT_PLAN)
         first_fault = fault_plan.draw("ctx", 0, 0, 0)
@@ -4251,6 +4383,148 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         )
         del d6, a6
 
+        # K7 and K8, the rANS coder's scans, on random skewed tables built on
+        # the card (precision 12, one table a lane, as profile builds them),
+        # symbols drawn from each lane's table, all held with torch.equal:
+        # a stacked wave of the serve phase, 4 chunks of 1536 tokens at
+        # levels 0-3 (81,920 lanes): anchors over the anchor stack (154
+        # steps), deltas over the alphabet-padded delta_decode_stack (1,382
+        # steps); K8 over encode_all_levels' lossy delta stack (4 x 20,480
+        # lanes) with its unused tail; phase 10's qwen2-moe chunk (98,304
+        # lanes, 77 and 691 steps, delta tables at 2.0e9 slots); a lane whose
+        # table starts at 2^31 slots; ragged: 20,481 lanes, n_sym = 1 (no
+        # word) and zero-width words.  Planted faults: one word flipped
+        # (check=True must raise), one lane's table_idx off by one, one
+        # emitted word dropped from K8's stream.
+        rk, n_lossy = cc.precision, len(cc.level_mults)
+        r_lanes = L * 2 * C
+        r_idx = torch.arange(r_lanes, dtype=torch.int32, device=dev)
+        wave_levels = (0, 1, 2, 3)
+        anchor_stack = coder_stack([(r_lanes, quant.ANCHOR_ALPHABET)] * 2, rk, dev, gen)
+        t_a = torch.cat([r_idx + (r_lanes if lvl == 0 else 0) for lvl in wave_levels])
+        a_args, _, a_dec = held_rans(anchor_stack, t_a, coder_symbols(anchor_stack, t_a, G, gen), "wave anchors")
+        d_stack = coder_stack([(r_lanes, cc.delta_alphabet)] * n_lossy + [(r_lanes, quant.lossless_delta_alphabet())],
+                              rk, dev, gen)
+        t_d = torch.cat([r_idx + r_lanes * (n_lossy if lvl == 0 else lvl - 1) for lvl in wave_levels])
+        d_syms = coder_symbols(d_stack, t_d, CHUNK - G, gen)
+        d_args, _, d_want = held_rans(d_stack, t_d, d_syms, "wave deltas")
+        rans_faults = {}
+        words, n_w, st, t_dd = d_args[:4]
+        lane = int(n_w.argmax())
+        bad = words.clone()
+        bad[lane, int(n_w[lane]) // 2] ^= 0x5A5A
+        rans_faults["rans_decode: one word flipped"] = torch.equal(rans_decode_cuda(bad, *d_args[1:])[0], d_want[0])
+        try:
+            rans.decode(bad, n_w, st, t_dd, d_stack, CHUNK - G, check=True)
+            rans_faults["rans_decode: check=True passes a flipped word"] = True
+        except ValueError:
+            pass
+        t_bad = t_dd.clone()
+        t_bad[0] += 1
+        rans_faults["rans_decode: table_idx off by one"] = torch.equal(
+            rans_decode_cuda(words, n_w, st, t_bad, *d_args[4:])[0], d_want[0])
+        del bad, t_bad, words, n_w, st, t_dd
+        # K8 at encode_all_levels' shape: the lossy delta stack, unpadded
+        lossy_stack = rans.CoderTables(d_stack.freqs[:n_lossy * r_lanes, :cc.delta_alphabet].contiguous(),
+                                       d_stack.cums[:n_lossy * r_lanes, :cc.delta_alphabet + 1].contiguous(),
+                                       d_stack.slot2sym[:n_lossy * r_lanes], rk)
+        t_l = torch.cat([r_idx + r_lanes * j for j in range(n_lossy)])
+        l_syms = coder_symbols(lossy_stack, t_l, CHUNK - G, gen)
+        l_got = rans_encode_cuda(l_syms, t_l, lossy_stack)
+        l_want = rans_encode_plain(l_syms, t_l, lossy_stack)
+        require(all(torch.equal(a, b) for a, b in zip(l_got, l_want)),
+                "K8 differs from its plain version at encode_all_levels' lossy delta stack")
+        tail = l_got[0].gather(1, l_got[1].long().clamp(max=CHUNK - G - 1)[:, None])
+        require(bool((tail != 0).any()), "K8's unused tail holds no word: the case does not reach it")
+        lane = int(l_want[1].argmax())  # one emitted word dropped: the lane's first, its count one less
+        w_bad, n_bad = l_want[0].clone(), l_want[1].clone()
+        w_bad[lane, :-1] = l_want[0][lane, 1:]
+        n_bad[lane] -= 1
+        rans_faults["rans_encode: one emitted word dropped"] = torch.equal(l_got[0], w_bad) and torch.equal(
+            l_got[1], n_bad)
+        del w_bad, n_bad
+        # ragged: a lane count no multiple of the block, n_sym = 1 (no lane
+        # emits a word) through zero-width words
+        small = coder_stack([(64, cc.delta_alphabet)], rk, dev, gen)
+        t_r = torch.randint(0, 64, (r_lanes + 1,), generator=gen, device=dev, dtype=torch.int32)
+        held_rans(small, t_r, coder_symbols(small, t_r, G, gen), "20,481 lanes")
+        one = coder_symbols(small, t_r, 1, gen)
+        _, n1, x1 = rans_encode_cuda(one, t_r, small)
+        require(not n1.any(), "one symbol a lane emitted a word")
+        zero = (torch.zeros((r_lanes + 1, 0), dtype=torch.int16, device=dev), n1, rans.wire_bits(x1, 32, dev), t_r,
+                small, 1)
+        require(all(torch.equal(a, b) for a, b in zip(rans_decode_cuda(*zero), rans_decode_plain(*zero))),
+                "K7 differs from its plain version on zero-width words")
+        require(torch.equal(rans_decode_cuda(*zero)[0], one), "K7 does not invert K8 at n_sym = 1")
+        del small, zero, one
+        n_read = int(d_args[1].sum())
+        d_bound, d_sector = rans_bound("decode", t_d.numel(), CHUNK - G, table_pairs(t_d, d_syms, d_stack.alphabet),
+                                       n_read)
+        a_bound, a_sector = rans_bound("decode", t_a.numel(), G, table_pairs(t_a, a_dec[0], anchor_stack.alphabet),
+                                       int(a_args[1].sum()))
+        l_bound, l_sector = rans_bound("encode", t_l.numel(), CHUNK - G, table_pairs(t_l, l_syms, lossy_stack.alphabet))
+        report["rans_decode"] = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: rans_decode_cuda(*d_args), iters=5, warmup=1),
+            device_ms=device_ms(lambda: rans_decode_cuda(*d_args), "rans_decode_kernel", iters=3),
+            plain_ms=time_ms(lambda: rans_decode_plain(*d_args), iters=1, warmup=0),
+            library_ms=None,
+            bound=d_bound,
+            sector_ms=d_sector,
+            anchors_ms=time_ms(lambda: rans_decode_cuda(*a_args), iters=5, warmup=1),
+            anchors_bound=a_bound,
+            anchors_sector_ms=a_sector,
+            shape=f"a wave's deltas: {t_d.numel()} lanes x {CHUNK - G} steps over {d_stack.n_tables} padded tables "
+                  f"(levels {list(wave_levels)}), {n_read} words; its anchors {t_a.numel()} x {G}; ragged and "
+                  "2^31 cases",
+        )
+        report["rans_encode"] = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: rans_encode_cuda(l_syms, t_l, lossy_stack), iters=5, warmup=1),
+            device_ms=device_ms(lambda: rans_encode_cuda(l_syms, t_l, lossy_stack), "rans_encode_kernel", iters=3),
+            plain_ms=time_ms(lambda: rans_encode_plain(l_syms, t_l, lossy_stack), iters=1, warmup=0),
+            library_ms=None,
+            bound=l_bound,
+            sector_ms=l_sector,
+            shape=f"encode_all_levels' lossy deltas: {t_l.numel()} lanes x {CHUNK - G} steps over "
+                  f"{lossy_stack.n_tables} tables, {int(l_got[1].sum())} words",
+        )
+        del anchor_stack, d_stack, lossy_stack, a_args, a_dec, d_args, d_want, d_syms, l_syms, l_got, l_want
+        # phase 10's qwen2-moe-a2.7b chunk: 24 x 2 x 2048 lanes, one table a lane
+        qcfg = registry.get(MOE_ARCH)
+        q_lanes = qcfg.n_layers * 2 * qcfg.n_kv_heads * qcfg.d_head
+        qG = -(-MOE_CHUNK // g)
+        q_idx = torch.arange(q_lanes, dtype=torch.int32, device=dev)
+        q_anchor = coder_stack([(q_lanes, quant.ANCHOR_ALPHABET)] * 2, rk, dev, gen)
+        qa_args, _, _ = held_rans(q_anchor, q_idx + q_lanes, coder_symbols(q_anchor, q_idx + q_lanes, qG, gen),
+                                  f"{MOE_ARCH} anchors")
+        qa_ms = time_ms(lambda: rans_decode_cuda(*qa_args), iters=5, warmup=1)
+        del q_anchor, qa_args
+        q_stack = coder_stack([(q_lanes, cc.delta_alphabet)] * n_lossy + [(q_lanes, quant.lossless_delta_alphabet())],
+                              rk, dev, gen)
+        q_t = q_idx + n_lossy * q_lanes  # level 0: the stack's last set
+        require((int(q_t.max()) << rk) > 2.0e9, "the qwen2-moe case does not reach 2.0e9 slots")
+        qd_args, _, qd_dec = held_rans(q_stack, q_t, coder_symbols(q_stack, q_t, MOE_CHUNK - qG, gen),
+                                       f"{MOE_ARCH} deltas")
+        qd_bound, qd_sector = rans_bound("decode", q_lanes, MOE_CHUNK - qG,
+                                         table_pairs(q_t, qd_dec[0], q_stack.alphabet), int(qd_args[1].sum()))
+        moe_rans = dict(
+            lanes=q_lanes, anchors_ms=qa_ms, deltas_ms=time_ms(lambda: rans_decode_cuda(*qd_args), iters=5, warmup=1),
+            deltas_bound=qd_bound, deltas_sector_ms=qd_sector,
+            slots=(int(q_t.max()) + 1) << rk, words=int(qd_args[1].sum()))
+        del q_stack, qd_args, qd_dec
+        # the lane whose table starts at 2^31 slots: 524,289 tables of 4096
+        # slots (4.3 GB of slot2sym), 16 drawn at each end, lanes at both
+        n_far = (1 << 19) + 1
+        far = coder_stack([(n_far, 64)], rk, dev, gen, fill=[(0, 16), (n_far - 16, n_far)])
+        t_f = torch.randint(0, 16, (4096,), generator=gen, device=dev, dtype=torch.int32)
+        t_f[1::2] += n_far - 16
+        t_f[1] = n_far - 1
+        require((int(t_f.max()) << rk) >= 1 << 31, "the far case's tables do not pass 2^31 slots")
+        held_rans(far, t_f, coder_symbols(far, t_f, 300, gen), "a table at 2^31 slots")
+        del far
+        require(not any(rans_faults.values()), f"a planted rANS fault held equal: {rans_faults}")
+
         # phase 10's shapes, qwen2-moe-a2.7b (MHA, 16 heads of 128, C =
         # 2048): K1 and K2 over its four 768-token chunks, K3 over its 1-row
         # cache of 3105 slots (8 layer slices, 204 MB of K/V, so every
@@ -4646,6 +4920,18 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
                   f"(device time {r['device_ms']} ms)  "
                   f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']}  "
                   f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it reached)")
+        for name in ("rans_decode", "rans_encode"):
+            r = report[name]
+            print(f"{name}: at one 32-byte sector a table gather {r['sector_ms']:.4f} ms "
+                  f"({r['sector_ms'] / r['ms']:.1%} of the kernel ms)")
+        r = report["rans_decode"]
+        print(f"rans_decode: the wave's anchors {r['anchors_ms']:.4f} ms (bound {r['anchors_bound'][0]:.4f} ms "
+              f"({r['anchors_bound'][1]}), sector time {r['anchors_sector_ms']:.4f} ms); "
+              f"{MOE_ARCH}'s chunk of {MOE_CHUNK} tokens ({moe_rans['lanes']} lanes): anchors "
+              f"{moe_rans['anchors_ms']:.4f} ms, deltas {moe_rans['deltas_ms']:.4f} ms (bound "
+              f"{moe_rans['deltas_bound'][0]:.4f} ms ({moe_rans['deltas_bound'][1]}), sector time "
+              f"{moe_rans['deltas_sector_ms']:.4f} ms, {moe_rans['words']} words, tables to {moe_rans['slots']:.3g} "
+              f"slots); a table at 2^31 slots held; planted faults held equal: {rans_faults}")
         for name, r in moe_report.items():
             require(r["device_ms"] is not None, f"the profiler holds no device time for {name} at the moe shape")
             print(f"{name} at {MOE_ARCH}'s shape: {r['shape']}  max_abs_err {r['max_abs_err']:.3g}  kernel "
@@ -4807,6 +5093,8 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:109"),
         "kv_quant": ("kvquant.cu", "src/repro/kernels/kvquant.py:209"),
         "kv_dequant": ("kvquant.cu", "src/repro/kernels/kvquant.py:76"),
+        "rans_decode": ("rans.cu", "src/repro/core/rans.py:110"),
+        "rans_encode": ("rans.cu", "src/repro/core/rans.py:65"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

@@ -61,6 +61,7 @@ __all__ = [
     "pack",
     "peek_header",
     "pack_stream",
+    "stream_arrays",
     "segment_index",
     "synthesize_head",
     "unpack",
@@ -170,10 +171,17 @@ def pack_stream(
     n_words = np.asarray(n_words, dtype=np.int32)
     n_lanes, cap = words.shape
     mask = np.arange(cap)[None, :] < n_words[:, None]
-    payload = words[mask]  # concatenated valid words, lane-major
+    return stream_arrays(words[mask], n_words, state, prefix)
+
+
+def stream_arrays(
+    payload: np.ndarray, n_words: np.ndarray, state: np.ndarray, prefix: str
+) -> Dict[str, np.ndarray]:
+    """Wire arrays under ``prefix`` from a stream's valid words, already
+    concatenated lane-major (what :func:`pack_stream` compacts)."""
     return {
-        f"{prefix}.payload": payload.astype(np.uint16),
-        f"{prefix}.n_words": n_words,
+        f"{prefix}.payload": np.asarray(payload).astype(np.uint16),
+        f"{prefix}.n_words": np.asarray(n_words, dtype=np.int32),
         f"{prefix}.state": np.asarray(state, dtype=np.uint32),
     }
 

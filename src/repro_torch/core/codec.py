@@ -21,7 +21,8 @@ Tables are profiled offline per model on calibration KV caches
 The serving hot path is :func:`decode_chunks`: every fetched chunk's
 bitstream is parsed once on the host, all lanes are stacked into exactly two
 rANS decodes (anchors for all chunks; deltas for all chunks, lossy levels
-and the lossless family sharing one alphabet-padded table stack), and every
+and the lossless family sharing one alphabet-padded table stack), each one
+launch of the kernel K7 on a card (``kernels.ops.rans_decode``), and every
 chunk's tokens are rebuilt in one pass by the fused kernels K1/K2
 (``kernels.ops.kv_dequant_tokens`` / ``kv_lossless_tokens``), which emit
 whole token groups in the cache's dtype.  On a CUDA device the kernels run;
@@ -35,7 +36,8 @@ its lossy reconstruction is the delta-only kernel K6
 anchors once and runs all lossy levels' delta encodes as one stacked call;
 its bitstreams are byte-identical to per-level :func:`encode_chunk`, and to
 the reference package's under the same tables.  The lossy delta symbols of
-both come from the kernel K5 (``kernels.ops.kv_quant``).
+both come from the kernel K5 (``kernels.ops.kv_quant``), and every rANS
+encode is the kernel K8 on a card (``kernels.ops.rans_encode``).
 """
 from __future__ import annotations
 
@@ -355,9 +357,14 @@ def _check_geometry(kv: torch.Tensor, ct: CodecTables) -> None:
 
 
 def _stream_arrays(words, n_words, state, prefix: str) -> Dict[str, np.ndarray]:
-    return bitstream.pack_stream(
-        words.cpu().numpy(), n_words.cpu().numpy(), state.cpu().numpy(), prefix
-    )
+    """A coded stream's wire arrays.  On a card its valid words are picked out
+    there and cross to the host at 16 bits (K8's buffer holds every step's
+    word at 32)."""
+    if not words.is_cuda:
+        return bitstream.pack_stream(words.numpy(), n_words.numpy(), state.numpy(), prefix)
+    keep = torch.arange(words.shape[1], device=words.device)[None, :] < n_words[:, None]
+    payload = rans.wire_bits(words[keep], 16, words.device).cpu().numpy().view(np.uint16)
+    return bitstream.stream_arrays(payload, n_words.cpu().numpy(), state.cpu().numpy(), prefix)
 
 
 def encode_chunk(kv, ct: CodecTables, level: int, chunk_idx: Optional[int] = None) -> bytes:
@@ -433,19 +440,12 @@ def _stack_streams(
     idxs: Sequence[int],
     prefix: str,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Stack several chunks' packed rANS streams into one padded lane block."""
-    streams = [bitstream.unpack_stream(parsed[i][1], prefix) for i in idxs]
-    n_lanes = streams[0][0].shape[0]
-    cap = max(w.shape[1] for w, _, _ in streams)  # the decoder never reads the pad
-    words = np.zeros((len(idxs) * n_lanes, cap), np.uint16)
-    n_words = np.empty((len(idxs) * n_lanes,), np.int32)
-    state = np.empty((len(idxs) * n_lanes,), np.uint32)
-    for j, (w, n, x) in enumerate(streams):
-        sl = slice(j * n_lanes, (j + 1) * n_lanes)
-        words[sl, : w.shape[1]] = w
-        n_words[sl] = n
-        state[sl] = x
-    return words, n_words, state
+    """Stack several chunks' packed rANS streams into one padded lane block:
+    their wire arrays concatenated lane-major are one stream of all their
+    lanes, padded once (the decoder never reads the pad)."""
+    merged = {f"{prefix}.{key}": np.concatenate([parsed[i][1][f"{prefix}.{key}"] for i in idxs])
+              for key in ("payload", "n_words", "state")}
+    return bitstream.unpack_stream(merged, prefix)
 
 
 def _assemble_chunks(

@@ -3,21 +3,26 @@
 Every *lane* carries its own 32-bit coder state and its own static symbol
 distribution; lanes map to (layer, K/V, channel) streams (paper Insight 3:
 per-channel-per-layer distributions).  The reference runs the coder as a
-vectorized ``lax.scan``; here it is a Python loop with one step per symbol,
-each step a handful of elementwise tensor ops over all lanes, on the
-tensors' device.  A CUDA kernel with one thread per lane (the GPU coder
-design the paper describes) is future work; the loop launches about a dozen
-ops per symbol step.
+vectorized ``lax.scan`` a direction.  Here :func:`encode` and
+:func:`decode` run it on the tables' device through ``kernels.ops``: with
+the tables on a CUDA card, the hand-written kernels K8 (``rans_encode``) and
+K7 (``rans_decode``) of ``kernels/csrc/rans.cu`` run, one thread a lane
+(the GPU coder design the paper describes); with the tables on the CPU,
+their plain versions do (``kernels.rans``: a Python loop with one step per
+symbol, each step a handful of elementwise tensor ops over all lanes).
+There is no switch and no fallback: the device decides.
 
 Variant: 32-bit state, 16-bit word renormalization (ryg_rans "rans_word").
 With precision ``k <= 14`` and all frequencies >= 1 (< 2^k), each symbol
 emits/consumes at most one 16-bit word, so every step does fixed work.
 
-PyTorch has no ``+``/``-`` on ``uint16`` and no shifts on ``uint32``, so the
-coder state is held in ``int64`` and symbols and words in ``int32``/``int64``.
-The state stays below 2^32 throughout (``x < 2^32`` before the encoder's
-``(q << k) + r + c``, ``f * (x >> k) < 2^32`` in the decoder), so nothing
-wraps; ``uint16`` appears only at the wire (``bitstream.pack_stream``).
+The wire's words and states travel to the device at their own width: the
+``uint16`` words as ``int16`` bits and the ``uint32`` states as ``int32``
+bits (views on the host, no widening before the copy), which both routes
+read as unsigned.  The plain versions hold the state in ``int64`` (PyTorch
+has no ``+``/``-`` on ``uint16`` and no shifts on ``uint32``); it stays below
+2^32 throughout (``x < 2^32`` before the encoder's ``(q << k) + r + c``,
+``f * (x >> k) < 2^32`` in the decoder), so nothing wraps.
 
 Wire format per call: ``words (n_lanes, n_sym)`` of which the first
 ``n_words[lane]`` entries are valid, plus the final state per lane.  The
@@ -31,9 +36,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["CoderTables", "encode", "decode", "encoded_bytes", "stack_tables"]
+from repro_torch.kernels import ops
+from repro_torch.kernels.rans import RANS_L
 
-RANS_L = 1 << 16  # lower bound of the normalized state interval
+__all__ = ["CoderTables", "encode", "decode", "encoded_bytes", "stack_tables", "wire_bits"]
 
 
 class CoderTables(NamedTuple):
@@ -63,12 +69,28 @@ class CoderTables(NamedTuple):
         return self.freqs.device
 
 
-def _int64(a, device) -> torch.Tensor:
-    """Host arrays (the wire's unsigned types included) or tensors -> int64 on
-    ``device``."""
+def _int32(a, device) -> torch.Tensor:
+    """Host arrays or tensors -> int32 on ``device`` (numpy converted on the
+    host, before the copy)."""
     if isinstance(a, np.ndarray):
-        a = a.astype(np.int64)
-    return torch.as_tensor(a, device=device).to(torch.int64)
+        a = np.array(a, dtype=np.int32)  # a copy: the lane vectors are small
+    return torch.as_tensor(a, device=device).to(torch.int32).contiguous()
+
+
+def wire_bits(a, width: int, device) -> torch.Tensor:
+    """Unsigned ``width``-bit values (the wire's ``uint16`` words or
+    ``uint32`` states, or wider integers holding them) -> their bits as
+    int16/int32 on ``device``, converted on the host before the copy."""
+    unsigned, np_signed, signed = {16: (np.uint16, np.int16, torch.int16),
+                                   32: (np.uint32, np.int32, torch.int32)}[width]
+    if isinstance(a, np.ndarray):
+        a = np.ascontiguousarray(a).astype(unsigned, copy=False).view(np_signed)
+        return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+    a = torch.as_tensor(a)
+    if a.element_size() * 8 != width:  # wider integers: their low bits
+        a = a.to(torch.int64) & ((1 << width) - 1)
+        a = torch.where(a >= 1 << (width - 1), a - (1 << width), a).to(signed)
+    return a.view(signed).to(device).contiguous()
 
 
 def encode(
@@ -79,41 +101,14 @@ def encode(
     ``words`` is (n_lanes, n_sym) int32 holding 16-bit values, ``n_words``
     (n_lanes,) int32, ``final_state`` (n_lanes,) int64 below 2^32.  The
     unused tail of ``words`` holds exactly what the reference's buffer
-    holds, so the two are identical element for element.
+    holds, so the two are identical element for element.  K8 on a card,
+    its plain version on the CPU (``kernels.ops.rans_encode``).
     """
     dev = tables.device
-    symbols = _int64(symbols, dev)
+    symbols = _int32(symbols, dev)
     if symbols.ndim != 2:
         raise ValueError(f"symbols must be (n_lanes, n_sym), got {tuple(symbols.shape)}")
-    n_lanes, n_sym = symbols.shape
-    A = tables.alphabet
-    k = tables.precision
-    freqs_flat = tables.freqs.reshape(-1)
-    cums_flat = tables.cums.reshape(-1)
-    t_idx = _int64(table_idx, dev)
-    t_base_f = t_idx * A
-    t_base_c = t_idx * (A + 1)
-    # rANS encodes in reverse symbol order so the decoder runs forward.
-    xs = torch.flip(symbols.T, dims=(0,)).contiguous()  # (n_sym, n_lanes)
-    x_bound = (RANS_L >> k) << 16
-
-    x = torch.full((n_lanes,), RANS_L, dtype=torch.int64, device=dev)
-    ptr = torch.zeros((n_lanes, 1), dtype=torch.int64, device=dev)
-    buf = torch.zeros((n_lanes, max(n_sym, 1)), dtype=torch.int32, device=dev)
-    for i in range(n_sym):
-        s = xs[i]
-        f = freqs_flat[t_base_f + s]
-        c = cums_flat[t_base_c + s]
-        # renormalize: emit one 16-bit word if x would overflow; the word is
-        # written at ptr either way (the reference's buffer does the same)
-        emit = x >= x_bound * f
-        buf.scatter_(1, ptr, (x & 0xFFFF).to(torch.int32)[:, None])
-        ptr += emit[:, None]
-        x = torch.where(emit, x >> 16, x)
-        # C(s, x) = (x // f) << k + (x % f) + c
-        q = torch.div(x, f, rounding_mode="floor")
-        x = (q << k) + (x - q * f) + c
-    return buf[:, :n_sym], ptr[:, 0].to(torch.int32), x
+    return ops.rans_encode(symbols, _int32(table_idx, dev), tables)
 
 
 def decode(
@@ -127,39 +122,22 @@ def decode(
 ) -> torch.Tensor:
     """Decode ``n_sym`` symbols per lane -> (n_lanes, n_sym) int32.  Exact
     inverse of :func:`encode`.  Inputs may be numpy arrays (the wire's
-    ``uint16``/``uint32``) or tensors; they are moved to the tables' device."""
+    ``uint16``/``uint32``) or tensors; they are moved to the tables' device
+    at their own width.  K7 on a card, its plain version on the CPU
+    (``kernels.ops.rans_decode``).  A lane that claims more words than
+    ``words`` has columns raises, whatever the inputs' kind and device.
+    ``check`` raises unless every lane ends at the encoder's initial state
+    with all its words consumed."""
     dev = tables.device
-    words = _int64(words, dev)
-    n_lanes = words.shape[0]
-    x = _int64(state, dev)
-    ptr = _int64(n_words, dev) - 1
-    A = tables.alphabet
-    k = tables.precision
-    M = 1 << k
-    freqs_flat = tables.freqs.reshape(-1)
-    cums_flat = tables.cums.reshape(-1)
-    s2s_flat = tables.slot2sym.reshape(-1)
-    t_idx = _int64(table_idx, dev)
-    t_base_f = t_idx * A
-    t_base_c = t_idx * (A + 1)
-    t_base_m = t_idx * M
-    words = words if words.shape[1] else words.new_zeros((n_lanes, 1))
-
-    out = torch.empty((n_sym, n_lanes), dtype=torch.int32, device=dev)
-    for i in range(n_sym):
-        slot = x & (M - 1)
-        s = s2s_flat[t_base_m + slot].to(torch.int64)
-        f = freqs_flat[t_base_f + s]
-        c = cums_flat[t_base_c + s]
-        x = f * (x >> k) + slot - c
-        need = x < RANS_L
-        word = torch.gather(words, 1, ptr.clamp_min(0)[:, None])[:, 0]
-        x = torch.where(need, (x << 16) | word, x)
-        ptr -= need.to(torch.int64)
-        out[i] = s.to(torch.int32)
+    if len(n_words) and int(n_words.max()) > words.shape[1]:
+        raise ValueError(f"rANS stream corrupt: {int(n_words.max())} words in a lane of {words.shape[1]}")
+    syms, x, ptr = ops.rans_decode(
+        wire_bits(words, 16, dev), _int32(n_words, dev), wire_bits(state, 32, dev),
+        _int32(table_idx, dev), tables, n_sym,
+    )
     if check and (not bool((x == RANS_L).all()) or not bool((ptr == -1).all())):
         raise ValueError("rANS stream corrupt: decoder did not return to initial state")
-    return out.T  # symbols (n_lanes, n_sym) in forward order
+    return syms  # (n_lanes, n_sym) in forward order
 
 
 def encoded_bytes(n_words) -> int:

@@ -67,6 +67,16 @@ _SIGNATURES = {
         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,  # q/k/v/o strides (b, t, h)
         _I, _I, _F, _I, _P,  # causal use_prefix scale dtype stream
     ),
+    # rans.cu
+    "rans_decode": (
+        _P, _L, _P, _P, _P,  # words cap n_words state table_idx
+        _P, _P, _P, _I, _I,  # freqs cums slot2sym A k
+        _L, _I, _P, _P, _P, _P,  # n_lanes n_sym out x_out ptr_out stream
+    ),
+    "rans_encode": (
+        _P, _P, _P, _P, _I, _I,  # symbols table_idx freqs cums A k
+        _L, _I, _P, _P, _P, _P,  # n_lanes n_sym words n_words x_out stream
+    ),
 }
 
 

@@ -9,7 +9,8 @@ reference's ``kernels/ops.py``: the device decides.
 launch counters, so a run can show that its path went through them.
 ``bf16_ulp_excess`` with ``BF16_TOL`` is the one rule by which a kernel with
 bf16 output is held against its plain version (K2, K5 and K6 are held bit
-for bit).
+for bit, and the rANS coder's K7 and K8 symbol for symbol and word for
+word).  K7 and K8 are picked by the device of their tables.
 
 Under autograd (grad enabled and an input that requires grad) K4 on the
 card goes through ``_FlashAttention``, a ``torch.autograd.Function``: its
@@ -57,6 +58,7 @@ from repro_torch.kernels.kvquant import (
     kv_quant_cuda,
     kv_quant_plain,
 )
+from repro_torch.kernels.rans import rans_decode_cuda, rans_decode_plain, rans_encode_cuda, rans_encode_plain
 
 __all__ = [
     "BF16_TOL",
@@ -71,6 +73,8 @@ __all__ = [
     "kv_lossless_tokens",
     "kv_quant",
     "launch_counts",
+    "rans_decode",
+    "rans_encode",
     "reset_launch_counts",
 ]
 
@@ -82,6 +86,8 @@ KERNELS = {
     "flash_attention": flash_attention_cuda,
     "kv_quant": kv_quant_cuda,
     "kv_dequant": kv_dequant_cuda,
+    "rans_decode": rans_decode_cuda,
+    "rans_encode": rans_encode_cuda,
 }
 
 
@@ -207,6 +213,20 @@ def kv_dequant(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
     their anchors, (B, G, g-1, C); see ``kernels.kvquant``."""
     fn = _pick(d_sym, kv_dequant_cuda, kv_dequant_plain)
     return fn(d_sym, anchors, bins, qmax=qmax, out_dtype=out_dtype)
+
+
+def rans_decode(words, n_words, state, table_idx, tables, n_sym: int):
+    """K7: ``n_sym`` symbols a lane from its rANS stream -> (symbols, final
+    state, final word pointer); see ``kernels.rans``."""
+    fn = _pick(tables.freqs, rans_decode_cuda, rans_decode_plain)
+    return fn(words, n_words, state, table_idx, tables, n_sym)
+
+
+def rans_encode(symbols, table_idx, tables):
+    """K8: (n_lanes, n_sym) symbols -> (words, n_words, final state); see
+    ``kernels.rans``."""
+    fn = _pick(tables.freqs, rans_encode_cuda, rans_encode_plain)
+    return fn(symbols, table_idx, tables)
 
 
 def _no_backward(name: str, *inputs: torch.Tensor) -> None:

@@ -14,10 +14,13 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-__all__ = ["HBM_BYTES_PER_S", "PEAK_FLOPS", "bound_ms", "device_ms", "kernel_name", "time_ms"]
+__all__ = ["HBM_BYTES_PER_S", "INT32_OPS", "PEAK_FLOPS", "bound_ms", "device_ms", "kernel_name", "time_ms"]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+# H100 SXM 32-bit integer instructions: 132 SMs x 64 INT32 lanes x 1.98 GHz
+# (half the lanes of its 67 TFLOP/s float32 rate); the rANS kernels' type
+INT32_OPS = 16.7e12
 
 # the first identifier followed by template arguments (without parentheses)
 # and then its parameter list or the end: ``void (anonymous namespace)::
@@ -76,7 +79,8 @@ def device_ms(fn: Callable[[], object], *kernel_names: str, iters: int = 5,
     return None
 
 
-def bound_ms(nbytes: float, flops: float) -> Tuple[float, str]:
-    """max(bytes / memory rate, operations / peak rate) in ms, and which one."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> Tuple[float, str]:
+    """max(bytes / memory rate, operations / peak rate) in ms, and which one;
+    ``peak`` is the rate of the operations' type (bf16 by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
