@@ -38,17 +38,19 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            The rANS coder's K7 (decode) and K8 (encode) on random skewed
            tables built on the card, held with ``torch.equal`` (symbols,
            words with their unused tail, word counts, final states and
-           pointers): a stacked wave of 4 smollm-360m chunks at levels 0-3
-           (81,920 lanes; anchors 154 steps, deltas 1,382 steps over the
-           padded delta stack), K8 over ``encode_all_levels``' lossy delta
-           stack, qwen2-moe-a2.7b's 768-token chunk (98,304 lanes, tables
-           at 2.0e9 slots), a lane whose table starts at 2^31 slots, 20,481
-           lanes, n_sym = 1 and zero-width words; planted faults (a word
-           flipped, where ``check=True`` must raise too; a lane's table off
-           by one; one emit dropped from K8's stream) must break the
-           equality; their bound counts the table entries this run's data
-           reads once, and beside it the time at one 32-byte sector a
-           table gather (``rans_bound``).
+           pointers), K7 on the wire's compact payload: a stacked wave of 4
+           smollm-360m chunks at levels 0-3 (81,920 lanes; anchors 154
+           steps, deltas 1,382 steps over the padded delta stack), K8 over
+           ``encode_all_levels``' lossy delta stack, qwen2-moe-a2.7b's
+           768-token chunk (98,304 lanes, tables at 2.0e9 slots), a lane
+           whose cum row starts past 2^31 bytes, 20,481 lanes, n_sym = 1 (an
+           empty payload); planted faults (a word flipped, where
+           ``check=True`` must raise too; a lane's table off by one; one
+           emit dropped from K8's stream; one staged cum entry off by one,
+           in K7 and in K8) must break the equality; their bound counts the
+           table entries this run's data reads once, and beside it the time
+           at one 32-byte sector a table gather (``rans_bound``, no bound);
+           each kernel's registers, shared memory a block and blocks an SM.
 4. serve   smollm-360m at full width (random bf16 weights from a seed):
            four requests go through ``calculate_kv`` (K4), their KV is
            profiled and encoded at every level in 1536-token chunks (K5),
@@ -419,6 +421,8 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     kv_quant_plain,
     vector_width,
 )
+from repro_torch.kernels.rans import BLOCK_LANES as RANS_BLOCK_LANES  # noqa: E402
+from repro_torch.kernels.rans import kernel_info as rans_kernel_info  # noqa: E402
 from repro_torch.kernels.rans import (  # noqa: E402
     rans_decode_cuda,
     rans_decode_plain,
@@ -910,17 +914,25 @@ def rans_bound(kind, n_lanes, n_sym, pairs, n_words_read=0):
             bound(base + 32 * gathers * steps, n_ops, timing.INT32_OPS)[0])
 
 
+def compact_stream(w, n, x):
+    """A coded stream as the wire holds it and K7 takes it: the valid words
+    lane-major (int16 bits), the word counts, each lane's offset into the
+    payload (made on the card, as ``rans.decode_payload`` makes them) and
+    the states (int32 bits)."""
+    payload = rans.wire_bits(w, 16, w.device)[torch.arange(w.shape[1], device=w.device)[None, :] < n[:, None]]
+    held = n.long().clamp_min(0)
+    return payload, n, torch.cumsum(held, 0) - held, rans.wire_bits(x, 32, x.device)
+
+
 def held_rans(stack, t_idx, syms, what):
     """K8 then K7 on the card against their plain versions (torch.equal on
     every output), K7 inverting K8 to the initial state.  Returns K7's
-    arguments (its words as the wire hands them over: int16 bits, ``cap`` =
-    the most words a lane holds), K8's and K7's plain outputs."""
+    arguments (the compact stream as the wire hands it over:
+    ``compact_stream``), K8's and K7's plain outputs."""
     got, enc = rans_encode_cuda(syms, t_idx, stack), rans_encode_plain(syms, t_idx, stack)
     require(all(torch.equal(a, b) for a, b in zip(got, enc)), f"K8 differs from its plain version ({what})")
-    w, n, x = got
-    cap = int(n.max())
-    args = (rans.wire_bits(w[:, :cap], 16, w.device), n, rans.wire_bits(x, 32, x.device), t_idx, stack,
-            syms.shape[1])
+    require(got[0].is_contiguous(), f"K8's words are not lane-major ({what})")
+    args = (*compact_stream(*got), t_idx, stack, syms.shape[1])
     got, dec = rans_decode_cuda(*args), rans_decode_plain(*args)
     require(all(torch.equal(a, b) for a, b in zip(got, dec)), f"K7 differs from its plain version ({what})")
     require(torch.equal(got[0], syms) and bool((got[1] == 1 << 16).all()) and bool((got[2] == -1).all()),
@@ -1178,11 +1190,11 @@ def drive_session_path(cfg, stored, phase=lambda name: contextlib.nullcontext(),
         with uncounted():
             parsed = [codec.bitstream.unpack(b) for b in blobs]
             split.lap("unpack")
-            stacked = [codec._stack_streams(parsed, range(len(blobs)), p) for p in ("a", "d")]
-            split.lap("stack the streams")
-            for w, _, x in stacked:
-                rans.wire_bits(w, 16, engine.device), rans.wire_bits(x, 32, engine.device)
-            split.lap("copy the words and states")
+            joined = [codec._join_streams(parsed, p, engine.device) for p in ("a", "d")]
+            for _, n_w, x in joined:  # the states and counts follow the payloads to the card
+                rans.wire_bits(x, 32, engine.device), torch.as_tensor(n_w, device=engine.device)
+            split.lap("copy the payloads to the card and join them there")
+            del joined
             codec.decode_chunks(blobs, ct, out_dtype=torch.bfloat16)
             split.lap("decode_chunks")
             k7 = device_ms(lambda: codec.decode_chunks(blobs, ct, out_dtype=torch.bfloat16), "rans_decode_kernel",
@@ -4392,10 +4404,11 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         # steps); K8 over encode_all_levels' lossy delta stack (4 x 20,480
         # lanes) with its unused tail; phase 10's qwen2-moe chunk (98,304
         # lanes, 77 and 691 steps, delta tables at 2.0e9 slots); a lane whose
-        # table starts at 2^31 slots; ragged: 20,481 lanes, n_sym = 1 (no
-        # word) and zero-width words.  Planted faults: one word flipped
+        # cum row starts past 2^31 bytes; ragged: 20,481 lanes, n_sym = 1 (no
+        # word: an empty payload).  Planted faults: one word flipped
         # (check=True must raise), one lane's table_idx off by one, one
-        # emitted word dropped from K8's stream.
+        # emitted word dropped from K8's stream, one staged cum entry off by
+        # one in one table (K7 and K8).
         rk, n_lossy = cc.precision, len(cc.level_mults)
         r_lanes = L * 2 * C
         r_idx = torch.arange(r_lanes, dtype=torch.int32, device=dev)
@@ -4409,21 +4422,28 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         d_syms = coder_symbols(d_stack, t_d, CHUNK - G, gen)
         d_args, _, d_want = held_rans(d_stack, t_d, d_syms, "wave deltas")
         rans_faults = {}
-        words, n_w, st, t_dd = d_args[:4]
+        payload, n_w, offs, st, t_dd = d_args[:5]
         lane = int(n_w.argmax())
-        bad = words.clone()
-        bad[lane, int(n_w[lane]) // 2] ^= 0x5A5A
+        bad = payload.clone()
+        bad[int(offs[lane]) + int(n_w[lane]) // 2] ^= 0x5A5A
         rans_faults["rans_decode: one word flipped"] = torch.equal(rans_decode_cuda(bad, *d_args[1:])[0], d_want[0])
         try:
-            rans.decode(bad, n_w, st, t_dd, d_stack, CHUNK - G, check=True)
+            rans.decode_payload(bad, n_w, st, t_dd, d_stack, CHUNK - G, check=True)
             rans_faults["rans_decode: check=True passes a flipped word"] = True
         except ValueError:
             pass
         t_bad = t_dd.clone()
         t_bad[0] += 1
         rans_faults["rans_decode: table_idx off by one"] = torch.equal(
-            rans_decode_cuda(words, n_w, st, t_bad, *d_args[4:])[0], d_want[0])
-        del bad, t_bad, words, n_w, st, t_dd
+            rans_decode_cuda(payload, n_w, offs, st, t_bad, *d_args[5:])[0], d_want[0])
+        # one staged cum entry off by one: lane 0's table at its most frequent symbol
+        t0 = int(t_dd[0])
+        cum_bad = d_stack.cums.clone()
+        cum_bad[t0, max(int(d_stack.freqs[t0].argmax()), 1)] += 1
+        bad_stack = rans.CoderTables(d_stack.freqs, cum_bad, d_stack.slot2sym, rk)
+        rans_faults["rans_decode: a staged cum entry off by one"] = torch.equal(
+            rans_decode_cuda(payload, n_w, offs, st, t_dd, bad_stack, CHUNK - G)[0], d_want[0])
+        del bad, t_bad, payload, n_w, offs, st, t_dd, cum_bad, bad_stack
         # K8 at encode_all_levels' shape: the lossy delta stack, unpadded
         lossy_stack = rans.CoderTables(d_stack.freqs[:n_lossy * r_lanes, :cc.delta_alphabet].contiguous(),
                                        d_stack.cums[:n_lossy * r_lanes, :cc.delta_alphabet + 1].contiguous(),
@@ -4442,19 +4462,24 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         n_bad[lane] -= 1
         rans_faults["rans_encode: one emitted word dropped"] = torch.equal(l_got[0], w_bad) and torch.equal(
             l_got[1], n_bad)
-        del w_bad, n_bad
+        t0 = int(t_l[0])
+        cum_bad = lossy_stack.cums.clone()
+        cum_bad[t0, max(int(lossy_stack.freqs[t0].argmax()), 1)] += 1
+        rans_faults["rans_encode: a staged cum entry off by one"] = torch.equal(rans_encode_cuda(
+            l_syms, t_l, rans.CoderTables(lossy_stack.freqs, cum_bad, lossy_stack.slot2sym, rk))[0], l_want[0])
+        del w_bad, n_bad, cum_bad
         # ragged: a lane count no multiple of the block, n_sym = 1 (no lane
-        # emits a word) through zero-width words
+        # emits a word: an empty payload)
         small = coder_stack([(64, cc.delta_alphabet)], rk, dev, gen)
         t_r = torch.randint(0, 64, (r_lanes + 1,), generator=gen, device=dev, dtype=torch.int32)
         held_rans(small, t_r, coder_symbols(small, t_r, G, gen), "20,481 lanes")
         one = coder_symbols(small, t_r, 1, gen)
         _, n1, x1 = rans_encode_cuda(one, t_r, small)
         require(not n1.any(), "one symbol a lane emitted a word")
-        zero = (torch.zeros((r_lanes + 1, 0), dtype=torch.int16, device=dev), n1, rans.wire_bits(x1, 32, dev), t_r,
-                small, 1)
+        zero = (torch.zeros((0,), dtype=torch.int16, device=dev), n1, torch.zeros_like(n1, dtype=torch.int64),
+                rans.wire_bits(x1, 32, dev), t_r, small, 1)
         require(all(torch.equal(a, b) for a, b in zip(rans_decode_cuda(*zero), rans_decode_plain(*zero))),
-                "K7 differs from its plain version on zero-width words")
+                "K7 differs from its plain version on an empty payload")
         require(torch.equal(rans_decode_cuda(*zero)[0], one), "K7 does not invert K8 at n_sym = 1")
         del small, zero, one
         n_read = int(d_args[1].sum())
@@ -4474,6 +4499,7 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
             anchors_ms=time_ms(lambda: rans_decode_cuda(*a_args), iters=5, warmup=1),
             anchors_bound=a_bound,
             anchors_sector_ms=a_sector,
+            info={f"A = {A}": rans_kernel_info("decode", A) for A in (d_stack.alphabet, anchor_stack.alphabet)},
             shape=f"a wave's deltas: {t_d.numel()} lanes x {CHUNK - G} steps over {d_stack.n_tables} padded tables "
                   f"(levels {list(wave_levels)}), {n_read} words; its anchors {t_a.numel()} x {G}; ragged and "
                   "2^31 cases",
@@ -4486,6 +4512,7 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
             library_ms=None,
             bound=l_bound,
             sector_ms=l_sector,
+            info={f"A = {lossy_stack.alphabet}": rans_kernel_info("encode", lossy_stack.alphabet)},
             shape=f"encode_all_levels' lossy deltas: {t_l.numel()} lanes x {CHUNK - G} steps over "
                   f"{lossy_stack.n_tables} tables, {int(l_got[1].sum())} words",
         )
@@ -4513,15 +4540,21 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
             deltas_bound=qd_bound, deltas_sector_ms=qd_sector,
             slots=(int(q_t.max()) + 1) << rk, words=int(qd_args[1].sum()))
         del q_stack, qd_args, qd_dec
-        # the lane whose table starts at 2^31 slots: 524,289 tables of 4096
-        # slots (4.3 GB of slot2sym), 16 drawn at each end, lanes at both
-        n_far = (1 << 19) + 1
-        far = coder_stack([(n_far, 64)], rk, dev, gen, fill=[(0, 16), (n_far - 16, n_far)])
+        # the lane whose cum row starts past 2^31 bytes (the only table
+        # offset the kernels compute): an alphabet-padded stack of 509
+        # symbols (510 int64 cums a row) and 526,346 tables, 16 lossless ones
+        # drawn at its start and 16 lossy ones (255 symbols, padded) at its
+        # end, lanes at both
+        la = quant.lossless_delta_alphabet()
+        n_far = -(-(1 << 31) // ((la + 1) * 8)) + 1
+        far = coder_stack([(16, la), (n_far - 16, cc.delta_alphabet)], rk, dev, gen,
+                          fill=[(0, 16), (n_far - 16, n_far)])
         t_f = torch.randint(0, 16, (4096,), generator=gen, device=dev, dtype=torch.int32)
         t_f[1::2] += n_far - 16
         t_f[1] = n_far - 1
-        require((int(t_f.max()) << rk) >= 1 << 31, "the far case's tables do not pass 2^31 slots")
-        held_rans(far, t_f, coder_symbols(far, t_f, 300, gen), "a table at 2^31 slots")
+        require(int(t_f.max()) * (far.alphabet + 1) * 8 >= 1 << 31,
+                "the far case's last cum row does not start past 2^31 bytes")
+        held_rans(far, t_f, coder_symbols(far, t_f, 300, gen), "a cum row past 2^31 bytes")
         del far
         require(not any(rans_faults.values()), f"a planted rANS fault held equal: {rans_faults}")
 
@@ -4923,7 +4956,9 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         for name in ("rans_decode", "rans_encode"):
             r = report[name]
             print(f"{name}: at one 32-byte sector a table gather {r['sector_ms']:.4f} ms "
-                  f"({r['sector_ms'] / r['ms']:.1%} of the kernel ms)")
+                  f"({r['sector_ms'] / r['ms']:.1%} of the kernel ms; no bound)")
+            print(f"{name}: at {RANS_BLOCK_LANES} lanes a block, registers, shared memory a block, blocks an "
+                  f"SM: {r['info']}")
         r = report["rans_decode"]
         print(f"rans_decode: the wave's anchors {r['anchors_ms']:.4f} ms (bound {r['anchors_bound'][0]:.4f} ms "
               f"({r['anchors_bound'][1]}), sector time {r['anchors_sector_ms']:.4f} ms); "
@@ -4931,7 +4966,7 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
               f"{moe_rans['anchors_ms']:.4f} ms, deltas {moe_rans['deltas_ms']:.4f} ms (bound "
               f"{moe_rans['deltas_bound'][0]:.4f} ms ({moe_rans['deltas_bound'][1]}), sector time "
               f"{moe_rans['deltas_sector_ms']:.4f} ms, {moe_rans['words']} words, tables to {moe_rans['slots']:.3g} "
-              f"slots); a table at 2^31 slots held; planted faults held equal: {rans_faults}")
+              f"slots); a cum row past 2^31 bytes held; planted faults held equal: {rans_faults}")
         for name, r in moe_report.items():
             require(r["device_ms"] is not None, f"the profiler holds no device time for {name} at the moe shape")
             print(f"{name} at {MOE_ARCH}'s shape: {r['shape']}  max_abs_err {r['max_abs_err']:.3g}  kernel "

@@ -3,8 +3,9 @@
 A chunk payload is a msgpack map: a small header plus named binary arrays.
 rANS streams are stored *packed* — only the valid words of every lane are
 concatenated — because the padded per-lane buffers used during encoding are
-not the wire representation.  ``unpack_stream`` re-pads for the vectorized
-decoder.
+not the wire representation.  The decoder reads the packed payload as it is
+(``rans.decode_payload``); ``unpack_stream`` re-pads it into the padded
+matrix the reference's vectorized decoder takes.
 
 Integrity: every :func:`pack`-ed blob carries an 8-byte trailer —
 a 4-byte magic plus the CRC32 of the msgpack payload — so a blob corrupted

@@ -22,7 +22,8 @@ The serving hot path is :func:`decode_chunks`: every fetched chunk's
 bitstream is parsed once on the host, all lanes are stacked into exactly two
 rANS decodes (anchors for all chunks; deltas for all chunks, lossy levels
 and the lossless family sharing one alphabet-padded table stack), each one
-launch of the kernel K7 on a card (``kernels.ops.rans_decode``), and every
+launch of the kernel K7 on a card (``kernels.ops.rans_decode``) over the
+wire's compact payloads, joined on the device with no padding, and every
 chunk's tokens are rebuilt in one pass by the fused kernels K1/K2
 (``kernels.ops.kv_dequant_tokens`` / ``kv_lossless_tokens``), which emit
 whole token groups in the cache's dtype.  On a CUDA device the kernels run;
@@ -72,6 +73,12 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class CodecConfig:
+    """The codec's settings, as the reference's.  On the card the rANS
+    kernels stage each lane's cum row in shared memory, which bounds the
+    alphabet they take (``kernels.rans.MAX_ALPHABET``): the delta decode
+    stack's ``max(2 * delta_qmax + 1, 509)`` symbols must stay within K7's
+    1,743, so ``delta_qmax <= 871`` there; the CPU takes any."""
+
     group_size: int = 10
     layer_group_bins: Tuple[float, float, float] = (0.5, 1.0, 1.5)
     level_mults: Tuple[float, ...] = (0.5, 1.0, 2.0, 4.0)
@@ -396,10 +403,8 @@ def decode_chunk(blob: bytes, ct: CodecTables) -> torch.Tensor:
     layout = gop.make_layout(T, int(header["group_size"]))
     a_tab = ct.ll_anchor if level == 0 else ct.anchor
     d_tab = ct.ll_delta if level == 0 else ct.deltas[level]
-    aw, an, ax = bitstream.unpack_stream(arrays, "a")
-    dw, dn, dx = bitstream.unpack_stream(arrays, "d")
-    a_sym = _unlanes(rans.decode(aw, an, ax, ct.table_idx, a_tab, layout.n_anchors), L, C)
-    d_sym = _unlanes(rans.decode(dw, dn, dx, ct.table_idx, d_tab, layout.n_deltas), L, C)
+    a_sym = _unlanes(rans.decode_payload(*_stream(arrays, "a"), ct.table_idx, a_tab, layout.n_anchors), L, C)
+    d_sym = _unlanes(rans.decode_payload(*_stream(arrays, "d"), ct.table_idx, d_tab, layout.n_deltas), L, C)
     scales = torch.as_tensor(arrays["scales"].astype(np.float32), device=ct.device)
     if level == 0:
         return quant.lossless_reconstruct(a_sym, d_sym, scales, layout)
@@ -435,17 +440,23 @@ def _reconstruct_lossy(
 # ---------------------------------------------------------------------------
 
 
-def _stack_streams(
-    parsed: List[Tuple[dict, Dict[str, np.ndarray]]],
-    idxs: Sequence[int],
-    prefix: str,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Stack several chunks' packed rANS streams into one padded lane block:
-    their wire arrays concatenated lane-major are one stream of all their
-    lanes, padded once (the decoder never reads the pad)."""
-    merged = {f"{prefix}.{key}": np.concatenate([parsed[i][1][f"{prefix}.{key}"] for i in idxs])
-              for key in ("payload", "n_words", "state")}
-    return bitstream.unpack_stream(merged, prefix)
+def _stream(arrays: Dict[str, np.ndarray], prefix: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A coded stream's wire arrays as ``rans.decode_payload`` takes them:
+    (payload, n_words, state)."""
+    return tuple(arrays[f"{prefix}.{key}"] for key in ("payload", "n_words", "state"))
+
+
+def _join_streams(
+    parsed: List[Tuple[dict, Dict[str, np.ndarray]]], prefix: str, device: torch.device
+) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
+    """Several chunks' streams as one stream of all their lanes: the wire's
+    payloads, each copied to ``device`` as it is and joined there (lane-major
+    across chunks is lane-major within each), and the lanes' word counts and
+    states joined on the host."""
+    payloads = [rans.wire_bits(arrays[f"{prefix}.payload"], 16, device) for _, arrays in parsed]
+    n_words, state = (np.concatenate([arrays[f"{prefix}.{key}"] for _, arrays in parsed])
+                      for key in ("n_words", "state"))
+    return (payloads[0] if len(payloads) == 1 else torch.cat(payloads)), n_words, state
 
 
 def _assemble_chunks(
@@ -579,17 +590,15 @@ def decode_chunks(
     n_ta = ct.anchor.n_tables
 
     # --- anchors: one decode over all chunks (lossy + lossless tables stacked)
-    aw, an, ax = _stack_streams(parsed, range(N), "a")
     t_idx_a = np.concatenate([t_idx_np + (n_ta if m[0] == 0 else 0) for m in metas])
-    a_sym = rans.decode(aw, an, ax, t_idx_a, _anchor_stack(ct), Gmax)
+    a_sym = rans.decode_payload(*_join_streams(parsed, "a", dev), t_idx_a, _anchor_stack(ct), Gmax)
 
     # --- deltas: ONE decode for all chunks — lossy levels and the lossless
     # family (different alphabet) share it via alphabet-padded table stacking
     d_max = max(m[3] for m in metas)
     if d_max > 0:
-        dw, dn, dx = _stack_streams(parsed, range(N), "d")
         t_idx_d = np.concatenate([t_idx_np + _delta_table_base(ct, m[0]) for m in metas])
-        d_sym = rans.decode(dw, dn, dx, t_idx_d, _delta_decode_stack(ct), d_max)
+        d_sym = rans.decode_payload(*_join_streams(parsed, "d", dev), t_idx_d, _delta_decode_stack(ct), d_max)
     else:
         d_sym = torch.zeros((N * n_lanes, 0), dtype=torch.int32, device=dev)
 

@@ -4,12 +4,13 @@ Every *lane* carries its own 32-bit coder state and its own static symbol
 distribution; lanes map to (layer, K/V, channel) streams (paper Insight 3:
 per-channel-per-layer distributions).  The reference runs the coder as a
 vectorized ``lax.scan`` a direction.  Here :func:`encode` and
-:func:`decode` run it on the tables' device through ``kernels.ops``: with
-the tables on a CUDA card, the hand-written kernels K8 (``rans_encode``) and
-K7 (``rans_decode``) of ``kernels/csrc/rans.cu`` run, one thread a lane
-(the GPU coder design the paper describes); with the tables on the CPU,
-their plain versions do (``kernels.rans``: a Python loop with one step per
-symbol, each step a handful of elementwise tensor ops over all lanes).
+:func:`decode_payload` run it on the tables' device through ``kernels.ops``:
+with the tables on a CUDA card, the hand-written kernels K8
+(``rans_encode``) and K7 (``rans_decode``) of ``kernels/csrc/rans.cu`` run,
+one thread a lane with its table's cum row in shared memory (the GPU coder
+design the paper describes); with the tables on the CPU, their plain
+versions do (``kernels.rans``: a Python loop with one step per symbol, each
+step a handful of elementwise tensor ops over all lanes).
 There is no switch and no fallback: the device decides.
 
 Variant: 32-bit state, 16-bit word renormalization (ryg_rans "rans_word").
@@ -24,12 +25,15 @@ has no ``+``/``-`` on ``uint16`` and no shifts on ``uint32``); it stays below
 2^32 throughout (``x < 2^32`` before the encoder's ``(q << k) + r + c``,
 ``f * (x >> k) < 2^32`` in the decoder), so nothing wraps.
 
-Wire format per call: ``words (n_lanes, n_sym)`` of which the first
-``n_words[lane]`` entries are valid, plus the final state per lane.  The
+Wire format per call: the encoder returns ``words (n_lanes, n_sym)`` of
+which the first ``n_words[lane]`` entries are valid, plus the final state
+per lane; the wire keeps only the valid words, concatenated lane-major (the
+payload), and :func:`decode_payload` reads that payload as it is.  The
 decoder reads words in reverse emission order (rANS is LIFO).
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -39,7 +43,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.rans import RANS_L
 
-__all__ = ["CoderTables", "encode", "decode", "encoded_bytes", "stack_tables", "wire_bits"]
+__all__ = ["CoderTables", "encode", "decode", "decode_payload", "encoded_bytes", "stack_tables", "wire_bits"]
 
 
 class CoderTables(NamedTuple):
@@ -85,7 +89,11 @@ def wire_bits(a, width: int, device) -> torch.Tensor:
                                    32: (np.uint32, np.int32, torch.int32)}[width]
     if isinstance(a, np.ndarray):
         a = np.ascontiguousarray(a).astype(unsigned, copy=False).view(np_signed)
-        return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+        if a.flags.writeable or torch.device(device).type == "cpu":
+            return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+        with warnings.catch_warnings():  # a read-only view of the wire, only copied to the card
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.from_numpy(a).to(device)
     a = torch.as_tensor(a)
     if a.element_size() * 8 != width:  # wider integers: their low bits
         a = a.to(torch.int64) & ((1 << width) - 1)
@@ -111,6 +119,43 @@ def encode(
     return ops.rans_encode(symbols, _int32(table_idx, dev), tables)
 
 
+def decode_payload(
+    payload,
+    n_words,
+    state,
+    table_idx,
+    tables: CoderTables,
+    n_sym: int,
+    check: bool = False,
+) -> torch.Tensor:
+    """Decode ``n_sym`` symbols per lane from the wire's compact stream ->
+    (n_lanes, n_sym) int32.  Exact inverse of :func:`encode`.  ``payload``
+    holds all lanes' valid words, lane-major (the wire's ``<prefix>.payload``,
+    or several streams' payloads joined), ``n_words`` and ``state`` the
+    lanes' word counts and final states.  Inputs may be numpy arrays (the
+    wire's ``uint16``/``uint32``) or tensors; they are moved to the tables'
+    device at their own width, where each lane's offset into ``payload`` is
+    made (the exclusive cumsum of ``n_words``).  K7 on a card, its plain
+    version on the CPU (``kernels.ops.rans_decode``).  A payload shorter
+    than the lanes' words raises, whatever the inputs' kind and device.
+    ``check`` raises unless every lane ends at the encoder's initial state
+    with all its words consumed."""
+    dev = tables.device
+    counts = n_words.clip(0) if isinstance(n_words, np.ndarray) else torch.as_tensor(n_words).clamp_min(0)
+    total, n_payload = int(counts.sum()), int(np.prod(payload.shape))
+    if n_payload < total:
+        raise ValueError(f"rANS stream corrupt: {total} words claimed, the payload holds {n_payload}")
+    n_words = _int32(n_words, dev)
+    held = n_words.clamp_min(0).to(torch.int64)
+    syms, x, ptr = ops.rans_decode(
+        wire_bits(payload, 16, dev).reshape(-1), n_words, torch.cumsum(held, 0) - held,
+        wire_bits(state, 32, dev), _int32(table_idx, dev), tables, n_sym,
+    )
+    if check and (not bool((x == RANS_L).all()) or not bool((ptr == -1).all())):
+        raise ValueError("rANS stream corrupt: decoder did not return to initial state")
+    return syms  # (n_lanes, n_sym) in forward order
+
+
 def decode(
     words,
     n_words,
@@ -120,24 +165,19 @@ def decode(
     n_sym: int,
     check: bool = False,
 ) -> torch.Tensor:
-    """Decode ``n_sym`` symbols per lane -> (n_lanes, n_sym) int32.  Exact
-    inverse of :func:`encode`.  Inputs may be numpy arrays (the wire's
-    ``uint16``/``uint32``) or tensors; they are moved to the tables' device
-    at their own width.  K7 on a card, its plain version on the CPU
-    (``kernels.ops.rans_decode``).  A lane that claims more words than
-    ``words`` has columns raises, whatever the inputs' kind and device.
-    ``check`` raises unless every lane ends at the encoder's initial state
-    with all its words consumed."""
+    """Decode ``n_sym`` symbols per lane from a padded word matrix ``words
+    (n_lanes, cap)`` (``bitstream.unpack_stream``'s form) -> (n_lanes, n_sym)
+    int32.  Exact inverse of :func:`encode`.  The matrix is compacted on the
+    tables' device (each lane's first ``n_words`` words, lane-major) and
+    decoded by :func:`decode_payload`.  A lane that claims more words than
+    ``words`` has columns raises, whatever the inputs' kind and device."""
     dev = tables.device
     if len(n_words) and int(n_words.max()) > words.shape[1]:
         raise ValueError(f"rANS stream corrupt: {int(n_words.max())} words in a lane of {words.shape[1]}")
-    syms, x, ptr = ops.rans_decode(
-        wire_bits(words, 16, dev), _int32(n_words, dev), wire_bits(state, 32, dev),
-        _int32(table_idx, dev), tables, n_sym,
-    )
-    if check and (not bool((x == RANS_L).all()) or not bool((ptr == -1).all())):
-        raise ValueError("rANS stream corrupt: decoder did not return to initial state")
-    return syms  # (n_lanes, n_sym) in forward order
+    words = wire_bits(words, 16, dev)
+    n_words = _int32(n_words, dev)
+    payload = words[torch.arange(words.shape[1], device=dev)[None, :] < n_words[:, None]]
+    return decode_payload(payload, n_words, state, table_idx, tables, n_sym, check=check)
 
 
 def encoded_bytes(n_words) -> int:

@@ -69,14 +69,14 @@ _SIGNATURES = {
     ),
     # rans.cu
     "rans_decode": (
-        _P, _L, _P, _P, _P,  # words cap n_words state table_idx
-        _P, _P, _P, _I, _I,  # freqs cums slot2sym A k
-        _L, _I, _P, _P, _P, _P,  # n_lanes n_sym out x_out ptr_out stream
+        _P, _P, _P, _P, _P, _P,  # payload n_words offsets state table_idx cums
+        _I, _I, _L, _I, _P, _P, _P, _P,  # A k n_lanes n_sym out x_out ptr_out stream
     ),
     "rans_encode": (
-        _P, _P, _P, _P, _I, _I,  # symbols table_idx freqs cums A k
+        _P, _P, _P, _I, _I,  # symbols table_idx cums A k
         _L, _I, _P, _P, _P, _P,  # n_lanes n_sym words n_words x_out stream
     ),
+    "rans_kernel_info": (_I, _I, _P),  # decode A out[4]
 }
 
 

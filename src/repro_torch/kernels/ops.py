@@ -215,11 +215,11 @@ def kv_dequant(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
     return fn(d_sym, anchors, bins, qmax=qmax, out_dtype=out_dtype)
 
 
-def rans_decode(words, n_words, state, table_idx, tables, n_sym: int):
-    """K7: ``n_sym`` symbols a lane from its rANS stream -> (symbols, final
-    state, final word pointer); see ``kernels.rans``."""
+def rans_decode(payload, n_words, offsets, state, table_idx, tables, n_sym: int):
+    """K7: ``n_sym`` symbols a lane from the wire's compact rANS stream ->
+    (symbols, final state, final word pointer); see ``kernels.rans``."""
     fn = _pick(tables.freqs, rans_decode_cuda, rans_decode_plain)
-    return fn(words, n_words, state, table_idx, tables, n_sym)
+    return fn(payload, n_words, offsets, state, table_idx, tables, n_sym)
 
 
 def rans_encode(symbols, table_idx, tables):

@@ -4,44 +4,69 @@
 ``rans_encode`` (K8) replaces ``src/repro/core/rans.py:_encode_impl``: the
 jitted ``lax.scan`` over all lanes that the reference runs on its device
 between the wire and K1/K2 (load path) and between K5 and the wire (store
-path).  On the card each lane is one CUDA thread (``csrc/rans.cu``; see its
-head for what bounds the kernels on the H100 and how the design answers
-it).  Each ``*_plain`` function is the same scan as a Python loop of
-elementwise PyTorch ops over all lanes, one step per symbol: the CPU's route
-and the kernels' oracle on the card.  ``kernels.ops`` picks between them by
-the tables' device; ``core.rans.encode`` / ``decode`` call it.
+path).  On the card each lane is one CUDA thread with its table's cum row
+staged in shared memory (``csrc/rans.cu``; see its head for what bounds the
+kernels on the H100 and how the design answers it).  Each ``*_plain``
+function is the same scan as a Python loop of elementwise PyTorch ops over
+all lanes, one step per symbol, with the reference's own table reads
+(``slot2sym``, ``freqs``, ``cums``): the CPU's route and the kernels' oracle
+on the card.  :func:`guided_symbol` is K7's slot -> symbol search on the
+cum row, written in torch for the CPU tests.  ``kernels.ops`` picks between
+the routes by the tables' device; ``core.rans.decode_payload`` / ``decode``
+/ ``encode`` call it.
 
 Contracts, the same for both routes (``tables`` is a ``core.rans.CoderTables``:
 ``freqs (n_tables, A)`` and ``cums (n_tables, A + 1)`` int64, ``slot2sym
-(n_tables, 2**k)`` int16, ``precision`` k <= 14):
+(n_tables, 2**k)`` int16, ``precision`` k <= 14, each row a valid table:
+``cums`` rises from 0 to 2**k and ``freqs`` are its differences; the
+kernels read ``cums`` alone):
 
-* decode: ``words (n_lanes, cap)`` int16 (the wire's ``uint16`` words'
-  bits, read as unsigned; ``core.rans.wire_bits``), ``n_words (n_lanes,)``
-  int32, ``state (n_lanes,)`` int32 (the ``uint32`` states' bits, read as
-  unsigned), ``table_idx (n_lanes,)`` int32 -> ``(symbols (n_lanes, n_sym)
-  int32, x (n_lanes,) int64, ptr (n_lanes,) int64)``: each lane's final
-  state and word pointer, which a well-formed stream leaves at ``2**16``
-  and -1.
-* encode: ``symbols (n_lanes, n_sym)`` int32, ``table_idx (n_lanes,)`` int32
-  -> ``(words (n_lanes, n_sym) int32 holding 16-bit values, n_words
-  (n_lanes,) int32, x (n_lanes,) int64 below 2**32)``.  The unused tail of
-  ``words`` holds exactly what the reference's buffer holds.
+* decode: the wire's compact stream, ``payload (n_words_total,)`` int16
+  (all lanes' valid ``uint16`` words, lane-major, as their bits;
+  ``core.rans.wire_bits``), ``n_words (n_lanes,)`` int32, ``offsets
+  (n_lanes,)`` int64 (where each lane's words start in ``payload``: the
+  exclusive cumsum of ``n_words``, negative counts as 0), ``state
+  (n_lanes,)`` int32 (the ``uint32`` states' bits, read as unsigned),
+  ``table_idx (n_lanes,)`` int32 -> ``(symbols (n_lanes, n_sym) int32, x
+  (n_lanes,) int64, ptr (n_lanes,) int64)``: each lane's final state and
+  word pointer, which a well-formed stream leaves at ``2**16`` and -1.  A
+  lane whose pointer has run out reads its first word, or 0 if it has none:
+  what ``bitstream.unpack_stream``'s padded matrix holds in its column 0,
+  so both routes equal the reference's ``_decode_impl`` on that matrix for
+  every stream, corrupt ones included.
+* encode: ``symbols (n_lanes, n_sym)`` int32 in ``[0, A)``, ``table_idx
+  (n_lanes,)`` int32 -> ``(words (n_lanes, n_sym) int32 holding 16-bit
+  values, n_words (n_lanes,) int32, x (n_lanes,) int64 below 2**32)``.  The
+  unused tail of ``words`` holds exactly what the reference's buffer holds.
 
-K7 returns its symbols and K8 its words as the transposed view of an
-``(n_sym, n_lanes)`` buffer, which they write coalesced; the plain versions
-keep the reference's layouts (symbols step-major, words lane-major).  Each
-``*_cuda`` wrapper checks its inputs, launches on the current stream of the
-tensors' card, raises on a launch error and counts its launches in
-``.launches``.
+K7 returns its symbols as the transposed view of an ``(n_sym, n_lanes)``
+buffer, which it writes coalesced, as the plain version does (the
+reference's scan stacks them step-major too).  Each ``*_cuda`` wrapper
+checks its inputs, launches on the current stream of the tensors' card
+with ``BLOCK_LANES`` lanes a block, raises on a launch error and counts its
+launches in ``.launches``; :func:`kernel_info` reads a kernel's registers,
+shared memory and blocks an SM.
+
+The staged rows bound the alphabet a launch takes (a block's shared memory):
+``A <= MAX_ALPHABET["decode"]`` (1,743) for K7 and ``MAX_ALPHABET["encode"]``
+(1,807) for K8.  A wider alphabet raises on the card; the plain versions
+take any.  The codec's widest, the alphabet-padded delta decode stack, is
+``max(2 * delta_qmax + 1, 509)``: 509 at the default ``delta_qmax``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels._build import check, load_library
 
 __all__ = [
+    "BLOCK_LANES",
+    "MAX_ALPHABET",
     "RANS_L",
+    "guided_symbol",
+    "kernel_info",
     "rans_decode_cuda",
     "rans_decode_plain",
     "rans_encode_cuda",
@@ -49,6 +74,56 @@ __all__ = [
 ]
 
 RANS_L = 1 << 16  # lower bound of the normalized state interval
+BLOCK_LANES = 64  # lanes (threads) a block of K7 and K8 (csrc/rans.cu kLanes)
+GUIDE_BUCKETS = 64  # K7's guide: slot buckets a lane (csrc/rans.cu kBuckets)
+_MAX_SMEM = 232448  # shared memory a block can use on the H100
+
+
+def _row_stride(A: int) -> int:
+    return (A + 1 + 7) & ~7
+
+
+def _smem_bytes(kind: str, A: int) -> int:
+    if kind == "decode":  # 8 entries past the row: the window's reach
+        return BLOCK_LANES * (_row_stride(A) + 8 + GUIDE_BUCKETS) * 2
+    return BLOCK_LANES * _row_stride(A) * 2 + BLOCK_LANES * 4
+
+
+# the widest alphabet each kernel's block of staged rows fits
+MAX_ALPHABET = {kind: max(A for A in range(1, 1 << 12) if _smem_bytes(kind, A) <= _MAX_SMEM)
+                for kind in ("decode", "encode")}
+
+
+# ---------------------------------------------------------------------------
+# K7's slot -> symbol search
+# ---------------------------------------------------------------------------
+
+
+def guided_symbol(cums: torch.Tensor, slots: torch.Tensor, k: int) -> torch.Tensor:
+    """K7's search, as the kernel runs it: for cum rows ``(n, A + 1)`` and
+    slots ``(n, m)``, the largest ``s`` with ``c[s] <= slot`` -> ``(n, m)``
+    int64.  The slot's bucket's guide entry ``lo`` places a window of 16
+    entries at the 8-entry boundary at or before it (entries past the row
+    read as 0xFFFF); the answer is the window's last entry ``<= slot``,
+    unless that is the window's last entry, when the window moves 8 entries
+    on."""
+    n, A = cums.shape[0], cums.shape[1] - 1
+    shift = max(k - 6, 0)
+    # the guide: bucket b (from slot b << shift) -> the first s < A with
+    # c[s + 1] past its first slot, A - 1 where the row never passes it
+    starts = torch.arange((1 << k) >> shift, device=cums.device, dtype=cums.dtype) << shift
+    guide = torch.searchsorted(cums[:, 1:].contiguous(), starts.expand(n, -1).contiguous(), right=True)
+    R = _row_stride(A) + 8
+    row = torch.cat([cums, cums.new_full((n, R - A - 1), 0xFFFF)], dim=1)
+    a = torch.gather(guide.clamp(max=A - 1), 1, slots >> shift) & ~7
+    window = torch.arange(16, device=cums.device)
+    while True:
+        e = torch.gather(row, 1, (a[..., None] + window).reshape(n, -1)).reshape(*a.shape, 16)
+        j = (e <= slots[..., None]).sum(-1) - 1
+        more = j == 15
+        if not bool(more.any()):
+            return a + j
+        a = torch.where(more, a + 8, a)
 
 
 def _table_bases(tables, table_idx: torch.Tensor):
@@ -62,13 +137,18 @@ def _table_bases(tables, table_idx: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def rans_decode_plain(words, n_words, state, table_idx, tables, n_sym: int):
-    """Decode ``n_sym`` symbols a lane; see the module's contract."""
-    n_lanes = words.shape[0]
-    words = words.to(torch.int64) & 0xFFFF
-    words = words if words.shape[1] else words.new_zeros((n_lanes, 1))
+def rans_decode_plain(payload, n_words, offsets, state, table_idx, tables, n_sym: int):
+    """Decode ``n_sym`` symbols a lane from the compact stream; see the
+    module's contract."""
+    n_lanes = n_words.shape[0]
+    dev = n_words.device
+    # one zero past the payload: the word of a lane with none
+    words = torch.cat([payload.reshape(-1).to(torch.int64) & 0xFFFF, torch.zeros(1, dtype=torch.int64, device=dev)])
+    nw = n_words.to(torch.int64)
+    off = offsets.to(torch.int64)
+    run_out = torch.where(nw > 0, off, words.shape[0] - 1)  # the padded matrix's column 0
     x = state.to(torch.int64) & 0xFFFFFFFF
-    ptr = n_words.to(torch.int64) - 1
+    ptr = nw - 1
     k = tables.precision
     M = 1 << k
     freqs_flat = tables.freqs.reshape(-1)
@@ -76,7 +156,7 @@ def rans_decode_plain(words, n_words, state, table_idx, tables, n_sym: int):
     s2s_flat = tables.slot2sym.reshape(-1)
     t_base_f, t_base_c, t_base_m = _table_bases(tables, table_idx)
 
-    out = torch.empty((n_sym, n_lanes), dtype=torch.int32, device=words.device)
+    out = torch.empty((n_sym, n_lanes), dtype=torch.int32, device=dev)
     for i in range(n_sym):
         slot = x & (M - 1)
         s = s2s_flat[t_base_m + slot].to(torch.int64)
@@ -84,27 +164,27 @@ def rans_decode_plain(words, n_words, state, table_idx, tables, n_sym: int):
         c = cums_flat[t_base_c + s]
         x = f * (x >> k) + slot - c
         need = x < RANS_L
-        word = torch.gather(words, 1, ptr.clamp_min(0)[:, None])[:, 0]
+        word = words[torch.where(ptr >= 0, off + ptr, run_out)]
         x = torch.where(need, (x << 16) | word, x)
         ptr -= need.to(torch.int64)
         out[i] = s.to(torch.int32)
     return out.T, x, ptr  # symbols (n_lanes, n_sym) in forward order
 
 
-def _check_tables(name, tables, dev, need_slot2sym):
+def _check_tables(name, tables, dev, kind):
     k = tables.precision
     if not 1 <= k <= 14:
         raise ValueError(f"{name}: precision must lie in 1..14, got {k}")
-    freqs, cums, s2s = tables.freqs, tables.cums, tables.slot2sym
-    if freqs.dtype != torch.int64 or cums.dtype != torch.int64 or s2s.dtype != torch.int16:
-        raise TypeError(f"{name}: freqs and cums must be int64 and slot2sym int16, got "
-                        f"{freqs.dtype}, {cums.dtype} and {s2s.dtype}")
+    freqs, cums = tables.freqs, tables.cums
+    if freqs.dtype != torch.int64 or cums.dtype != torch.int64:
+        raise TypeError(f"{name}: freqs and cums must be int64, got {freqs.dtype} and {cums.dtype}")
     n_t, A = freqs.shape
-    shapes = [(cums, (n_t, A + 1))] + ([(s2s, (n_t, 1 << k))] if need_slot2sym else [])
-    for t, want in shapes:
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name}: table of shape {tuple(t.shape)}, want {want} beside freqs {(n_t, A)}")
-    _check_device(name, dev, freqs, cums, *([s2s] if need_slot2sym else []))
+    if tuple(cums.shape) != (n_t, A + 1):
+        raise ValueError(f"{name}: cums of shape {tuple(cums.shape)}, want {(n_t, A + 1)} beside freqs {(n_t, A)}")
+    _check_device(name, dev, cums)
+    if A > MAX_ALPHABET[kind]:
+        raise ValueError(f"{name}: alphabet {A} is wider than the {MAX_ALPHABET[kind]} symbols whose staged rows "
+                         "fit a block's shared memory")
 
 
 def _check_device(name, dev, *tensors):
@@ -115,25 +195,25 @@ def _check_device(name, dev, *tensors):
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def _check_lane_vector(name, what, t, n_lanes):
-    if t.dtype != torch.int32 or tuple(t.shape) != (n_lanes,):
-        raise TypeError(f"{name}: {what} must be an ({n_lanes},) int32 tensor, got {t.dtype} {tuple(t.shape)}")
+def _check_lane_vector(name, what, t, n_lanes, dtype=torch.int32):
+    if t.dtype != dtype or tuple(t.shape) != (n_lanes,):
+        raise TypeError(f"{name}: {what} must be an ({n_lanes},) {dtype} tensor, got {t.dtype} {tuple(t.shape)}")
 
 
-def rans_decode_cuda(words, n_words, state, table_idx, tables, n_sym: int):
+def rans_decode_cuda(payload, n_words, offsets, state, table_idx, tables, n_sym: int):
     """K7 on the card; same contract (symbol for symbol) as :func:`rans_decode_plain`."""
-    if words.dtype != torch.int16 or words.ndim != 2:
-        raise TypeError(f"rans_decode: words must be a 2-d int16 tensor, got {words.dtype} {tuple(words.shape)}")
-    n_lanes, cap = words.shape
+    if payload.dtype != torch.int16 or payload.ndim != 1:
+        raise TypeError(f"rans_decode: payload must be a 1-d int16 tensor, got {payload.dtype} "
+                        f"{tuple(payload.shape)}")
+    n_lanes = n_words.shape[0]
     for what, t in (("n_words", n_words), ("state", state), ("table_idx", table_idx)):
         _check_lane_vector("rans_decode", what, t, n_lanes)
-    dev = words.device
-    _check_device("rans_decode", dev, words, n_words, state, table_idx)
-    _check_tables("rans_decode", tables, dev, need_slot2sym=True)
+    _check_lane_vector("rans_decode", "offsets", offsets, n_lanes, torch.int64)
+    dev = n_words.device
+    _check_device("rans_decode", dev, payload, n_words, offsets, state, table_idx)
+    _check_tables("rans_decode", tables, dev, "decode")
     if n_sym < 0:
         raise ValueError(f"rans_decode: n_sym must be >= 0, got {n_sym}")
-    if cap == 0:  # the plain version's one zero column, never a valid word
-        words, cap = words.new_zeros((n_lanes, 1)), 1
     out = torch.empty((n_sym, n_lanes), dtype=torch.int32, device=dev)
     x = torch.empty((n_lanes,), dtype=torch.int64, device=dev)
     ptr = torch.empty((n_lanes,), dtype=torch.int64, device=dev)
@@ -141,9 +221,8 @@ def rans_decode_cuda(words, n_words, state, table_idx, tables, n_sym: int):
         return out.T, x, ptr
     with torch.cuda.device(dev):  # the launch runs on the tensors' card
         check(load_library().rans_decode(
-            words.data_ptr(), cap, n_words.data_ptr(), state.data_ptr(), table_idx.data_ptr(),
-            tables.freqs.data_ptr(), tables.cums.data_ptr(), tables.slot2sym.data_ptr(),
-            tables.freqs.shape[1], tables.precision, n_lanes, n_sym,
+            payload.data_ptr(), n_words.data_ptr(), offsets.data_ptr(), state.data_ptr(), table_idx.data_ptr(),
+            tables.cums.data_ptr(), tables.freqs.shape[1], tables.precision, n_lanes, n_sym,
             out.data_ptr(), x.data_ptr(), ptr.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         ), "rans_decode")
     rans_decode_cuda.launches += 1
@@ -172,7 +251,7 @@ def rans_encode_plain(symbols, table_idx, tables):
 
     x = torch.full((n_lanes,), RANS_L, dtype=torch.int64, device=dev)
     ptr = torch.zeros((n_lanes, 1), dtype=torch.int64, device=dev)
-    buf = torch.zeros((n_lanes, max(n_sym, 1)), dtype=torch.int32, device=dev)
+    buf = torch.zeros((n_lanes, n_sym), dtype=torch.int32, device=dev)
     for i in range(n_sym):
         s = xs[i]
         f = freqs_flat[t_base_f + s]
@@ -186,7 +265,7 @@ def rans_encode_plain(symbols, table_idx, tables):
         # C(s, x) = (x // f) << k + (x % f) + c
         q = torch.div(x, f, rounding_mode="floor")
         x = (q << k) + (x - q * f) + c
-    return buf[:, :n_sym], ptr[:, 0].to(torch.int32), x
+    return buf, ptr[:, 0].to(torch.int32), x
 
 
 def rans_encode_cuda(symbols, table_idx, tables):
@@ -198,20 +277,31 @@ def rans_encode_cuda(symbols, table_idx, tables):
     _check_lane_vector("rans_encode", "table_idx", table_idx, n_lanes)
     dev = symbols.device
     _check_device("rans_encode", dev, symbols, table_idx)
-    _check_tables("rans_encode", tables, dev, need_slot2sym=False)
-    buf = torch.zeros((max(n_sym, 1), n_lanes), dtype=torch.int32, device=dev)
+    _check_tables("rans_encode", tables, dev, "encode")
+    words = torch.empty((n_lanes, n_sym), dtype=torch.int32, device=dev)  # the kernel writes every element
     n_words = torch.empty((n_lanes,), dtype=torch.int32, device=dev)
     x = torch.empty((n_lanes,), dtype=torch.int64, device=dev)
     if n_lanes == 0:
-        return buf[:n_sym].T, n_words, x
+        return words, n_words, x
     with torch.cuda.device(dev):  # the launch runs on the tensors' card
         check(load_library().rans_encode(
-            symbols.data_ptr(), table_idx.data_ptr(), tables.freqs.data_ptr(), tables.cums.data_ptr(),
-            tables.freqs.shape[1], tables.precision, n_lanes, n_sym,
-            buf.data_ptr(), n_words.data_ptr(), x.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            symbols.data_ptr(), table_idx.data_ptr(), tables.cums.data_ptr(), tables.freqs.shape[1],
+            tables.precision, n_lanes, n_sym, words.data_ptr(), n_words.data_ptr(), x.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         ), "rans_encode")
     rans_encode_cuda.launches += 1
-    return buf[:n_sym].T, n_words, x
+    return words, n_words, x
 
 
 rans_encode_cuda.launches = 0
+
+
+def kernel_info(kind: str, alphabet: int, device=None) -> dict:
+    """K7's (``kind="decode"``) or K8's registers a thread, shared memory a
+    block (bytes), blocks an SM and spilled bytes a thread at ``alphabet``,
+    as the CUDA runtime reports them for the current card."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        check(load_library().rans_kernel_info(int(kind == "decode"), alphabet, out), "rans_kernel_info")
+    return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2], spill_bytes=out[3],
+                lanes_per_sm=out[2] * BLOCK_LANES)

@@ -4,13 +4,14 @@ against the reference's jitted scans (``repro.core.rans._decode_impl`` /
 builds them; the wire's words and states through the card route's bit views;
 the ragged cases; the CPU route through ``kernels.ops``; and the CUDA kernels
 against the plain versions on the card (``-m gpu``), including a lane whose
-table starts past 2^31 slots, ``decode_chunks`` and ``encode_all_levels``."""
+cum row starts past 2^31 bytes, ``decode_chunks`` and ``encode_all_levels``."""
 import numpy as np
 import pytest
 import torch
 
 try:  # the reference; absent where only the port is installed (the card's machine)
     import jax.numpy as jnp
+    from repro.core import bitstream as jbitstream
     from repro.core import rans as jrans
     from repro.core import tables as jtables
 except ImportError:
@@ -18,8 +19,11 @@ except ImportError:
 
 from repro_torch.core import bitstream, codec, rans, tables
 from repro_torch.kernels import ops
+from repro_torch.kernels import rans as krans
 from repro_torch.kernels.rans import (
+    MAX_ALPHABET,
     RANS_L,
+    guided_symbol,
     rans_decode_cuda,
     rans_decode_plain,
     rans_encode_cuda,
@@ -57,6 +61,17 @@ def _world(seed, k, alphabets, n_tables, n_lanes, n_sym, device="cpu"):
     return sets, pad, stack, t_idx, syms
 
 
+def _compact(words, n_words):
+    """A padded word matrix's valid words, lane-major (the wire's payload)."""
+    return words[torch.arange(words.shape[1])[None, :] < n_words[:, None].to(torch.int64)], n_words
+
+
+def _offsets(n_words):
+    """Each lane's offset into the payload, as ``rans.decode_payload`` makes them."""
+    held = n_words.to(torch.int64).clamp_min(0)
+    return torch.cumsum(held, 0) - held
+
+
 def _reference(sets, pad, k):
     return jrans.stack_tables([jtables.build_coder_tables(f, k) for f in sets], pad_alphabet=pad)
 
@@ -90,8 +105,9 @@ def test_plain_scans_match_reference(case):
 
     js, jxd, jpd = jrans._decode_impl(jnp.asarray(jw), jnp.asarray(jn), jnp.asarray(jx), jnp.asarray(t_idx),
                                       jstack.freqs, jstack.cums, jstack.slot2sym, precision=k, n_sym=n_sym)
-    s, xd, pd = rans_decode_plain(torch.from_numpy(jw.view(np.int16)), torch.from_numpy(jn),
-                                  torch.from_numpy(jx.view(np.int32)), torch.from_numpy(t_idx), stack, n_sym)
+    payload, jn_t = _compact(torch.from_numpy(jw.view(np.int16)), torch.from_numpy(jn))
+    s, xd, pd = rans_decode_plain(payload, jn_t, _offsets(jn_t), torch.from_numpy(jx.view(np.int32)),
+                                  torch.from_numpy(t_idx), stack, n_sym)
     np.testing.assert_array_equal(s.numpy(), np.asarray(js).astype(np.int32))
     np.testing.assert_array_equal(s.numpy(), syms)
     np.testing.assert_array_equal(xd.numpy(), np.asarray(jxd).astype(np.int64))
@@ -193,7 +209,8 @@ def test_ops_take_the_plain_route_on_the_cpu():
     w, n, x = ops.rans_encode(sym_t, t_t, stack)
     for got, want in zip((w, n, x), rans_encode_plain(sym_t, t_t, stack)):
         assert torch.equal(got, want)
-    s, xd, pd = ops.rans_decode(rans.wire_bits(w, 16, "cpu"), n, rans.wire_bits(x, 32, "cpu"), t_t, stack, n_sym)
+    payload, _ = _compact(rans.wire_bits(w, 16, "cpu"), n)
+    s, xd, pd = ops.rans_decode(payload, n, _offsets(n), rans.wire_bits(x, 32, "cpu"), t_t, stack, n_sym)
     assert torch.equal(s, sym_t) and bool((xd == RANS_L).all()) and bool((pd == -1).all())
     assert ops.launch_counts()["rans_decode"] == ops.launch_counts()["rans_encode"] == 0
 
@@ -207,14 +224,252 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     before = (rans_decode_cuda.launches, rans_encode_cuda.launches)
     with pytest.raises(ValueError, match="CUDA"):
         rans_encode_cuda(sym_t, t_t, stack)
-    words = torch.zeros((n_lanes, 4), dtype=torch.int16)
+    payload = torch.zeros((4 * n_lanes,), dtype=torch.int16)
+    n_words = torch.full((n_lanes,), 4, dtype=torch.int32)
+    state = torch.full((n_lanes,), RANS_L, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        rans_decode_cuda(words, torch.zeros(n_lanes, dtype=torch.int32), torch.full((n_lanes,), RANS_L,
-                         dtype=torch.int32), t_t, stack, n_sym)
+        rans_decode_cuda(payload, n_words, _offsets(n_words), state, t_t, stack, n_sym)
     with pytest.raises(TypeError):  # words wider than the wire's 16 bits
-        rans_decode_cuda(words.to(torch.int32), torch.zeros(n_lanes, dtype=torch.int32),
-                         torch.full((n_lanes,), RANS_L, dtype=torch.int32), t_t, stack, n_sym)
+        rans_decode_cuda(payload.to(torch.int32), n_words, _offsets(n_words), state, t_t, stack, n_sym)
+    with pytest.raises(TypeError):  # a padded matrix, not the compact payload
+        rans_decode_cuda(payload.reshape(n_lanes, 4), n_words, _offsets(n_words), state, t_t, stack, n_sym)
     assert (rans_decode_cuda.launches, rans_encode_cuda.launches) == before
+
+
+def _joined_wire(seed, k, alphabets, n_t, lane_syms):
+    """The wire arrays of several streams joined lane-major, as
+    ``codec.decode_chunks`` joins a wave's chunks: one stream a ``(lanes,
+    n_sym)`` entry of ``lane_syms``, all on one stacked table set.  Returns
+    the stack, the joined ``payload``/``n_words``/``state``, the table index
+    and the symbols a lane (its own ``n_sym``)."""
+    rng = np.random.default_rng(seed)
+    sets = [_freqs(rng, n_t, A, k) for A in alphabets]
+    stack = rans.stack_tables([tables.build_coder_tables(f, k, "cpu") for f in sets],
+                              pad_alphabet=len(set(alphabets)) > 1)
+    arrays, t_all, syms = [], [], []
+    for j, (n_lanes, n_sym) in enumerate(lane_syms):
+        A_set = j % len(alphabets)
+        t_idx = (A_set * n_t + rng.integers(0, n_t, n_lanes)).astype(np.int32)
+        sym = stack.slot2sym.numpy()[t_idx[:, None], rng.integers(0, 1 << k, size=(n_lanes, n_sym))].astype(np.int32)
+        w, n, x = rans.encode(sym, t_idx, stack)
+        arrays.append(bitstream.pack_stream(w.numpy(), n.numpy(), x.numpy(), "d"))
+        t_all.append(t_idx)
+        syms.append(sym)
+    joined = {key: np.concatenate([a[key] for a in arrays]) for key in arrays[0]}
+    return sets, stack, joined, np.concatenate(t_all), syms
+
+
+def _reference_decode(sets, stack, arrays, t_idx, n_sym, k, pad):
+    """The reference's ``_decode_impl`` on its own ``unpack_stream``'s padded
+    matrix of the wire arrays."""
+    words, n_words, state = jbitstream.unpack_stream(arrays, "d")
+    js = _reference(sets, pad, k)
+    out = jrans._decode_impl(jnp.asarray(words), jnp.asarray(n_words), jnp.asarray(state), jnp.asarray(t_idx),
+                             js.freqs, js.cums, js.slot2sym, precision=k, n_sym=n_sym)
+    return [np.asarray(a).astype(np.int64) for a in out]
+
+
+def _plain_compact(arrays, t_idx, stack, n_sym):
+    payload = torch.from_numpy(arrays["d.payload"].view(np.int16).copy())
+    n_words = torch.from_numpy(arrays["d.n_words"].astype(np.int32))
+    state = torch.from_numpy(arrays["d.state"].astype(np.uint32).view(np.int32))
+    return rans_decode_plain(payload, n_words, _offsets(n_words), state, torch.from_numpy(t_idx), stack, n_sym)
+
+
+# joined streams: (seed, precision, alphabets, tables a set, ((lanes, symbols a lane) a stream))
+COMPACT_CASES = {
+    # lanes of one symbol emit no word: they decode on past their stream
+    # through the padded matrix's column 0 (a 0), beside lanes with words
+    "lanes with no word": (10, 12, (255,), 6, ((9, 1), (11, 40))),
+    # a wave of chunks of three lengths on the padded decode stack: the short
+    # chunks' lanes run out of words (their first word, then on)
+    "chunks of different lengths": (11, 12, (255, 255, 509), 5, ((13, 77), (7, 154), (10, 21))),
+    "k 14, one stream": (12, 14, (509,), 3, ((8, 64),)),
+}
+
+
+@pytest.mark.parametrize("case", list(COMPACT_CASES))
+def test_compact_decode_matches_reference_on_padded_matrix(case):
+    """The compact-payload plain decode (and ``rans.decode_payload``) equals
+    the reference's ``_decode_impl`` on ``unpack_stream``'s padded matrix of
+    the same wire arrays: symbols, final states and pointers."""
+    seed, k, alphabets, n_t, lane_syms = COMPACT_CASES[case]
+    sets, stack, arrays, t_idx, syms = _joined_wire(seed, k, alphabets, n_t, lane_syms)
+    n_sym = max(n for _, n in lane_syms)
+    js, jx, jp = _reference_decode(sets, stack, arrays, t_idx, n_sym, k, len(set(alphabets)) > 1)
+    s, x, p = _plain_compact(arrays, t_idx, stack, n_sym)
+    np.testing.assert_array_equal(s.numpy(), js)
+    np.testing.assert_array_equal(x.numpy(), jx)
+    np.testing.assert_array_equal(p.numpy(), jp)
+    got = rans.decode_payload(arrays["d.payload"], arrays["d.n_words"], arrays["d.state"], t_idx, stack, n_sym)
+    np.testing.assert_array_equal(got.numpy(), js)
+    lo = 0
+    for (n_lanes, n), sym in zip(lane_syms, syms):  # each stream's own symbols come back
+        np.testing.assert_array_equal(s.numpy()[lo:lo + n_lanes, :n], sym)
+        lo += n_lanes
+    if case == "lanes with no word":
+        assert not arrays["d.n_words"][:9].any() and arrays["d.n_words"][9:].all()
+    if case == "chunks of different lengths":
+        assert (p.numpy() < -1).any()  # pointers ran out
+
+
+def test_compact_decode_of_a_flipped_word_matches_reference():
+    """A corrupt stream (one word flipped) decodes to the reference's
+    symbols, states and pointers all the same, and ``check`` raises."""
+    seed, k, alphabets, n_t, lane_syms = COMPACT_CASES["chunks of different lengths"]
+    sets, stack, arrays, t_idx, _ = _joined_wire(seed, k, alphabets, n_t, lane_syms)
+    arrays = dict(arrays, **{"d.payload": arrays["d.payload"].copy()})
+    arrays["d.payload"][len(arrays["d.payload"]) // 3] ^= 0x5A5A
+    js, jx, jp = _reference_decode(sets, stack, arrays, t_idx, 154, k, True)
+    s, x, p = _plain_compact(arrays, t_idx, stack, 154)
+    np.testing.assert_array_equal(s.numpy(), js)
+    np.testing.assert_array_equal(x.numpy(), jx)
+    np.testing.assert_array_equal(p.numpy(), jp)
+    with pytest.raises(ValueError, match="corrupt"):
+        rans.decode_payload(arrays["d.payload"], arrays["d.n_words"], arrays["d.state"], t_idx, stack, 154,
+                            check=True)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+def test_decode_payload_refuses_a_short_payload(kind):
+    """``n_words`` claiming more words than the payload holds raises before
+    the decode, from host arrays and from tensors alike."""
+    seed, k, alphabets, n_t, lane_syms = COMPACT_CASES["lanes with no word"]
+    _, stack, arrays, t_idx, _ = _joined_wire(seed, k, alphabets, n_t, lane_syms)
+    payload, n_words, state = arrays["d.payload"], arrays["d.n_words"].copy(), arrays["d.state"]
+    n_words[-1] += 1
+    if kind == "tensor":
+        payload, n_words, state = (torch.from_numpy(payload.view(np.int16).copy()), torch.from_numpy(n_words),
+                                   torch.from_numpy(state.view(np.int32).copy()))
+    with pytest.raises(ValueError, match="corrupt"):
+        rans.decode_payload(payload, n_words, state, t_idx, stack, 40)
+
+
+def _one_symbol_tables(k, A, sym):
+    """Tables whose one symbol ``sym`` holds all 2**k slots (the others have
+    frequency 0), as ``np.repeat`` builds slot2sym."""
+    freqs = np.zeros((2, A), np.int64)
+    freqs[:, sym] = 1 << k
+    cums = np.concatenate([np.zeros((2, 1), np.int64), np.cumsum(freqs, 1)], 1)
+    s2s = np.stack([np.repeat(np.arange(A), f) for f in freqs]).astype(np.int16)
+    return rans.CoderTables(torch.from_numpy(freqs), torch.from_numpy(cums), torch.from_numpy(s2s), k)
+
+
+GUIDE_CASES = {
+    "k 12, padded decode stack": (20, 12, (255, 255, 509)),
+    "k 14, padded decode stack": (21, 14, (255, 509)),
+    "k 12, anchors": (22, 12, (256,)),
+    "k 10, small alphabet": (23, 10, (40,)),
+}
+
+
+@pytest.mark.parametrize("case", list(GUIDE_CASES) + ["one symbol of one", "one symbol of eight"])
+def test_guided_search_matches_slot2sym_on_every_slot(case):
+    """K7's search on the cum row (``guided_symbol``: guide, 16-entry window,
+    moving on) gives slot2sym's symbol on every slot of every table, the
+    alphabet padding's zero-frequency symbols included."""
+    if case.startswith("one symbol"):
+        k = 12
+        stack = _one_symbol_tables(k, 1, 0) if case == "one symbol of one" else _one_symbol_tables(k, 8, 5)
+    else:
+        seed, k, alphabets = GUIDE_CASES[case]
+        rng = np.random.default_rng(seed)
+        stack = rans.stack_tables([tables.build_coder_tables(_freqs(rng, 6, A, k), k, "cpu") for A in alphabets],
+                                  pad_alphabet=len(set(alphabets)) > 1)
+        if len(set(alphabets)) > 1:  # the padding repeats c: zero-frequency symbols past each set's alphabet
+            assert (stack.freqs == 0).any()
+    slots = torch.arange(1 << k).expand(stack.n_tables, -1).contiguous()
+    np.testing.assert_array_equal(guided_symbol(stack.cums, slots, k).numpy(), stack.slot2sym.to(torch.int64).numpy())
+
+
+def _emitted_plus_tail(symbols, t_idx, tables_, n_sym):
+    """K8's rule for its word buffer, in torch: a zero buffer that holds each
+    emitted word at its ptr and, after the loop, the last step's word at the
+    final ptr when that step did not emit."""
+    n_lanes = symbols.shape[0]
+    k = tables_.precision
+    A = tables_.alphabet
+    t = torch.from_numpy(t_idx).to(torch.int64)
+    x = torch.full((n_lanes,), RANS_L, dtype=torch.int64)
+    ptr = torch.zeros(n_lanes, dtype=torch.int64)
+    buf = torch.zeros((n_lanes, n_sym), dtype=torch.int64)
+    lanes = torch.arange(n_lanes)
+    emit = torch.ones(n_lanes, dtype=torch.bool)
+    word = torch.zeros(n_lanes, dtype=torch.int64)
+    for i in reversed(range(n_sym)):
+        s = torch.from_numpy(symbols[:, i]).to(torch.int64)
+        c = tables_.cums.reshape(-1)[t * (A + 1) + s]
+        f = tables_.cums.reshape(-1)[t * (A + 1) + s + 1] - c
+        word = x & 0xFFFF
+        emit = (x >> (32 - k)) >= f
+        buf[lanes[emit], ptr[emit]] = word[emit]
+        ptr += emit
+        x = torch.where(emit, x >> 16, x)
+        q = x // f
+        x = (q << k) + (x - q * f) + c
+    tail = ~emit if n_sym else torch.zeros(n_lanes, dtype=torch.bool)
+    buf[lanes[tail], ptr[tail]] = word[tail]
+    return buf, ptr, x
+
+
+@pytest.mark.parametrize("case", ["one set", "decode stack, padded", "n_sym 1", "k 14"])
+def test_emitted_words_plus_tail_equal_reference_buffer(case):
+    """K8 writes only the emitted words and the last step's word at the
+    final ptr when that step did not emit; that rule gives the reference's
+    buffer element for element, its unused tail included."""
+    seed, k, alphabets, n_t, n_lanes, n_sym = CASES[case]
+    sets, pad, stack, t_idx, syms = _world(seed, k, alphabets, n_t, n_lanes, n_sym)
+    if pad:  # encode on the unpadded sets' own tables, as the store path does
+        stack = tables.build_coder_tables(sets[-1], k, "cpu")
+        sets, pad = sets[-1:], False
+        t_idx = t_idx % n_t
+        syms = stack.slot2sym.numpy()[t_idx[:, None], np.random.default_rng(seed).integers(0, 1 << k, size=syms.shape)]
+        syms = syms.astype(np.int32)
+    jstack = _reference(sets, pad, k)
+    jw, jn, jx = jrans._encode_impl(jnp.asarray(syms), jnp.asarray(t_idx), jstack.freqs, jstack.cums, precision=k)
+    buf, ptr, x = _emitted_plus_tail(syms, t_idx, stack, n_sym)
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(jw).astype(np.int64))
+    np.testing.assert_array_equal(ptr.numpy(), np.asarray(jn))
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx).astype(np.int64))
+
+
+def _tiny_codec_cpu():
+    rng = np.random.default_rng(9)
+    L, C, T = 2, 16, 45
+    kv = [np.cumsum(rng.normal(scale=0.3, size=(L, 2, T, C)), axis=2).astype(np.float32) for _ in range(2)]
+    return kv, codec.profile(kv, codec.CodecConfig(precision=11), device="cpu")
+
+
+def test_decode_paths_read_the_compact_payload(monkeypatch):
+    """``decode_chunks`` and ``decode_chunk`` hand the coder the wire's
+    payload as it is: ``unpack_stream`` is never called, every K7 call gets a
+    1-d payload (no ``(n_lanes, cap)`` matrix), and ``decode_chunks`` makes
+    exactly two calls; the results are those of before."""
+    kv, ct = _tiny_codec_cpu()
+    blobs = codec.encode_all_levels(kv[1], ct)
+    levels = [0, 2, 4, 1]
+    want_many = codec.decode_chunks([blobs[l] for l in levels], ct)
+    want_one = [codec.decode_chunk(blobs[l], ct) for l in levels]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the decode path built a padded word matrix")
+
+    calls = []
+    real = ops.rans_decode
+
+    def spy(payload, n_words, offsets, *args):
+        assert payload.ndim == 1 and offsets.dtype == torch.int64
+        calls.append(payload.numel())
+        return real(payload, n_words, offsets, *args)
+
+    monkeypatch.setattr(bitstream, "unpack_stream", refuse)
+    monkeypatch.setattr(codec.bitstream, "unpack_stream", refuse)
+    monkeypatch.setattr(ops, "rans_decode", spy)
+    got = codec.decode_chunks([blobs[l] for l in levels], ct)
+    assert len(calls) == 2 and torch.equal(got, want_many)
+    for l, want in zip(levels, want_one):
+        assert torch.equal(codec.decode_chunk(blobs[l], ct), want)
+    assert len(calls) == 2 + 2 * len(levels)
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +493,9 @@ def _held(cuda, stack, t_idx, syms):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     w, n, x = got
-    args = (rans.wire_bits(w, 16, w.device), n, rans.wire_bits(x, 32, x.device), t_t, stack, syms.shape[1])
+    assert w.is_contiguous()  # lane-major, as the plain version's
+    payload = rans.wire_bits(w, 16, w.device)[torch.arange(w.shape[1], device=cuda)[None, :] < n[:, None]]
+    args = (payload, n, _offsets(n), rans.wire_bits(x, 32, x.device), t_t, stack, syms.shape[1])
     got, want = rans_decode_cuda(*args), rans_decode_plain(*args)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
@@ -257,6 +514,59 @@ def test_cuda_rans_matches_plain(cuda, case):
     seed, k, alphabets, n_t, n_lanes, n_sym = case
     _, _, stack, t_idx, syms = _world(seed, k, alphabets, n_t, n_lanes, n_sym, device=cuda)
     _held(cuda, stack, t_idx, syms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(COMPACT_CASES) + ["a flipped word"])
+def test_cuda_compact_decode_matches_plain(cuda, case):
+    """K7 on the wire's joined compact payloads (lanes without words, chunks
+    of different lengths whose lanes run out of words, a flipped word) equals
+    its plain version symbol for symbol, state for state."""
+    seed, k, alphabets, n_t, lane_syms = COMPACT_CASES["chunks of different lengths" if case == "a flipped word"
+                                                       else case]
+    _, stack, arrays, t_idx, _ = _joined_wire(seed, k, alphabets, n_t, lane_syms)
+    if case == "a flipped word":
+        arrays = dict(arrays, **{"d.payload": arrays["d.payload"].copy()})
+        arrays["d.payload"][len(arrays["d.payload"]) // 3] ^= 0x5A5A
+    stack = rans.CoderTables(*(t.to(cuda) for t in stack[:3]), k)
+    n_sym = max(n for _, n in lane_syms)
+    payload = rans.wire_bits(arrays["d.payload"], 16, cuda)
+    n_words = torch.as_tensor(arrays["d.n_words"], device=cuda)
+    args = (payload, n_words, _offsets(n_words), rans.wire_bits(arrays["d.state"], 32, cuda),
+            torch.as_tensor(t_idx, device=cuda), stack, n_sym)
+    for g, w in zip(rans_decode_cuda(*args), rans_decode_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A, sym", [(1, 0), (8, 5)])
+def test_cuda_rans_one_symbol_holds_every_slot(cuda, A, sym):
+    """Tables whose one symbol holds all 2^k slots: K8 never emits (its
+    overflow bound is 2^32), K7's search lands on that symbol past the
+    zero-frequency ones."""
+    stack = rans.CoderTables(*(t.to(cuda) for t in _one_symbol_tables(12, A, sym)[:3]), 12)
+    t_idx = np.arange(70, dtype=np.int32) % 2
+    _held(cuda, stack, t_idx, np.full((70, 33), sym, np.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_staged_cum_entry_off_by_one_breaks_equality(cuda):
+    """The kernels read the cum rows they stage: one entry off by one in one
+    table changes K7's symbols and K8's words against the plain versions on
+    the true tables."""
+    seed, k, alphabets, n_t, n_lanes, n_sym = CUDA_CASES[-2]
+    _, _, stack, t_idx, syms = _world(seed, k, alphabets, n_t, n_lanes, n_sym, device=cuda)
+    t_t, sym_t = torch.as_tensor(t_idx, device=cuda), torch.as_tensor(syms, device=cuda)
+    t0 = int(t_idx[0])
+    s_hot = int(stack.freqs[t0].argmax())
+    bad_cums = stack.cums.clone()
+    bad_cums[t0, max(s_hot, 1)] += 1
+    bad = rans.CoderTables(stack.freqs, bad_cums, stack.slot2sym, k)
+    w, n, x = rans_encode_plain(sym_t, t_t, stack)
+    assert not torch.equal(rans_encode_cuda(sym_t, t_t, bad)[0], w)
+    payload = rans.wire_bits(w, 16, cuda)[torch.arange(w.shape[1], device=cuda)[None, :] < n[:, None]]
+    args = (payload, n, _offsets(n), rans.wire_bits(x, 32, cuda), t_t)
+    assert not torch.equal(rans_decode_cuda(*args, bad, n_sym)[0], rans_decode_plain(*args, stack, n_sym)[0])
 
 
 @pytest.mark.gpu
@@ -280,14 +590,50 @@ def test_cuda_decode_refuses_more_words_than_a_row_holds(cuda):
     assert rans_decode_cuda.launches == before
 
 
+def test_alphabet_cap_is_one_block_of_staged_rows():
+    """The widest alphabet each kernel's staged rows take fills a block's
+    227 KB and one symbol more does not; the codec's delta decode stack
+    stays within K7's cap up to ``delta_qmax`` 871, as ``CodecConfig``
+    states."""
+    assert MAX_ALPHABET == {"decode": 1743, "encode": 1807}
+    for kind, A in MAX_ALPHABET.items():
+        assert krans._smem_bytes(kind, A) <= 232448 < krans._smem_bytes(kind, A + 1)
+    assert codec.CodecConfig().delta_alphabet <= MAX_ALPHABET["decode"]
+    assert codec.CodecConfig(delta_qmax=871).delta_alphabet <= MAX_ALPHABET["decode"]
+    assert codec.CodecConfig(delta_qmax=872).delta_alphabet > MAX_ALPHABET["decode"]
+
+
+@pytest.mark.gpu
+def test_cuda_rans_at_the_widest_alphabet(cuda):
+    """At K7's widest alphabet (its block's rows fill 227 KB) both kernels
+    equal their plain versions; one symbol wider, K8 still runs and K7
+    raises without a launch."""
+    A = MAX_ALPHABET["decode"]
+    _, _, stack, t_idx, syms = _world(13, 12, (A,), 4, 200, 64, device=cuda)
+    _held(cuda, stack, t_idx, syms)
+    _, _, wide, t_w, s_w = _world(14, 12, (A + 1,), 2, 8, 16, device=cuda)
+    t_t = torch.as_tensor(t_w, device=cuda)
+    w, n, x = rans_encode_cuda(torch.as_tensor(s_w, device=cuda), t_t, wide)
+    payload = rans.wire_bits(w, 16, cuda)[torch.arange(w.shape[1], device=cuda)[None, :] < n[:, None]]
+    before = rans_decode_cuda.launches
+    with pytest.raises(ValueError, match="alphabet"):
+        rans_decode_cuda(payload, n, _offsets(n), rans.wire_bits(x, 32, cuda), t_t, wide, 16)
+    assert rans_decode_cuda.launches == before
+
+
 @pytest.mark.gpu
 def test_cuda_rans_table_past_2_31_slots(cuda):
-    """Lanes whose tables start at or past 2^31 slots of a 4096-slot stack
-    (524,289 tables: 4.3 GB of slot2sym) and lanes at its start: the kernels index the
-    tables in 64 bits, as the plain versions do."""
-    k, A, n_t, real = 12, 64, (1 << 19) + 1, 16
+    """Lanes whose cum row starts past 2^31 bytes, the only table offset the
+    kernels compute, and lanes at the stack's start: an alphabet-padded stack
+    (509 symbols, 510 int64 cums a row) of 526,346 tables, full-alphabet
+    tables at its start and padded 255-symbol ones at its end.  The kernels
+    index the tables in 64 bits, as the plain versions do."""
+    k, real = 12, 16
+    A = 509
+    n_t = -(-(1 << 31) // ((A + 1) * 8)) + 1
     rng = np.random.default_rng(8)
-    small = tables.build_coder_tables(_freqs(rng, 2 * real, A, k), k, cuda)
+    small = rans.stack_tables([tables.build_coder_tables(_freqs(rng, real, a, k), k, cuda) for a in (A, 255)],
+                              pad_alphabet=True)
     freqs = torch.zeros((n_t, A), dtype=torch.int64, device=cuda)
     cums = torch.zeros((n_t, A + 1), dtype=torch.int64, device=cuda)
     s2s = torch.zeros((n_t, 1 << k), dtype=torch.int16, device=cuda)
@@ -297,8 +643,8 @@ def test_cuda_rans_table_past_2_31_slots(cuda):
     n_lanes, n_sym = 256, 300
     t_idx = np.where(np.arange(n_lanes) % 2, n_t - real + rng.integers(0, real, n_lanes),
                      rng.integers(0, real, n_lanes)).astype(np.int32)
-    t_idx[1] = n_t - 1  # its slots lie at [2^31, 2^31 + 4096): past any int32 offset
-    assert int(t_idx.max()) << k >= 1 << 31
+    t_idx[1] = n_t - 1  # its cum row starts past 2^31 bytes: past any int32 byte offset
+    assert int(t_idx.max()) * (A + 1) * 8 >= 1 << 31
     local = np.where(t_idx >= n_t - real, t_idx - (n_t - real) + real, t_idx)  # row of ``small``
     syms = small.slot2sym.cpu().numpy()[local[:, None], rng.integers(0, 1 << k, size=(n_lanes, n_sym))].astype(np.int32)
     _held(cuda, stack, t_idx, syms)
