@@ -51,6 +51,17 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            table entries this run's data reads once, and beside it the time
            at one 32-byte sector a table gather (``rans_bound``, no bound);
            each kernel's registers, shared memory a block and blocks an SM.
+           The wide K7 and K8 (alphabets past the staged rows' caps) at the
+           codec's delta_qmax 1023: the wave over its 2,047-symbol padded
+           decode stack, K8 over its lossy stack, and 4,096 and 16,384
+           (precision 14) symbols, held with ``torch.equal``, with planted
+           faults (a word flipped, a table off by one, a cum entry off by
+           one, a slot2sym entry changed, an emitted word dropped); both
+           also on the staged kernels' wave and timed beside them.  K3 and
+           K4 across the reference's domain: Phi-3-mini's attention (MHA 32
+           x 96), K3 at Falcon-7B's 71 query heads on one KV head and at
+           32:1, both at head dims 48, 96, 100, 160 and 192, each held and
+           timed.
 4. serve   smollm-360m at full width (random bf16 weights from a seed):
            four requests go through ``calculate_kv`` (K4), their KV is
            profiled and encoded at every level in 1536-token chunks (K5),
@@ -353,12 +364,31 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            (``EXAMPLE_LINES``; ``bandwidth_adaptation`` the reference's
            timeline line for line), launching ``EXAMPLE_KERNELS``.
 
+19. wide codec  the codec at delta_qmax 1023 (2,047-symbol delta tables)
+           on phase 4's weights, right after phase 6: a 1,536-token
+           context's ``calculate_kv``, ``profile``, ``encode_all_levels`` of
+           it as one chunk (K5, K8 staged and wide) with its level-0 and
+           level-1 blobs byte-identical to the CPU route's, ``decode_chunks``
+           at levels 0 and 2 (exactly one staged and one wide K7 a call, K2,
+           K1), level 0 bit for bit against ``decode_chunk`` and the CPU
+           route, level 2 within K1's rule, and 32 greedy tokens from the
+           level-0 cache (K3).
+20. shapes two 2-layer models at public widths the registry lacks
+           (Phi-3-mini's MHA 32 x 96, Falcon-7B's 71:1 x 64 with its parallel
+           block), random weights from a seed: a 1,024-token prefill (K4)
+           and 16 greedy steps (K3) with the plain versions refusing any
+           call, the launches counted exactly, then every call held to its
+           plain version, and the prefill's and first step's logits within
+           2e-2 of the plain attention's.
+
 The kernels' launch counters are zeroed before phase 4 and read after phase
-5, then zeroed before each of phases 6, 7, 8, 9, 15, 10, 11, 12 A, 12 B, 13,
-14 A, 14 B, 16, 17 and 18 and read after it (14 C's subprocesses, 16's
-and 17 B's ranks and 18's examples count their own, read by the parent);
-the run fails if a kernel that a path runs was not launched in it (all eight
-on the serve + text and store paths; K7, K1, K2 and K3 on the session,
+5, then zeroed before each of phases 6, 19, 20, 7, 8, 9, 15, 10, 11, 12 A,
+12 B, 13, 14 A, 14 B, 16, 17 and 18 and read after it (14 C's
+subprocesses, 16's and 17 B's ranks and 18's examples count their own,
+read by the parent); the run fails if a kernel that a path runs was not
+launched in it (the eight staged ones on the serve + text and store paths;
+K5, K8 staged and wide, K7 staged and wide, K2, K1 and K3 on the wide codec
+path; K3 and K4 on the shapes path; K7, K1, K2 and K3 on the session,
 serving and mesh paths; K1-K5, K7 and K8 on the launcher, moe and vlm
 paths; K3 and K4 on the hybrid, encdec and dryrun paths; K4 on the train,
 train sweep, train launcher and distributed paths; K3, K4, K5 and K8 on the
@@ -421,13 +451,16 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     kv_quant_plain,
     vector_width,
 )
+from repro_torch.kernels import rans as krans  # noqa: E402
 from repro_torch.kernels.rans import BLOCK_LANES as RANS_BLOCK_LANES  # noqa: E402
 from repro_torch.kernels.rans import kernel_info as rans_kernel_info  # noqa: E402
 from repro_torch.kernels.rans import (  # noqa: E402
     rans_decode_cuda,
     rans_decode_plain,
+    rans_decode_wide_cuda,
     rans_encode_cuda,
     rans_encode_plain,
+    rans_encode_wide_cuda,
 )
 from repro_torch._tree import tree_flatten_with_path, tree_leaves, tree_map  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
@@ -514,13 +547,38 @@ TEXT_BATCH_REL = 2.0 ** -5
 GEN_BATCH_REL = TEXT_BATCH_REL
 STEP_SAMPLES = 8
 # the kernels each path runs: every path needs each of its kernels launched
-ALL_KERNELS = tuple(ops.KERNELS)
+# (the codec's default alphabets run the staged rANS kernels; the wide ones
+# run on phase 19's wide alphabet)
+WIDE_KERNELS = ("rans_decode_wide", "rans_encode_wide")
+ALL_KERNELS = tuple(name for name in ops.KERNELS if name not in WIDE_KERNELS)
 SESSION_KERNELS = ("rans_decode", "kv_dequant_tokens", "kv_lossless_tokens", "decode_attention")
 SERVING_KERNELS = SESSION_KERNELS
 LAUNCHER_KERNELS = SESSION_KERNELS + ("flash_attention", "kv_quant", "rans_encode")
 MOE_KERNELS = LAUNCHER_KERNELS  # the unfused K6 runs only in its checks
 # phase 15: row-sharded serving runs the serving path's kernels on every shard
 MESH_KERNELS = SERVING_KERNELS
+# phase 19: the codec at delta_qmax 1023, whose delta tables have 2,047
+# symbols (past the staged K7's and K8's caps), on one smollm-360m chunk:
+# profile, encode_all_levels (K5, K8 staged for the anchors and the lossless
+# deltas, wide for the lossy stack), decode_chunks at levels 0 and 2 (K7
+# staged for the anchors, wide for the deltas: two launches a call; K2, K1)
+# and greedy generation (K3)
+WIDE_CODEC = dict(delta_qmax=1023, precision=12)
+WIDE_CTX = 1536
+WIDE_LEVELS = (0, 2)
+WIDE_CODEC_KERNELS = ("kv_quant", "rans_encode", "rans_encode_wide", "rans_decode", "rans_decode_wide",
+                      "kv_lossless_tokens", "kv_dequant_tokens", "decode_attention")
+# the kernels phase's and phase 20's head dims off the compiled plans
+SHAPE_HEAD_DIMS = (48, 96, 100, 160, 192)
+# phase 20: two 2-layer models at public widths the registry lacks (random
+# weights from a seed): Phi-3-mini's (MHA 32 x 96, microsoft/Phi-3-mini-4k-
+# instruct) and Falcon-7B's (71 query heads on one KV head x 64, parallel
+# attention and MLP, layernorm, gelu; tiiuae/falcon-7b); a prompt through
+# K4, then greedy steps through K3, held to the plain path
+SHAPES_PROMPT = 1024
+SHAPES_STEPS = 16
+SHAPES_STEP_TOL = 2e-2
+SHAPES_KERNELS = ("decode_attention", "flash_attention")
 # phase 9: the launcher's context, B's fault rate and attempts, C's arrivals
 LAUNCH_CTX = 3072
 LAUNCH_REQUESTS = 4
@@ -926,14 +984,16 @@ def compact_stream(w, n, x):
 
 def held_rans(stack, t_idx, syms, what):
     """K8 then K7 on the card against their plain versions (torch.equal on
-    every output), K7 inverting K8 to the initial state.  Returns K7's
+    every output), K7 inverting K8 to the initial state, each the kernel
+    ``kernels.ops`` picks for the alphabet (staged or wide).  Returns K7's
     arguments (the compact stream as the wire hands it over:
     ``compact_stream``), K8's and K7's plain outputs."""
-    got, enc = rans_encode_cuda(syms, t_idx, stack), rans_encode_plain(syms, t_idx, stack)
+    encode, decode = krans.encode_kernel(stack.alphabet), krans.decode_kernel(stack.alphabet)
+    got, enc = encode(syms, t_idx, stack), rans_encode_plain(syms, t_idx, stack)
     require(all(torch.equal(a, b) for a, b in zip(got, enc)), f"K8 differs from its plain version ({what})")
     require(got[0].is_contiguous(), f"K8's words are not lane-major ({what})")
     args = (*compact_stream(*got), t_idx, stack, syms.shape[1])
-    got, dec = rans_decode_cuda(*args), rans_decode_plain(*args)
+    got, dec = decode(*args), rans_decode_plain(*args)
     require(all(torch.equal(a, b) for a, b in zip(got, dec)), f"K7 differs from its plain version ({what})")
     require(torch.equal(got[0], syms) and bool((got[1] == 1 << 16).all()) and bool((got[2] == -1).all()),
             f"K7 does not invert K8 ({what})")
@@ -1130,6 +1190,208 @@ def drive_store_path(cfg, dev, gen, served, phase=lambda name: contextlib.nullco
         print("store steps ms:", laps.ms)
     return {"engine": engine, "streamer": streamer, "tokens": tokens, "plan": plan, "fused": fused,
             "first": first, "fused_tokens": outs[0], "chunk": chunk, "exact": exact}
+
+
+def codec_tables_to(ct, device):
+    """``ct`` with its coder tables on ``device`` (the same tables on another
+    route); the lossy delta stack, which only ``encode_all_levels`` reads,
+    is left to be rebuilt there."""
+    def move(t):
+        return rans.CoderTables(t.freqs.to(device), t.cums.to(device), t.slot2sym.to(device), t.precision)
+
+    return ct._replace(anchor=move(ct.anchor), deltas={lvl: move(t) for lvl, t in ct.deltas.items()},
+                       ll_anchor=move(ct.ll_anchor), ll_delta=move(ct.ll_delta), anchor_stack=move(ct.anchor_stack),
+                       lossy_delta_stack=None, delta_decode_stack=move(ct.delta_decode_stack))
+
+
+def drive_wide_codec_path(cfg, dev, gen, served, phase=lambda name: contextlib.nullcontext(), ctx_len=WIDE_CTX,
+                          gen_tokens=GEN_TOKENS, levels=WIDE_LEVELS):
+    """Phase 19: the codec at ``WIDE_CODEC`` (delta_qmax 1023: 2,047-symbol
+    delta tables, past the staged rANS kernels' caps) on ``served``'s
+    weights: a ``ctx_len``-token context's KV (K4), ``profile``, and
+    ``encode_all_levels`` of it as one chunk (K5; K8 staged for the anchors
+    and the lossless deltas, wide for the lossy stack), its level-0 and
+    level-1 blobs byte-identical to the CPU route's; ``decode_chunks`` of
+    each of ``levels`` (K7 staged for the anchors and wide for the deltas,
+    one each a call; K2 at level 0, K1 at a lossy level), level 0 bit for bit
+    against the unfused ``decode_chunk`` and the CPU route's decode, a lossy
+    level within K1's rule of ``decode_chunk``; the level-0 KV through
+    ``decode_to_cache`` and ``gen_tokens`` greedy tokens (K3).  The port's
+    tests run it at ``.tiny()`` on the CPU."""
+    k1_tol = ops.BF16_TOL["kv_dequant_tokens"]
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    wcfg = codec.CodecConfig(**WIDE_CODEC)
+    with phase("wide codec"):
+        laps = Laps(dev)
+        engine = Engine(cfg, served["params"], cache_capacity=ctx_len + gen_tokens, device=dev)
+        gen.manual_seed(SEED + 19)
+        tokens = torch.randint(0, cfg.vocab_size, (1, ctx_len), generator=gen, device=dev)
+        logits, exact = engine.calculate_kv({"tokens": tokens})
+        kv = caches_to_codec_kv(exact, 0, ctx_len)
+        laps.lap(f"calculate_kv {ctx_len} tokens")
+        ct = codec.profile([kv], wcfg, device=dev)
+        A = ct.delta_decode_stack.alphabet
+        require(A == wcfg.delta_alphabet > krans.MAX_ALPHABET["decode"] and
+                ct.lossy_delta_stack.alphabet > krans.MAX_ALPHABET["encode"],
+                f"the decode stack's alphabet {A} does not take the wide kernels")
+        laps.lap("profile")
+        before = ops.launch_counts()
+        blobs = codec.encode_all_levels(kv, ct, chunk_idx=0)
+        enc = {n: c - before[n] for n, c in ops.launch_counts().items() if c != before[n]}
+        laps.lap("encode_all_levels")
+        if on_card:
+            require(enc.get("rans_encode_wide") == 1 and enc.get("rans_encode", 0) >= 1,
+                    f"encode_all_levels at alphabet {A} launched {enc}")
+        fp16 = codec.kv_nbytes_fp16(cfg.n_layers, ctx_len, cfg.n_kv_heads * cfg.d_head)
+        print(f"wide codec: delta_qmax {wcfg.delta_qmax}, precision {wcfg.precision}: delta alphabet {A} "
+              f"(K7 staged up to {krans.MAX_ALPHABET['decode']}, K8 to {krans.MAX_ALPHABET['encode']}); bytes per "
+              f"level {[len(blobs[lvl]) for lvl in sorted(blobs)]} for {ctx_len} tokens ({fp16} in fp16); "
+              f"encode_all_levels launched {enc}")
+        ct_cpu = codec_tables_to(ct, cpu)
+        kv_cpu = kv.cpu()
+        for lvl in (0, 1):
+            require(codec.encode_chunk(kv_cpu, ct_cpu, lvl, chunk_idx=0) == blobs[lvl],
+                    f"the level-{lvl} blob differs from the CPU route's")
+        laps.lap("CPU route's encode of levels 0 and 1")
+        decoded = {}
+        for lvl in levels:
+            before = ops.launch_counts()
+            got = codec.decode_chunks([blobs[lvl]], ct)
+            calls = {n: c - before[n] for n, c in ops.launch_counts().items() if c != before[n]}
+            if on_card:
+                k7 = {n: calls.get(n, 0) for n in ("rans_decode", "rans_decode_wide")}
+                require(k7 == {"rans_decode": 1, "rans_decode_wide": 1},
+                        f"decode_chunks at level {lvl} made the K7 launches {k7}, not one staged and one wide")
+            with uncounted():
+                oracle = codec.decode_chunk(blobs[lvl], ct)
+            if lvl == 0:
+                require(torch.equal(got, oracle), "the level-0 decode differs from decode_chunk")
+            else:
+                x = ops.bf16_ulp_excess(got.to(torch.bfloat16), oracle, **k1_tol)
+                require(x <= 1, f"the level-{lvl} decode is {x:.3g} times K1's rule off decode_chunk")
+            decoded[lvl] = got
+            print(f"wide codec: decode_chunks at level {lvl} launched {calls}; max |decoded - exact KV| "
+                  f"{(got - kv).abs().max().item():.4g}")
+        laps.lap("decode_chunks and the oracle")
+        if on_card:  # the wide kernels' device time a call on this path
+            with uncounted():
+                wide_ms = {"rans_decode_wide a decode_chunks": device_ms(
+                    lambda: codec.decode_chunks([blobs[levels[-1]]], ct), "rans_decode_wide_kernel", iters=3),
+                    "rans_encode_wide an encode_all_levels": device_ms(
+                    lambda: codec.encode_all_levels(kv, ct, chunk_idx=0), "rans_encode_wide_kernel", iters=2)}
+            print(f"wide codec: device ms {wide_ms}")
+            laps.lap("the wide kernels' device times")
+        require(torch.equal(codec.decode_chunks([blobs[0]], ct_cpu), decoded[0].cpu()),
+                "the level-0 decode differs from the CPU route's")
+        del ct_cpu, kv_cpu
+        laps.lap("CPU route's level-0 decode")
+        first = torch.argmax(logits[:, -1], dim=-1)
+        c0 = engine.decode_to_cache(engine.empty_caches(1), decoded[0].to(torch.bfloat16), 0)
+        toks = engine.generate_with_kv(c0, first, gen_tokens)
+        require(toks.shape == (1, gen_tokens) and ((toks >= 0) & (toks < cfg.padded_vocab_size)).all(),
+                f"generated {toks.shape} tokens out of range")
+        with uncounted():
+            want = engine.generate_with_kv(exact, first, gen_tokens)
+        laps.lap(f"generate_with_kv {gen_tokens} tokens")
+        print(f"wide codec: {gen_tokens} greedy tokens from the level-0 cache, {(toks == want).mean():.2%} equal to "
+              f"the prefill cache's (informational)")
+        print("wide codec steps ms:", laps.ms)
+        if on_card:
+            print("wide codec steps' peak allocated GB:", laps.peak_gb)
+
+
+def shapes_configs(tiny=False):
+    """Phase 20's two 2-layer models (``SHAPES_*``) at published widths the
+    registry lacks, derived from smollm-360m's config; ``tiny`` shrinks
+    d_model, d_ff and the vocab and keeps the heads."""
+    base = dataclasses.replace(registry.get("smollm-360m"), n_layers=2, tie_embeddings=False, remat=False)
+    phi3 = dataclasses.replace(base, name="phi-3-mini-2l", d_model=3072, n_heads=32, n_kv_heads=32, d_head=96,
+                               d_ff=8192, vocab_size=32064)
+    falcon = dataclasses.replace(base, name="falcon-7b-2l", d_model=4544, n_heads=71, n_kv_heads=1, d_head=64,
+                                 d_ff=18176, vocab_size=65024, norm="layernorm", mlp="gelu", parallel_block=True)
+    out = {"Phi-3-mini MHA 32 x 96": phi3, "Falcon-7B 71:1 x 64": falcon}
+    if tiny:
+        out = {k: dataclasses.replace(c, d_model=128, d_ff=256, vocab_size=512) for k, c in out.items()}
+    return out
+
+
+@contextlib.contextmanager
+def no_plain_attention():
+    """K3's and K4's plain versions raise if ``kernels.ops`` picks them: on the
+    card no call may reach them."""
+    def refuse(*args, **kwargs):
+        raise RuntimeError("a card call reached an attention kernel's plain version")
+
+    saved = ops.decode_attention_plain, ops.flash_attention_plain
+    ops.decode_attention_plain = ops.flash_attention_plain = refuse
+    try:
+        yield
+    finally:
+        ops.decode_attention_plain, ops.flash_attention_plain = saved
+
+
+def drive_shapes_path(dev, gen, phase=lambda name: contextlib.nullcontext(), prompt=SHAPES_PROMPT,
+                      steps=SHAPES_STEPS, tiny=False):
+    """Phase 20: the two models of :func:`shapes_configs` (random bf16
+    weights from a seed), each through the engine: a ``prompt``-token
+    ``calculate_kv`` (K4 once a layer) and ``steps`` greedy tokens (K3 once a
+    layer a step), on the card with K3's and K4's plain versions refusing
+    every call and the launches counted exactly; run again with every K3 and
+    K4 call held to its plain version under ``BF16_TOL`` (``held_calls``,
+    uncounted: the same tokens); the prefill's and the first step's logits
+    within ``SHAPES_STEP_TOL`` of their largest |logit| of the same calls on
+    the plain attention (``plain_attention()``, uncounted).  The port's tests
+    run it at ``tiny`` widths on the CPU."""
+    on_card = dev.type == "cuda"
+    with phase("shapes"):
+        for i, (name, cfg) in enumerate(shapes_configs(tiny).items()):
+            laps = Laps(dev)
+            gen.manual_seed(SEED + 20 + i)
+            params = lm.init_params(cfg, gen, dev)
+            engine = Engine(cfg, params, cache_capacity=prompt + steps + 1, device=dev)
+            tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen, device=dev)
+            laps.lap("init")
+            before = ops.launch_counts()
+            with no_plain_attention() if on_card else contextlib.nullcontext():
+                logits, caches = engine.calculate_kv({"tokens": tokens})
+                first = torch.argmax(logits[:, -1], dim=-1)
+                toks = engine.generate_with_kv(caches, first, steps)
+            calls = {n: c - before[n] for n, c in ops.launch_counts().items() if c != before[n]}
+            laps.lap(f"calculate_kv {prompt} tokens and {steps} steps")
+            if on_card:
+                want = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * steps}
+                require(calls == want, f"{name}: launches {calls}, not {want}")
+            require(bool(torch.isfinite(logits).all()) and ((toks >= 0) & (toks < cfg.padded_vocab_size)).all(),
+                    f"{name}: prefill logits not finite or tokens out of range")
+            excess = []  # off the card the "kernel" is the plain version itself: nothing to hold
+            with uncounted(), held_calls(excess) if on_card else contextlib.nullcontext():
+                h_logits, h_caches = engine.calculate_kv({"tokens": tokens})
+                h_toks = engine.generate_with_kv(h_caches, first, steps)
+            worst = {k: max(x for n, x in excess if n == k) for k in {n for n, _ in excess}}
+            if on_card:
+                require(len(excess) == cfg.n_layers * (steps + 1) and max(worst.values()) <= 1,
+                        f"{name}: held calls {len(excess)}, worst excess {worst}")
+            require(torch.equal(h_logits, logits) and (h_toks == toks).all(),
+                    f"{name}: the held run differs from the counted one")
+            with uncounted():
+                s_logits, _ = engine.logits_with_kv(caches, first.cpu().numpy()[:, None])
+                with plain_attention():
+                    p_logits, p_caches = engine.calculate_kv({"tokens": tokens})
+                    ps_logits, _ = engine.logits_with_kv(p_caches, first.cpu().numpy()[:, None])
+            rel = {}
+            for what, a, b in (("prefill", logits[:, -1], p_logits[:, -1]),
+                               ("first step", torch.as_tensor(s_logits), torch.as_tensor(ps_logits))):
+                a, b = a.float().cpu(), b.float().cpu()
+                rel[what] = ((a - b).abs().max() / (SHAPES_STEP_TOL * b.abs().max())).item()
+                require(rel[what] <= 1, f"{name}: the {what} logits are {rel[what]:.3g} times {SHAPES_STEP_TOL} of "
+                        "their largest |logit| off the plain attention's")
+            laps.lap("held and plain runs")
+            print(f"shapes {name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+                  f"{cfg.d_head}; launches {calls}; {len(excess)} held calls, worst {worst}; against the plain "
+                  f"attention {({k: round(v, 4) for k, v in rel.items()})} of the {SHAPES_STEP_TOL} rule; steps ms "
+                  f"{laps.ms}")
+            del params, engine, caches, h_caches, p_caches
 
 
 def drive_session_path(cfg, stored, phase=lambda name: contextlib.nullcontext(), gen_tokens=GEN_TOKENS):
@@ -4516,6 +4778,15 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
             shape=f"encode_all_levels' lossy deltas: {t_l.numel()} lanes x {CHUNK - G} steps over "
                   f"{lossy_stack.n_tables} tables, {int(l_got[1].sum())} words",
         )
+        # the wide kernels on the same wave and lossy stack (A = 509 and 255,
+        # where the staged ones run): equal, and timed beside them
+        require(all(torch.equal(a, b) for a, b in zip(rans_decode_wide_cuda(*d_args), d_want)),
+                "the wide K7 differs from its plain version on the wave's deltas")
+        require(all(torch.equal(a, b) for a, b in zip(rans_encode_wide_cuda(l_syms, t_l, lossy_stack), l_want)),
+                "the wide K8 differs from its plain version on the lossy delta stack")
+        wide_at_staged = dict(
+            decode_ms=time_ms(lambda: rans_decode_wide_cuda(*d_args), iters=3, warmup=1),
+            encode_ms=time_ms(lambda: rans_encode_wide_cuda(l_syms, t_l, lossy_stack), iters=3, warmup=1))
         del anchor_stack, d_stack, lossy_stack, a_args, a_dec, d_args, d_want, d_syms, l_syms, l_got, l_want
         # phase 10's qwen2-moe-a2.7b chunk: 24 x 2 x 2048 lanes, one table a lane
         qcfg = registry.get(MOE_ARCH)
@@ -4557,6 +4828,100 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         held_rans(far, t_f, coder_symbols(far, t_f, 300, gen), "a cum row past 2^31 bytes")
         del far
         require(not any(rans_faults.values()), f"a planted rANS fault held equal: {rans_faults}")
+
+        # The wide K7 and K8 (alphabets past the staged rows' caps), on tables
+        # built on the card: the codec at delta_qmax 1023, a wave of 4 chunks
+        # at levels 0-3 over its alphabet-padded 2,047-symbol decode stack
+        # (81,920 lanes x 1,382 steps) and K8 over its lossy delta stack (4 x
+        # 20,480 lanes); 4,096 = 2^12 symbols, and 16,384 = 2^14 at precision
+        # 14 (every symbol one slot).  Planted faults, each changed in place
+        # and put back: a word flipped, a lane's table off by one, a cum entry
+        # off by one (K7 and K8), the slot2sym entry of a lane's first slot
+        # (K7), one emitted word dropped (K8).
+        wcc = codec.CodecConfig(**WIDE_CODEC)
+        wA = wcc.delta_alphabet
+        w_stack = coder_stack([(r_lanes, wA)] * n_lossy + [(r_lanes, quant.lossless_delta_alphabet())], rk, dev, gen)
+        w_syms = coder_symbols(w_stack, t_d, CHUNK - G, gen)
+        w_args, _, w_want = held_rans(w_stack, t_d, w_syms, f"the wave over the {wA}-symbol decode stack")
+        wide_faults = {}
+        payload, n_w, offs, st, t_w = w_args[:5]
+        lane = int(n_w.argmax())
+        bad = payload.clone()
+        bad[int(offs[lane]) + int(n_w[lane]) // 2] ^= 0x5A5A
+        wide_faults["rans_decode_wide: one word flipped"] = torch.equal(
+            rans_decode_wide_cuda(bad, *w_args[1:])[0], w_want[0])
+        t_bad = t_w.clone()
+        t_bad[0] += 1
+        wide_faults["rans_decode_wide: table_idx off by one"] = torch.equal(
+            rans_decode_wide_cuda(payload, n_w, offs, st, t_bad, *w_args[5:])[0], w_want[0])
+        t0 = int(t_w[0])
+        s_hot = max(int(w_stack.freqs[t0].argmax()), 1)
+        w_stack.cums[t0, s_hot] += 1
+        wide_faults["rans_decode_wide: a cum entry off by one"] = torch.equal(
+            rans_decode_wide_cuda(*w_args)[0], w_want[0])
+        w_stack.cums[t0, s_hot] -= 1
+        slot0 = int(st[0]) & ((1 << rk) - 1)  # the slot of lane 0's first step
+        s_old = int(w_stack.slot2sym[t0, slot0])
+        w_stack.slot2sym[t0, slot0] = (s_old + 1) % wA
+        wide_faults["rans_decode_wide: its first slot's slot2sym entry changed"] = torch.equal(
+            rans_decode_wide_cuda(*w_args)[0], w_want[0])
+        w_stack.slot2sym[t0, slot0] = s_old
+        del bad, t_bad, payload, n_w, offs, st, t_w
+        n_wl = n_lossy * r_lanes
+        wl_stack = rans.CoderTables(w_stack.freqs[:n_wl], w_stack.cums[:n_wl], w_stack.slot2sym[:n_wl], rk)
+        wl_syms = coder_symbols(wl_stack, t_l, CHUNK - G, gen)
+        wl_got = rans_encode_wide_cuda(wl_syms, t_l, wl_stack)
+        wl_want = rans_encode_plain(wl_syms, t_l, wl_stack)
+        require(all(torch.equal(a, b) for a, b in zip(wl_got, wl_want)),
+                f"the wide K8 differs from its plain version at the {wA}-symbol lossy delta stack")
+        lane = int(wl_want[1].argmax())
+        w_bad, n_bad = wl_want[0].clone(), wl_want[1].clone()
+        w_bad[lane, :-1] = wl_want[0][lane, 1:]
+        n_bad[lane] -= 1
+        wide_faults["rans_encode_wide: one emitted word dropped"] = torch.equal(wl_got[0], w_bad) and torch.equal(
+            wl_got[1], n_bad)
+        t0 = int(t_l[0])
+        s_hot = max(int(wl_stack.freqs[t0].argmax()), 1)
+        w_stack.cums[t0, s_hot] += 1
+        wide_faults["rans_encode_wide: a cum entry off by one"] = torch.equal(
+            rans_encode_wide_cuda(wl_syms, t_l, wl_stack)[0], wl_want[0])
+        w_stack.cums[t0, s_hot] -= 1
+        del w_bad, n_bad
+        require(not any(wide_faults.values()), f"a planted fault of the wide kernels held equal: {wide_faults}")
+        for A_, k_ in ((1 << 12, 12), (1 << 14, 14)):
+            small = coder_stack([(64, A_)], k_, dev, gen)
+            t_r = torch.randint(0, 64, (4096,), generator=gen, device=dev, dtype=torch.int32)
+            held_rans(small, t_r, coder_symbols(small, t_r, 300, gen), f"A = {A_} at precision {k_}")
+        del small, t_r
+        n_read = int(w_args[1].sum())
+        wd_bound, wd_sector = rans_bound("decode", t_d.numel(), CHUNK - G, table_pairs(t_d, w_syms, wA), n_read)
+        we_bound, we_sector = rans_bound("encode", t_l.numel(), CHUNK - G, table_pairs(t_l, wl_syms, wA))
+        report["rans_decode_wide"] = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: rans_decode_wide_cuda(*w_args), iters=3, warmup=1),
+            device_ms=device_ms(lambda: rans_decode_wide_cuda(*w_args), "rans_decode_wide_kernel", iters=2),
+            plain_ms=time_ms(lambda: rans_decode_plain(*w_args), iters=1, warmup=0),
+            library_ms=None,
+            bound=wd_bound,
+            sector_ms=wd_sector,
+            info={f"A = {wA}": rans_kernel_info("decode", wA, wide=True)},
+            shape=f"a wave's deltas at delta_qmax {wcc.delta_qmax}: {t_d.numel()} lanes x {CHUNK - G} steps over "
+                  f"{w_stack.n_tables} padded {wA}-symbol tables, {n_read} words; A = 4,096 and 16,384 (k 14) held",
+        )
+        report["rans_encode_wide"] = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: rans_encode_wide_cuda(wl_syms, t_l, wl_stack), iters=3, warmup=1),
+            device_ms=device_ms(lambda: rans_encode_wide_cuda(wl_syms, t_l, wl_stack), "rans_encode_wide_kernel",
+                                iters=2),
+            plain_ms=time_ms(lambda: rans_encode_plain(wl_syms, t_l, wl_stack), iters=1, warmup=0),
+            library_ms=None,
+            bound=we_bound,
+            sector_ms=we_sector,
+            info={f"A = {wA}": rans_kernel_info("encode", wA, wide=True)},
+            shape=f"encode_all_levels' lossy deltas at delta_qmax {wcc.delta_qmax}: {t_l.numel()} lanes x "
+                  f"{CHUNK - G} steps over {wl_stack.n_tables} {wA}-symbol tables, {int(wl_got[1].sum())} words",
+        )
+        del w_stack, wl_stack, w_args, w_want, w_syms, wl_syms, wl_got, wl_want
 
         # phase 10's shapes, qwen2-moe-a2.7b (MHA, 16 heads of 128, C =
         # 2048): K1 and K2 over its four 768-token chunks, K3 over its 1-row
@@ -4907,6 +5272,72 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         for name in ("flash_attention bidirectional", "decode_attention at MHA 16 x 64"):
             require(min(controls[name].values()) > 1, f"{name}: the rule misses a planted fault: {controls[name]}")
 
+        # the reference's whole attention domain: K3 and K4 at Phi-3-mini's
+        # attention (MHA 32 x 96, on the plan of 128: 96 columns loaded, the
+        # rest zeros), K3 at Falcon-7B's (71 query heads on one KV head: 5
+        # groups of at most 16, each reading the head's K/V again) and at 32:1
+        # (2 groups), and both at head dims 48 (the plan of 64), 96 and 100 (of
+        # 128; 100 has no whole 16-byte chunks in bf16: the element loads),
+        # 160 and 192 (of 256); each held to its plain version under BF16_TOL and timed
+        # beside its bound and SDPA.  K3's caches are 8 layer slices, read
+        # from HBM in turns.
+        shapes_report = {}
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+        def k3_shape(what, B_, hq, hkv, dh, cap, lens_list):
+            kc_, vc_, qd = randn(8, B_, cap, hkv, dh), randn(8, B_, cap, hkv, dh), randn(B_, hq, dh)
+            lens_ = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            got = decode_attention_cuda(qd, kc_[0], vc_[0], lens_)
+            want = decode_attention_plain(qd.float(), kc_[0].float(), vc_[0].float(), lens_)
+            require(not got[lens_ == 0].float().any(), f"K3 {what}: a row with kv_len 0 must output 0")
+            x = ops.bf16_ulp_excess(got, want, **tol3)
+            require(x <= 1, f"K3 {what} is {x:.3g} times its tolerance off its plain version")
+            excess["decode_attention"] = max(excess["decode_attention"], x)
+            it_ = itertools.count()
+
+            def run():
+                i = next(it_) % 8
+                return decode_attention_cuda(qd, kc_[i], vc_[i], lens_)
+
+            def lib():
+                i = next(it_) % 8
+                mask = (torch.arange(cap, device=dev)[None, :] < lens_[:, None])[:, None, None, :]
+                return sdpa(qd[:, :, None], kc_[i].transpose(1, 2), vc_[i].transpose(1, 2), attn_mask=mask,
+                            enable_gqa=hq != hkv)
+
+            n_tok = sum(min(n, cap) for n in lens_list)
+            shapes_report[f"decode_attention {what}"] = dict(
+                max_abs_err=(got.float() - want).abs().max().item(), excess=x,
+                ms=time_ms(run, iters=20),
+                device_ms=device_ms(run, "decode_split_kernel", "decode_combine_kernel", iters=8),
+                plain_ms=time_ms(lambda: decode_attention_plain(qd, kc_[0], vc_[0], lens_), iters=3, warmup=1),
+                library_ms=time_ms(lib, iters=20) if gqa_ok or hq == hkv else None,
+                bound=bound(qd.numel() * 2 * 2 + n_tok * hkv * dh * 2 * 2 + B_ * 4, 4 * hq * dh * n_tok),
+                shape=f"q {tuple(qd.shape)} vs cache {tuple(kc_[0].shape)} bf16, kv_len {lens_list}, split "
+                      f"{split_size(cap, B_, hkv, n_sm)}",
+            )
+
+        def k4_shape(what, B_, T_, hq, hkv, dh, prefix=None):
+            (qq_, kk_, vv_), (want, mag), err = k4_case(B_, T_, prefix, heads=(hq, hkv, dh))
+            x = ops.bf16_ulp_excess(flash_attention_cuda(qq_, kk_, vv_, None if prefix is None else torch.tensor(
+                prefix, dtype=torch.int32, device=dev)), want, scale=mag, **tol4)
+            shapes_report[f"flash_attention {what}"] = dict(
+                max_abs_err=err, excess=x,
+                plain_ms=time_ms(lambda: flash_attention_plain(qq_, kk_, vv_), iters=2, warmup=1),
+                shape=f"q {tuple(qq_.shape)} k/v {tuple(kk_.shape)} bf16 causal"
+                      + (f", prefix {prefix} (timed without)" if prefix else ""),
+                **k4_timing(qq_, kk_, vv_),
+            )
+
+        cap3 = SSM_CTX + GEN_TOKENS + 1
+        k3_shape("Phi-3-mini MHA 32 x 96", 1, 32, 32, 96, cap3, [SSM_CTX + 1])
+        k3_shape("Falcon-7B 71:1 x 64", 1, 71, 1, 64, cap3, [SSM_CTX + 1])
+        k3_shape("32:1 x 64", 1, 32, 1, 64, cap3, [SSM_CTX + 1])
+        k4_shape("Phi-3-mini MHA 32 x 96", 1, SSM_CTX, 32, 32, 96)
+        for dh in SHAPE_HEAD_DIMS:
+            k3_shape(f"D = {dh}", 4, 8, 2, dh, 2080, [2049, 2080, TILE + 1, 0])
+            k4_shape(f"D = {dh}", 1, 2048, 8, 2, dh, [256] if dh == 160 else None)
+
         # K4 under autograd at phase 14's training shape (smollm-360m, 8 rows
         # of 1,024 tokens, causal): the Function's forward (K4) and backward
         # (the plain version's VJP, one query chunk here), SDPA's forward +
@@ -4953,7 +5384,7 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
                   f"(device time {r['device_ms']} ms)  "
                   f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']}  "
                   f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it reached)")
-        for name in ("rans_decode", "rans_encode"):
+        for name in ("rans_decode", "rans_encode", "rans_decode_wide", "rans_encode_wide"):
             r = report[name]
             print(f"{name}: at one 32-byte sector a table gather {r['sector_ms']:.4f} ms "
                   f"({r['sector_ms'] / r['ms']:.1%} of the kernel ms; no bound)")
@@ -4998,6 +5429,16 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
                   f"{r['bound'][0] / r['device_ms']:.1%} of device time)")
         for name in ("flash_attention bidirectional", "decode_attention at MHA 16 x 64"):
             print(f"{name}: planted faults {controls[name]}")
+        print(f"rans_decode_wide / rans_encode_wide at the staged kernels' inputs (the wave's A = 509 deltas, the "
+              f"lossy A = 255 stack): {wide_at_staged['decode_ms']:.4f} / {wide_at_staged['encode_ms']:.4f} ms "
+              f"(staged {report['rans_decode']['ms']:.4f} / {report['rans_encode']['ms']:.4f}); planted faults "
+              f"held equal: {wide_faults}")
+        for name, r in shapes_report.items():
+            require(r["device_ms"] is not None, f"the profiler holds no device time for {name}")
+            print(f"{name}: {r['shape']}  max_abs_err {r['max_abs_err']:.3g} ({r['excess']:.3f} of its rule)  "
+                  f"kernel {r['ms']:.4f} ms  (device time {r['device_ms']} ms)  plain {r['plain_ms']:.4f} ms  "
+                  f"library {r['library_ms']}  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, "
+                  f"{r['bound'][0] / r['ms']:.1%} of it reached, {r['bound'][0] / r['device_ms']:.1%} of device time)")
         r = train_k4
         require(r["device_ms"] is not None, "the profiler holds no device time for K4 at the training shape")
         print(f"flash_attention under autograd at {TRAIN_ARCH}'s training shape: q ({TRAIN_BATCH},{TRAIN_SEQ},{Hq},{D}) "
@@ -5018,6 +5459,20 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
     ops.reset_launch_counts()
     stored = drive_store_path(cfg, dev, gen, served, phase=lambda name: Phase(name, phase_ms))
     paths["store"] = ops.launch_counts()
+
+    # ---------------------------------------------- 19 wide codec (phase 4's weights)
+    ops.reset_launch_counts()
+    drive_wide_codec_path(cfg, dev, gen, served, phase=lambda name: Phase(name, phase_ms))
+    paths["wide codec"] = ops.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- 20 shapes
+    ops.reset_launch_counts()
+    drive_shapes_path(dev, gen, phase=lambda name: Phase(name, phase_ms))
+    paths["shapes"] = ops.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 7 session
     ops.reset_launch_counts()
@@ -5107,7 +5562,8 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
             "the dryrun and examples paths launched in this process")
 
     # --------------------------------------------------------------- summary
-    runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "session": SESSION_KERNELS,
+    runs = {"serve + text": ALL_KERNELS, "store": ALL_KERNELS, "wide codec": WIDE_CODEC_KERNELS,
+            "shapes": SHAPES_KERNELS, "session": SESSION_KERNELS,
             "serving": SERVING_KERNELS, "launcher": LAUNCHER_KERNELS, "mesh": MESH_KERNELS, "moe": MOE_KERNELS, "vlm": VLM_KERNELS,
             "ssm": SSM_KERNELS, "hybrid": HYBRID_KERNELS, "encdec": ENCDEC_KERNELS, "train": TRAIN_KERNELS,
             "train sweep": TRAIN_KERNELS, "train launcher": TRAIN_KERNELS, "distributed": DIST_KERNELS,
@@ -5130,6 +5586,8 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         "kv_dequant": ("kvquant.cu", "src/repro/kernels/kvquant.py:76"),
         "rans_decode": ("rans.cu", "src/repro/core/rans.py:110"),
         "rans_encode": ("rans.cu", "src/repro/core/rans.py:65"),
+        "rans_decode_wide": ("rans.cu", "src/repro/core/rans.py:110"),
+        "rans_encode_wide": ("rans.cu", "src/repro/core/rans.py:65"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

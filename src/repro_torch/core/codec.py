@@ -73,11 +73,14 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class CodecConfig:
-    """The codec's settings, as the reference's.  On the card the rANS
-    kernels stage each lane's cum row in shared memory, which bounds the
-    alphabet they take (``kernels.rans.MAX_ALPHABET``): the delta decode
-    stack's ``max(2 * delta_qmax + 1, 509)`` symbols must stay within K7's
-    1,743, so ``delta_qmax <= 871`` there; the CPU takes any."""
+    """The codec's settings, as the reference's.  Any ``delta_qmax`` runs on
+    the card: the rANS kernels stage each lane's cum row in shared memory
+    while it fits a block (``kernels.rans.MAX_ALPHABET``: K7 up to 1,743
+    symbols, K8 up to 1,807), and ``kernels.ops`` takes their wide kernels
+    for wider tables.  The delta decode stack has ``max(2 * delta_qmax + 1,
+    509)`` symbols, so at ``delta_qmax`` 872 and above ``decode_chunks``'
+    delta decode runs on the wide K7 (its anchors stay staged: still two K7
+    launches a call)."""
 
     group_size: int = 10
     layer_group_bins: Tuple[float, float, float] = (0.5, 1.0, 1.5)

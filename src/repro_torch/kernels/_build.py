@@ -27,12 +27,15 @@ from typing import Optional
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "HEAD_DIMS", "aligned16", "load_library", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "HEAD_DIMS", "MAX_HEAD_DIM", "aligned16", "check", "check_head_dim", "is_aligned16",
+           "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-# the head dims K3's and K4's kernels are built for (their `switch (D)`)
+# the head dims of K3's and K4's compiled plans; any head dim up to
+# MAX_HEAD_DIM runs on the smallest plan at least as wide (check_head_dim)
 HEAD_DIMS = (32, 64, 80, 128, 256)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",
@@ -58,14 +61,14 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I,  # B Hq Hkv S D n_splits
         _L, _L, _L, _L, _L, _L,  # q strides (b, h), k strides (b, s, h), v stride b
         _L, _L,  # v strides (s, h)
-        _I, _F, _I, _I, _P,  # split_size scale q_dtype kv_dtype stream
+        _I, _F, _I, _I, _I, _P,  # split_size scale q_dtype kv_dtype narrow stream
     ),
     # flash_attention.cu
     "flash_attention": (
         _P, _P, _P, _P, _P,  # q k v prefix_len out
         _I, _I, _I, _I, _I, _I,  # B Hq Hkv Tq Tk D
         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,  # q/k/v/o strides (b, t, h)
-        _I, _I, _F, _I, _P,  # causal use_prefix scale dtype stream
+        _I, _I, _F, _I, _I, _P,  # causal use_prefix scale dtype narrow stream
     ),
     # rans.cu
     "rans_decode": (
@@ -76,7 +79,15 @@ _SIGNATURES = {
         _P, _P, _P, _I, _I,  # symbols table_idx cums A k
         _L, _I, _P, _P, _P, _P,  # n_lanes n_sym words n_words x_out stream
     ),
-    "rans_kernel_info": (_I, _I, _P),  # decode A out[4]
+    "rans_decode_wide": (
+        _P, _P, _P, _P, _P, _P, _P,  # payload n_words offsets state table_idx slot2sym cums
+        _I, _I, _L, _I, _P, _P, _P, _P,  # A k n_lanes n_sym out x_out ptr_out stream
+    ),
+    "rans_encode_wide": (
+        _P, _P, _P, _I, _I,  # symbols table_idx cums A k
+        _L, _I, _P, _P, _P, _P,  # n_lanes n_sym words n_words x_out stream
+    ),
+    "rans_kernel_info": (_I, _I, _I, _P),  # decode wide A out[4]
 }
 
 
@@ -160,11 +171,26 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
 
 
-def aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself where its base address and every stride but the last are
-    multiples of 16 bytes, as the kernels' 16-byte row copies need; else a
-    contiguous copy (any of ``HEAD_DIMS`` makes that aligned)."""
+def check_head_dim(name: str, D: int) -> None:
+    """Raise a ``ValueError`` unless K3 or K4 (``name``) takes head dim
+    ``D``: 1 to ``MAX_HEAD_DIM``, each run on the smallest of ``HEAD_DIMS``
+    at least ``D`` wide (the kernels' own choice of plan)."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} is outside 1..{MAX_HEAD_DIM}, the widest plan the kernel has "
+                         "(its shared memory holds no wider panel)")
+
+
+def is_aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t``'s rows are whole 16-byte chunks on 16-byte boundaries:
+    its base address, every stride but the last and its last dim's bytes
+    are multiples of 16, as the kernels' 16-byte row copies need."""
     es = t.element_size()
-    if t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in t.stride()[:-1]):
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] * es % 16 == 0
+            and all(s * es % 16 == 0 for s in t.stride()[:-1]))
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where :func:`is_aligned16` holds for it; else a
+    contiguous copy (aligned when the last dim's bytes are a multiple of
+    16)."""
+    return t if is_aligned16(t) else t.clone(memory_format=torch.contiguous_format)

@@ -48,7 +48,25 @@
 // q and the output are f32 or bf16 (a runtime flag: q is read once per
 // block, the output written once); K/V f32 or bf16 (a template parameter).
 //
-// Head dims 32, 64, 80, 128 and 256.  The shared memory is sized once, for
+// Any head dim from 1 to 256 runs on one of five compiled plans (32, 64,
+// 80, 128, 256): the smallest at least as wide.  The kernel takes the real
+// D at run time: it loads only D columns, the rest of its panels (q in
+// shared memory, the K/V rows of the ring) holds zeros, so a score over the
+// padded columns adds nothing, and no column past D is written.  Where a
+// K/V row is a whole number of 16-byte chunks on 16-byte boundaries the
+// ring is filled by cp.async; any other row (D = 100 in bf16, a cache view
+// off its alignment) takes the narrow path of the same kernel (kNarrow):
+// element loads into the same zero-padded rows, so the wrapper never
+// copies the cache.
+//
+// Any group size: a KV head's query heads are split into n_groups groups of
+// at most kMaxRep (ceil(rep / n_groups) each, the last one shorter), one
+// block a (split, group); each group's blocks read the head's K/V tiles
+// again (Falcon-7B's 71 query heads on one KV head: 5 groups of 15, the
+// last holding 11 heads and 4 idle ones).  The merge launch covers every
+// (row, query head).
+//
+// The shared memory is sized once, for
 // kMaxRep query heads; at D = 256 with bf16 K/V the 3-stage ring still fits
 // (227,328 of the 232,448 bytes a block may have), with f32 K/V it would
 // need 399 KB, so that case runs a 1-stage ring (Geom::kStages): each tile
@@ -61,6 +79,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -143,24 +162,29 @@ __device__ __forceinline__ int lane_col(int lane, int c) {
   return kPairs ? 2 * (lane + 32 * (c / 2)) + c % 2 : lane * CPL + c;
 }
 
-template <typename TKV, int D>
+// D is the plan's width, Dr <= D the real head dim; kNarrow fills the ring
+// by element loads instead of 16-byte copies
+template <typename TKV, int D, bool kNarrow>
 __global__ void __launch_bounds__(kTile * kMaxRep)
 decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restrict__ k,
                     const TKV* __restrict__ v, const int* __restrict__ kv_len,
-                    float* __restrict__ part, int Hq, int S, int n_splits, long long n_part,
-                    long long q_sb, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                    long long v_sb, long long v_ss, long long v_sh, int split_size,
-                    float scale_log2) {
+                    float* __restrict__ part, int Hq, int rep, int n_groups, int Dr, int S,
+                    int n_splits, long long n_part, long long q_sb, long long q_sh, long long k_sb,
+                    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+                    int split_size, float scale_log2) {
   using G = Geom<TKV, D>;
   constexpr int kStages = G::kStages;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int rep = blockDim.x / kTile;
-  float* q_s = (float*)smem;                        // [rep][D], scaled into log2 units
-  float* s_s = q_s + rep * D;                       // [rep][kTile] scores
-  float* p_s = s_s + rep * kTile;                   // [rep][kTile] weights
-  uint8_t* ring = (uint8_t*)(p_s + rep * kTile);    // kStages x (K tile, V tile)
+  const int gh = blockDim.x / kTile;                // query heads a block (the group's size)
+  float* q_s = (float*)smem;                        // [gh][D], scaled into log2 units
+  float* s_s = q_s + gh * D;                        // [gh][kTile] scores
+  float* p_s = s_s + gh * kTile;                    // [gh][kTile] weights
+  uint8_t* ring = (uint8_t*)(p_s + gh * kTile);     // kStages x (K tile, V tile)
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, kvh = blockIdx.y / n_groups, b = blockIdx.z;
+  const int g0 = (blockIdx.y % n_groups) * gh;      // the group's first head within the KV head's
+  const int nh = min(gh, rep - g0);                 // its real heads; the others compute on zeros
+  const int h0 = kvh * rep + g0;                    // the query head of the block's head 0
   const int len = min(max(kv_len[b], 0), S);
   const int s0 = split * split_size;
   if (s0 >= len) return;  // the merge reads no partial of a split past kv_len
@@ -171,27 +195,46 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
   const TKV* kg = k + b * k_sb + (long long)kvh * k_sh;
   const TKV* vg = v + b * v_sb + (long long)kvh * v_sh;
   auto load_tile = [&](int j) {
-    const uint32_t st = smem_addr(ring + (j % kStages) * 2 * G::TILE_B);
+    uint8_t* st = ring + (j % kStages) * 2 * G::TILE_B;
     const int t0 = s0 + j * kTile;
-    for (int e = tid; e < kTile * G::NC; e += blockDim.x) {
-      const int row = e / G::NC, c = e % G::NC;
-      const bool ok = t0 + row < s1;  // rows past the split are zeros: 0 * V stays 0
-      const long long t = ok ? t0 + row : s0;
-      const uint32_t dst = st + row * G::RB + c * 16;
-      cp_async16(dst, kg + t * k_ss + c * G::E, ok);
-      cp_async16(dst + G::TILE_B, vg + t * v_ss + c * G::E, ok);
+    if constexpr (kNarrow) {
+      // one element a copy, past Dr zeros; rows past the split are zeros
+      using W = std::conditional_t<sizeof(TKV) == 2, uint16_t, uint32_t>;
+      const W* kw = reinterpret_cast<const W*>(kg);
+      const W* vw = reinterpret_cast<const W*>(vg);
+      for (int e = tid; e < kTile * D; e += blockDim.x) {
+        const int row = e / D, c = e % D;
+        const bool ok = t0 + row < s1 && c < Dr;
+        const long long t = t0 + row;
+        W* dst = reinterpret_cast<W*>(st + row * G::RB) + c;
+        dst[0] = ok ? kw[t * k_ss + c] : W(0);
+        dst[G::TILE_B / (int)sizeof(W)] = ok ? vw[t * v_ss + c] : W(0);
+      }
+    } else {
+      const uint32_t sa = smem_addr(st);
+      const int nc = Dr / G::E;  // chunks that hold data; the wrapper sends whole chunks
+      for (int e = tid; e < kTile * G::NC; e += blockDim.x) {
+        const int row = e / G::NC, c = e % G::NC;
+        const bool ok = t0 + row < s1 && c < nc;  // rows past the split, columns past Dr: zeros
+        const long long t = ok ? t0 + row : s0;
+        const int cc = ok ? c : 0;
+        const uint32_t dst = sa + row * G::RB + c * 16;
+        cp_async16(dst, kg + t * k_ss + cc * G::E, ok);
+        cp_async16(dst + G::TILE_B, vg + t * v_ss + cc * G::E, ok);
+      }
     }
   };
   // q first (one element per thread; its load is issued before the ring's
   // copies, so it does not queue behind them), then the whole ring at once:
   // a split of at most kStages tiles has all its loads in flight before the
-  // first score
-  float qx[D / kTile + 1];  // rep * D elements over 64 * rep threads
+  // first score.  Columns past Dr and heads past the group's are zeros.
+  float qx[D / kTile + 1];  // gh * D elements over 64 * gh threads
 #pragma unroll
   for (int u = 0; u < D / kTile + 1; ++u) {
     const int e = tid + u * blockDim.x;
-    if (e < rep * D) {
-      const long long off = b * q_sb + (long long)(kvh * rep + e / D) * q_sh + e % D;
+    qx[u] = 0.f;
+    if (e < gh * D && e / D < nh && e % D < Dr) {
+      const long long off = b * q_sb + (long long)(h0 + e / D) * q_sh + e % D;
       qx[u] = q_bf16 ? __bfloat162float(((const __nv_bfloat16*)q)[off]) : ((const float*)q)[off];
     }
   }
@@ -203,7 +246,7 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
 #pragma unroll
   for (int u = 0; u < D / kTile + 1; ++u) {
     const int e = tid + u * blockDim.x;
-    if (e < rep * D) q_s[e] = qx[u] * scale_log2;
+    if (e < gh * D) q_s[e] = qx[u] * scale_log2;
   }
 
   const float* qr = q_s + r * D;
@@ -318,8 +361,8 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
   }
   cp_async_wait<0>();
 
-  // this split's partial for head (kvh * rep + r): (m, l) and the
-  // unnormalized accumulator, the second half's sums added to the first's
+  // this split's partial for head (h0 + r): (m, l) and the unnormalized
+  // accumulator (Dr floats), the second half's sums added to the first's
   // through shared memory (q_s is free now)
   float* o_s = q_s + r * D;
   __syncthreads();
@@ -331,17 +374,17 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
     }
   }
   __syncthreads();
-  if (half == 0) {
-    const long long ph = ((long long)b * Hq + kvh * rep + r) * n_splits + split;
+  if (half == 0 && r < nh) {
+    const long long ph = ((long long)b * Hq + h0 + r) * n_splits + split;
     if (lane == 0) {
       part[2 * ph] = m;
       part[2 * ph + 1] = l;
     }
-    float* acc = part + 2 * n_part + ph * D;
+    float* acc = part + 2 * n_part + ph * Dr;
 #pragma unroll
     for (int c = 0; c < G::CPL; ++c) {
       const int col = lane_col<D, G::CPL, G::kPairs>(lane, c);
-      if (col < D) acc[col] = o[c] + o_s[col];
+      if (col < Dr) acc[col] = o[c] + o_s[col];
     }
   }
 }
@@ -400,42 +443,56 @@ __global__ void decode_combine_kernel(const float* __restrict__ part, const int*
   }
 }
 
-template <typename TKV, int D>
+template <typename TKV, int D, bool kNarrow>
 int launch_split(const void* q, int q_bf16, const void* k, const void* v, const int* kv_len,
-                 float* part, int B, int Hq, int Hkv, int S, int n_splits, long long q_sb,
+                 float* part, int B, int Hq, int Hkv, int Dr, int S, int n_splits, long long q_sb,
                  long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                  long long v_ss, long long v_sh, int split_size, float scale_log2,
                  cudaStream_t stream) {
   static_assert(Geom<TKV, D>::smem(kMaxRep) <= 232448, "the ring fits a block's shared memory");
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_split_kernel<TKV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_split_kernel<TKV, D, kNarrow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Geom<TKV, D>::smem(kMaxRep));
   if (attr != cudaSuccess) return (int)attr;
   const int rep = Hq / Hkv;
-  dim3 grid(n_splits, Hkv, B);
-  decode_split_kernel<TKV, D><<<grid, kTile * rep, Geom<TKV, D>::smem(rep), stream>>>(
-      q, q_bf16, (const TKV*)k, (const TKV*)v, kv_len, part, Hq, S, n_splits,
+  const int n_groups = (rep + kMaxRep - 1) / kMaxRep;
+  const int gh = (rep + n_groups - 1) / n_groups;  // query heads a block
+  dim3 grid(n_splits, Hkv * n_groups, B);
+  decode_split_kernel<TKV, D, kNarrow><<<grid, kTile * gh, Geom<TKV, D>::smem(gh), stream>>>(
+      q, q_bf16, (const TKV*)k, (const TKV*)v, kv_len, part, Hq, rep, n_groups, Dr, S, n_splits,
       (long long)B * Hq * n_splits, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, split_size,
       scale_log2);
   return (int)cudaGetLastError();
 }
 
+template <typename TKV, bool kNarrow>
+int launch_plan(int D, const void* q, int q_bf16, const void* k, const void* v,
+                const int* kv_len, float* part, int B, int Hq, int Hkv, int S, int n_splits,
+                long long q_sb, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+                long long v_sb, long long v_ss, long long v_sh, int split_size, float scale_log2,
+                cudaStream_t stream) {
+#define ARGS q, q_bf16, k, v, kv_len, part, B, Hq, Hkv, D, S, n_splits, q_sb, q_sh, k_sb, k_ss, \
+             k_sh, v_sb, v_ss, v_sh, split_size, scale_log2, stream
+  // the smallest plan at least D wide
+  if (D <= 32) return launch_split<TKV, 32, kNarrow>(ARGS);
+  if (D <= 64) return launch_split<TKV, 64, kNarrow>(ARGS);
+  if (D <= 80) return launch_split<TKV, 80, kNarrow>(ARGS);
+  if (D <= 128) return launch_split<TKV, 128, kNarrow>(ARGS);
+  return launch_split<TKV, 256, kNarrow>(ARGS);
+#undef ARGS
+}
+
 template <typename TKV>
-int launch_typed(int D, const void* q, int q_bf16, const void* k, const void* v,
+int launch_typed(int narrow, int D, const void* q, int q_bf16, const void* k, const void* v,
                  const int* kv_len, float* part, int B, int Hq, int Hkv, int S, int n_splits,
                  long long q_sb, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh, int split_size, float scale_log2,
                  cudaStream_t stream) {
-#define ARGS q, q_bf16, k, v, kv_len, part, B, Hq, Hkv, S, n_splits, q_sb, q_sh, k_sb, k_ss, \
+  // the 16-byte copies take whole chunks only
+  if (!narrow && D * (int)sizeof(TKV) % 16) return (int)cudaErrorInvalidValue;
+#define ARGS D, q, q_bf16, k, v, kv_len, part, B, Hq, Hkv, S, n_splits, q_sb, q_sh, k_sb, k_ss, \
              k_sh, v_sb, v_ss, v_sh, split_size, scale_log2, stream
-  switch (D) {
-    case 32: return launch_split<TKV, 32>(ARGS);
-    case 64: return launch_split<TKV, 64>(ARGS);
-    case 80: return launch_split<TKV, 80>(ARGS);
-    case 128: return launch_split<TKV, 128>(ARGS);
-    case 256: return launch_split<TKV, 256>(ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return narrow ? launch_plan<TKV, true>(ARGS) : launch_plan<TKV, false>(ARGS);
 #undef ARGS
 }
 
@@ -443,23 +500,24 @@ int launch_typed(int D, const void* q, int q_bf16, const void* k, const void* v,
 
 // dtype codes: 0 = float32, 1 = bfloat16; the output has q's dtype.  part
 // holds B * Hq * n_splits (m, l) pairs, then as many D-float accumulators.
-// K/V rows are read with 16-byte copies: the wrapper guarantees 16-byte
-// aligned base pointers and row strides.
+// With narrow 0, K/V rows are read with 16-byte copies: the wrapper
+// guarantees 16-byte aligned base pointers and row strides, and rows of
+// whole 16-byte chunks; with narrow 1 any layout with a contiguous head dim.
 extern "C" int decode_attention(const void* q, const void* k, const void* v, const void* kv_len,
                                 void* out, void* part, int B, int Hq, int Hkv, int S, int D,
                                 int n_splits, long long q_sb, long long q_sh, long long k_sb,
                                 long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                                 long long v_sh, int split_size, float scale, int q_dtype,
-                                int kv_dtype, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > kMaxRep || n_splits <= 0 ||
+                                int kv_dtype, int narrow, void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv || D <= 0 || D > 256 || n_splits <= 0 ||
       split_size % kTile || (long long)n_splits * split_size < S)
     return (int)cudaErrorInvalidValue;
   if ((q_dtype != 0 && q_dtype != 1) || (kv_dtype != 0 && kv_dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float scale_log2 = scale * 1.4426950408889634f;
-#define ARGS D, q, q_dtype, k, v, (const int*)kv_len, (float*)part, B, Hq, Hkv, S, n_splits, \
-             q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, split_size, scale_log2, s
+#define ARGS narrow, D, q, q_dtype, k, v, (const int*)kv_len, (float*)part, B, Hq, Hkv, S, \
+             n_splits, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, split_size, scale_log2, s
   const int err = kv_dtype == 1 ? launch_typed<__nv_bfloat16>(ARGS) : launch_typed<float>(ARGS);
 #undef ARGS
   if (err) return err;

@@ -71,6 +71,16 @@
 // wgmma m64n256k16 a k-step, its accumulator 128 f32 registers a thread
 // beside S's 16 and P's 8.  D <= 128 keeps its plan.
 //
+// Any head dim from 1 to 256 runs on one of the five plans (32, 64, 80,
+// 128, 256), the smallest at least as wide, as D = 80 runs on D = 128's
+// panels: the kernel takes the real D (Dr) at run time, loads Dr columns
+// and zero-fills the rest of each panel, so S over the padded k-steps adds
+// nothing and P V's padded columns are never stored.  The scale is the
+// wrapper's, 1/sqrt(Dr).  A head dim that is a multiple of 8 keeps the
+// 16-byte cp.async copies; any other (D = 100) fills the same swizzled
+// panels by element loads and stores its output element by element
+// (kNarrow), a path of the same kernel with the same products.
+//
 // f32 keeps the first, scalar design: one thread per query row, K/V tiles
 // of 32 keys (16 at D = 256, so the static shared memory stays under 48 KB;
 // 28,928 B at D = 80)
@@ -87,11 +97,11 @@ namespace {
 // ------------------------------------------------------------------ f32
 constexpr int kBQ = 64;  // query rows per block, one thread each
 
-template <int D>
+template <int D>  // the plan's width; Dr <= D columns hold data
 __global__ void __launch_bounds__(kBQ)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
              const int* __restrict__ prefix_len, float* __restrict__ out, int Hq, int Hkv, int Tq,
-             int Tk, long long q_sb, long long q_st, long long q_sh, long long k_sb,
+             int Tk, int Dr, long long q_sb, long long q_st, long long q_sh, long long k_sb,
              long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,
              long long o_sb, long long o_st, long long o_sh, int causal, int use_prefix,
              float scale) {
@@ -113,7 +123,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
   const float* qp = q + b * q_sb + (long long)qi * q_st + (long long)h * q_sh;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qv[d] = active ? qp[d] * scale : 0.f;
+    qv[d] = active && d < Dr ? qp[d] * scale : 0.f;
     acc[d] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -131,8 +141,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
     for (int e = threadIdx.x; e < kBK * D; e += kBQ) {
       const int r = e / D, d = e % D;
       const int t = k0 + r;
-      Ks[r][d] = t < Tk ? kb[(long long)t * k_st + d] : 0.f;
-      Vs[r][d] = t < Tk ? vb[(long long)t * v_st + d] : 0.f;
+      Ks[r][d] = t < Tk && d < Dr ? kb[(long long)t * k_st + d] : 0.f;
+      Vs[r][d] = t < Tk && d < Dr ? vb[(long long)t * v_st + d] : 0.f;
     }
     __syncthreads();
     if (!active) continue;
@@ -172,7 +182,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
     float* op = out + b * o_sb + (long long)qi * o_st + (long long)h * o_sh;
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] * inv;
+    for (int d = 0; d < D; ++d)
+      if (d < Dr) op[d] = acc[d] * inv;
   }
 }
 
@@ -234,19 +245,32 @@ __device__ __forceinline__ uint32_t panel_offset(int r, int c) {  // c: 16-byte 
   return (uint32_t)((c >> 3) * R * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
 }
 
-// Rows [0, n_valid) of a (rows, D) bf16 matrix with row stride ``stride``
-// (elements) into a panel, by all the block's threads; rows past n_valid and
-// columns past D are zeros (``any`` is a valid address handed to the copies
-// that read nothing).
-template <int R, int D, int DP>
-__device__ __forceinline__ void load_panel(uint32_t dst, const bf16* src, long long stride,
-                                           int n_valid, const bf16* any, int tid) {
-  constexpr int kChunks = DP / 8;
+// Rows [0, n_valid) of a (rows, Dr) bf16 matrix with row stride ``stride``
+// (elements) into a panel of DP columns, by all the block's threads; rows
+// past n_valid and columns past Dr are zeros.  With 16-byte copies (Dr a
+// multiple of 8, ``any`` a valid address handed to the copies that read
+// nothing), or (kNarrow) one element a load into the panel at ``gdst``,
+// the generic address of ``dst``.
+template <int R, int DP, bool kNarrow>
+__device__ __forceinline__ void load_panel(uint32_t dst, uint8_t* gdst, const bf16* src,
+                                           long long stride, int n_valid, int Dr, const bf16* any,
+                                           int tid) {
+  if constexpr (kNarrow) {
+    const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+    for (int e = tid; e < R * DP; e += kThreads) {
+      const int r = e / DP, col = e % DP;
+      const uint16_t x = r < n_valid && col < Dr ? s16[r * stride + col] : 0;
+      *reinterpret_cast<uint16_t*>(gdst + panel_offset<R>(r, col / 8) + (col % 8) * 2) = x;
+    }
+  } else {
+    constexpr int kChunks = DP / 8;
+    const int nc = Dr / 8;
 #pragma unroll
-  for (int e = tid; e < R * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = e % kChunks;
-    const bool ok = r < n_valid && c < D / 8;
-    cp_async16(dst + panel_offset<R>(r, c), ok ? src + r * stride + c * 8 : any, ok);
+    for (int e = tid; e < R * kChunks; e += kThreads) {
+      const int r = e / kChunks, c = e % kChunks;
+      const bool ok = r < n_valid && c < nc;
+      cp_async16(dst + panel_offset<R>(r, c), ok ? src + r * stride + c * 8 : any, ok);
+    }
   }
 }
 
@@ -368,11 +392,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-template <int D>
+template <int D, bool kNarrow>  // the plan's width; Dr <= D columns hold data
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                 const int* __restrict__ prefix_len, bf16* __restrict__ out, int Hq, int Hkv, int Tq,
-                int Tk, long long q_sb, long long q_st, long long q_sh, long long k_sb,
+                int Tk, int Dr, long long q_sb, long long q_st, long long q_sh, long long k_sb,
                 long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,
                 long long o_sb, long long o_st, long long o_sh, int causal, int use_prefix,
                 float scale_log2) {
@@ -403,13 +427,15 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
   const bf16* qg = q + b * q_sb + (long long)h * q_sh + (long long)q0 * q_st;
   const bf16* kg = k + b * k_sb + (long long)kvh * k_sh;
   const bf16* vg = v + b * v_sb + (long long)kvh * v_sh;
+  auto generic = [&](uint32_t a) { return smem_raw + (a - raw); };
   auto load_pair = [&](int i) {
     const uint32_t st = sRing + (uint32_t)(i % kStages) * 2 * kKVBytes;
     const int k0 = i * kPair;
-    load_panel<kPair, D, DP>(st, kg + (long long)k0 * k_st, k_st, Tk - k0, kg, tid);
-    load_panel<kPair, D, DP>(st + kKVBytes, vg + (long long)k0 * v_st, v_st, Tk - k0, vg, tid);
+    load_panel<kPair, DP, kNarrow>(st, generic(st), kg + (long long)k0 * k_st, k_st, Tk - k0, Dr, kg, tid);
+    load_panel<kPair, DP, kNarrow>(st + kKVBytes, generic(st + kKVBytes), vg + (long long)k0 * v_st, v_st,
+                                   Tk - k0, Dr, vg, tid);
   };
-  load_panel<kBM, D, DP>(sQ, qg, q_st, Tq - q0, qg, tid);
+  load_panel<kBM, DP, kNarrow>(sQ, generic(sQ), qg, q_st, Tq - q0, Dr, qg, tid);
   if (n_pairs > 0) load_pair(0);
   cp_async_commit();
   if (n_pairs > 1) load_pair(1);
@@ -547,29 +573,40 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
 #pragma unroll
   for (int nb = 0; nb < DP / 8; ++nb) {
     const int col = nb * 8 + cq;
-    if (col >= D) break;
+    if (col >= Dr) break;
     const float x0 = (o[4 * nb] * ca0 + xs[(4 + 4 * nb) * 128 + t] * cb0) * inv0;
     const float x1 = (o[4 * nb + 1] * ca0 + xs[(5 + 4 * nb) * 128 + t] * cb0) * inv0;
     const float x2 = (o[4 * nb + 2] * ca1 + xs[(6 + 4 * nb) * 128 + t] * cb1) * inv1;
     const float x3 = (o[4 * nb + 3] * ca1 + xs[(7 + 4 * nb) * 128 + t] * cb1) * inv1;
-    if (row0 < Tq) *reinterpret_cast<__nv_bfloat162*>(op0 + col) = __floats2bfloat162_rn(x0, x1);
-    if (row0 + 8 < Tq) *reinterpret_cast<__nv_bfloat162*>(op1 + col) = __floats2bfloat162_rn(x2, x3);
+    if constexpr (kNarrow) {  // element stores: an odd Dr leaves pairs unaligned, the last one half out
+      if (row0 < Tq) {
+        op0[col] = __float2bfloat16_rn(x0);
+        if (col + 1 < Dr) op0[col + 1] = __float2bfloat16_rn(x1);
+      }
+      if (row0 + 8 < Tq) {
+        op1[col] = __float2bfloat16_rn(x2);
+        if (col + 1 < Dr) op1[col + 1] = __float2bfloat16_rn(x3);
+      }
+    } else {
+      if (row0 < Tq) *reinterpret_cast<__nv_bfloat162*>(op0 + col) = __floats2bfloat162_rn(x0, x1);
+      if (row0 + 8 < Tq) *reinterpret_cast<__nv_bfloat162*>(op1 + col) = __floats2bfloat162_rn(x2, x3);
+    }
   }
 }
 
-template <int D>
+template <int D, bool kNarrow>
 int launch_tc(const void* q, const void* k, const void* v, const int* plen, void* out, int B,
-              int Hq, int Hkv, int Tq, int Tk, long long q_sb, long long q_st, long long q_sh,
+              int Hq, int Hkv, int Tq, int Tk, int Dr, long long q_sb, long long q_st, long long q_sh,
               long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
               long long v_sh, long long o_sb, long long o_st, long long o_sh, int causal,
               int use_prefix, float scale, cudaStream_t stream) {
   constexpr int smem = TcPlan<D>::kSmem;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_tc_kernel<D, kNarrow>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid(Hq, (Tq + kBM - 1) / kBM, B);
-  flash_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, plen, (bf16*)out, Hq, Hkv, Tq, Tk, q_sb,
+  flash_tc_kernel<D, kNarrow><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, plen, (bf16*)out, Hq, Hkv, Tq, Tk, Dr, q_sb,
       q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal, use_prefix,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
@@ -581,19 +618,22 @@ int launch_f32(const void* q, const void* k, const void* v, const int* plen, voi
                long long v_st, long long v_sh, long long o_sb, long long o_st, long long o_sh,
                int causal, int use_prefix, float scale, cudaStream_t stream) {
   dim3 grid((Tq + kBQ - 1) / kBQ, Hq, B);
-#define FLASH(DD)                                                                           \
-  flash_kernel<DD><<<grid, kBQ, 0, stream>>>(                                               \
-      (const float*)q, (const float*)k, (const float*)v, plen, (float*)out, Hq, Hkv, Tq, Tk, \
-      q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal,        \
+#define FLASH(DD)                                                                              \
+  flash_kernel<DD><<<grid, kBQ, 0, stream>>>(                                                  \
+      (const float*)q, (const float*)k, (const float*)v, plen, (float*)out, Hq, Hkv, Tq, Tk, D, \
+      q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal,           \
       use_prefix, scale)
-  switch (D) {
-    case 32: FLASH(32); break;
-    case 64: FLASH(64); break;
-    case 80: FLASH(80); break;
-    case 128: FLASH(128); break;
-    case 256: FLASH(256); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // the smallest plan at least D wide
+  if (D <= 32)
+    FLASH(32);
+  else if (D <= 64)
+    FLASH(64);
+  else if (D <= 80)
+    FLASH(80);
+  else if (D <= 128)
+    FLASH(128);
+  else
+    FLASH(256);
 #undef FLASH
   return (int)cudaGetLastError();
 }
@@ -601,31 +641,33 @@ int launch_f32(const void* q, const void* k, const void* v, const int* plen, voi
 }  // namespace
 
 // dtype codes: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores); q,
-// k, v and out share it.  The bf16 kernel reads rows with 16-byte copies:
-// the wrapper guarantees 16-byte aligned base pointers and row strides.
+// k, v and out share it.  With narrow 0 the bf16 kernel reads rows with
+// 16-byte copies: the wrapper guarantees a head dim that is a multiple of 8
+// and 16-byte aligned base pointers and row strides; with narrow 1 it reads
+// any layout with a contiguous head dim.  D is the real head dim, 1 to 256.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* prefix_len, void* out, int B, int Hq, int Hkv, int Tq,
                                int Tk, int D, long long q_sb, long long q_st, long long q_sh,
                                long long k_sb, long long k_st, long long k_sh, long long v_sb,
                                long long v_st, long long v_sh, long long o_sb, long long o_st,
                                long long o_sh, int causal, int use_prefix, float scale,
-                               int dtype, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || Tq <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+                               int dtype, int narrow, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || Tq <= 0 || B <= 0 || D <= 0 || D > 256) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* plen = (const int*)prefix_len;
   if (dtype == 0)
     return launch_f32(q, k, v, plen, out, B, Hq, Hkv, Tq, Tk, D, q_sb, q_st, q_sh, k_sb, k_st,
                       k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal, use_prefix, scale, s);
-  if (dtype != 1 || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
-#define ARGS q, k, v, plen, out, B, Hq, Hkv, Tq, Tk, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, \
+  if (dtype != 1 || !(scale > 0.f) || (!narrow && D % 8)) return (int)cudaErrorInvalidValue;
+#define ARGS q, k, v, plen, out, B, Hq, Hkv, Tq, Tk, D, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, \
              v_st, v_sh, o_sb, o_st, o_sh, causal, use_prefix, scale, s
-  switch (D) {
-    case 32: return launch_tc<32>(ARGS);
-    case 64: return launch_tc<64>(ARGS);
-    case 80: return launch_tc<80>(ARGS);
-    case 128: return launch_tc<128>(ARGS);
-    case 256: return launch_tc<256>(ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // the smallest plan at least D wide
+#define PLAN(N) (narrow ? launch_tc<N, true>(ARGS) : launch_tc<N, false>(ARGS))
+  if (D <= 32) return PLAN(32);
+  if (D <= 64) return PLAN(64);
+  if (D <= 80) return PLAN(80);
+  if (D <= 128) return PLAN(128);
+  return PLAN(256);
+#undef PLAN
 #undef ARGS
 }

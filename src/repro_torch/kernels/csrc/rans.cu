@@ -2,6 +2,9 @@
 //
 // K7 rans_decode replaces src/repro/core/rans.py:110 _decode_impl (a jitted lax.scan)
 // K8 rans_encode replaces src/repro/core/rans.py:65  _encode_impl (a jitted lax.scan)
+// Each has two kernels, picked by the alphabet alone (kernels/rans.py): the
+// staged one below for A <= 1,743 (K7) or 1,807 (K8), and a wide one for
+// any alphabet up to 2^k (rans_decode_wide_kernel, rans_encode_wide_kernel).
 //
 // The reference runs each direction as one vectorized scan over all lanes; a
 // lane is one (layer, K/V, channel) stream with its own static distribution.
@@ -84,6 +87,19 @@
 //     launch;
 //   * K7 writes its symbols step-major, (n_sym, n_lanes), so a warp's stores
 //     are coalesced; its wrapper returns the transposed view.
+//
+// The wide kernels take the alphabets whose staged rows do not fit a block
+// (the codec's delta decode stack at delta_qmax 1023 has 2,047 symbols;
+// tables allow up to 2^14 at precision 14).  One thread a lane, as above,
+// but the lane's table stays in device memory: K7 reads the slot's symbol
+// from the reference's own slot2sym row and then c[s] and c[s + 1] from
+// cums, three dependent gathers a step; K8 reads c[s] and c[s + 1].  They
+// keep every contract of the staged kernels (the compact payload and
+// per-lane offsets, a lane past its words reading its first word or 0,
+// K8's words and zeroed tail, 64-bit table offsets) and K8 shares its step
+// and its stores with the staged kernel.  Their time is that of the
+// gathers, which mostly miss the caches: the first K7 of this port read
+// its tables this way and took 12.5 ms over a smollm-360m wave (PERF.md).
 //
 // Index width: table offsets are 64-bit.  A stacked delta decode of
 // qwen2-moe-a2.7b holds 491,520 tables, whose last row starts at 491,519 *
@@ -259,11 +275,16 @@ struct Encoder {
   bool emitted;   // whether the last step emitted
 };
 
-__device__ __forceinline__ void encode_step(Encoder& e, int s, const uint16_t* c, int A, int k, int* row,
+// a cum row's entry: staged (uint16 in shared memory) or in device memory
+__device__ __forceinline__ uint32_t cum_at(const uint16_t* c, int s) { return c[s]; }
+__device__ __forceinline__ uint32_t cum_at(const long long* c, int s) { return (uint32_t)__ldg(c + s); }
+
+template <typename T>
+__device__ __forceinline__ void encode_step(Encoder& e, int s, const T* c, int A, int k, int* row,
                                             unsigned long long row_elem, int head) {
   s = min(max(s, 0), A - 1);
-  const uint32_t cs = c[s];
-  const uint32_t f = (uint32_t)c[s + 1] - cs;
+  const uint32_t cs = cum_at(c, s);
+  const uint32_t f = cum_at(c, s + 1) - cs;
   const uint32_t word = e.x & 0xFFFFu;
   const bool emit = (e.x >> (32 - k)) >= f;  // x >= 2^(32 - k) * f
   const bool grouped = e.ptr >= head;
@@ -284,19 +305,17 @@ __device__ __forceinline__ void encode_step(Encoder& e, int s, const uint16_t* c
   e.x = (q << k) + (x - q * f) + cs;
 }
 
-__global__ void __launch_bounds__(kLanes) rans_encode_kernel(
-    const int* __restrict__ symbols, const int* __restrict__ table_idx, const long long* __restrict__ cums,
-    int A, int k, long long n_lanes, int n_sym, int* __restrict__ words, int* __restrict__ n_words,
-    long long* __restrict__ x_out) {
-  extern __shared__ __align__(16) uint16_t smem[];
-  const int R = row_stride(A);
-  int* zero_from = (int*)(smem + kLanes * R);  // where each row's zeros start
-  const long long base = (long long)blockIdx.x * kLanes;
-  stage_rows(smem, R, cums, table_idx, A, base, n_lanes);
-  __syncthreads();
+// K8's block after its rows are in reach: each lane encodes its symbols
+// over its cum row c (a valid pointer for lanes below n_lanes), then the
+// block zeroes the rest of its rows; zero_from holds kLanes ints of shared
+// memory
+template <typename T>
+__device__ __forceinline__ void encode_block(const T* c, const int* __restrict__ symbols, int A, int k,
+                                             long long base, long long n_lanes, int n_sym,
+                                             int* __restrict__ words, int* __restrict__ n_words,
+                                             long long* __restrict__ x_out, int* zero_from) {
   const long long lane = base + threadIdx.x;
   if (lane < n_lanes) {
-    const uint16_t* c = smem + threadIdx.x * R;
     int* row = words + lane * n_sym;
     const unsigned long long row_elem = (uintptr_t)row >> 2;
     const int* srow = symbols + lane * n_sym;
@@ -363,6 +382,67 @@ __global__ void __launch_bounds__(kLanes) rans_encode_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kLanes) rans_encode_kernel(
+    const int* __restrict__ symbols, const int* __restrict__ table_idx, const long long* __restrict__ cums,
+    int A, int k, long long n_lanes, int n_sym, int* __restrict__ words, int* __restrict__ n_words,
+    long long* __restrict__ x_out) {
+  extern __shared__ __align__(16) uint16_t smem[];
+  const int R = row_stride(A);
+  int* zero_from = (int*)(smem + kLanes * R);  // where each row's zeros start
+  const long long base = (long long)blockIdx.x * kLanes;
+  stage_rows(smem, R, cums, table_idx, A, base, n_lanes);
+  __syncthreads();
+  encode_block(smem + threadIdx.x * R, symbols, A, k, base, n_lanes, n_sym, words, n_words, x_out, zero_from);
+}
+
+// K8 at any alphabet: the lane's cum row read in device memory
+__global__ void __launch_bounds__(kLanes) rans_encode_wide_kernel(
+    const int* __restrict__ symbols, const int* __restrict__ table_idx, const long long* __restrict__ cums,
+    int A, int k, long long n_lanes, int n_sym, int* __restrict__ words, int* __restrict__ n_words,
+    long long* __restrict__ x_out) {
+  __shared__ int zero_from[kLanes];
+  const long long base = (long long)blockIdx.x * kLanes;
+  const long long lane = base + threadIdx.x;
+  const long long* c = cums + (lane < n_lanes ? (long long)table_idx[lane] * (A + 1) : 0);
+  encode_block(c, symbols, A, k, base, n_lanes, n_sym, words, n_words, x_out, zero_from);
+}
+
+// K7 at any alphabet: each step reads the slot's symbol from the lane's
+// slot2sym row, then c[s] and c[s + 1] from its cum row, in device memory
+__global__ void __launch_bounds__(kLanes) rans_decode_wide_kernel(
+    const uint16_t* __restrict__ payload, const int* __restrict__ n_words, const long long* __restrict__ offsets,
+    const uint32_t* __restrict__ state, const int* __restrict__ table_idx, const uint16_t* __restrict__ slot2sym,
+    const long long* __restrict__ cums, int A, int k, long long n_lanes, int n_sym, int* __restrict__ out,
+    long long* __restrict__ x_out, long long* __restrict__ ptr_out) {
+  const long long lane = (long long)blockIdx.x * kLanes + threadIdx.x;
+  if (lane >= n_lanes) return;
+  const long long t = table_idx[lane];
+  const uint16_t* s2s = slot2sym + (t << k);
+  const long long* c = cums + t * (A + 1);
+  const uint32_t mask = (1u << k) - 1u;
+  uint32_t x = state[lane];
+  const int nw = n_words[lane];
+  int ptr = nw - 1;
+  const uint16_t* w = payload + offsets[lane];
+  const uint32_t first = nw > 0 ? (uint32_t)__ldg(w) : 0u;  // the padded matrix's column 0
+  int* o = out + lane;
+  for (int i = 0; i < n_sym; ++i) {
+    const uint32_t word = ptr >= 0 ? (uint32_t)__ldg(w + ptr) : first;
+    const uint32_t slot = x & mask;
+    const int s = __ldg(s2s + slot);
+    const uint32_t cs = (uint32_t)__ldg(c + s);
+    const uint32_t f = (uint32_t)__ldg(c + s + 1) - cs;
+    x = f * (x >> k) + slot - cs;
+    o[(long long)i * n_lanes] = s;
+    if (x < kRansL) {
+      x = (x << 16) | word;
+      --ptr;
+    }
+  }
+  x_out[lane] = x;
+  ptr_out[lane] = ptr;
+}
+
 // allow a block more than the default 48 KB of dynamic shared memory
 template <typename Kernel>
 cudaError_t fit_smem(Kernel kernel, size_t smem) {
@@ -420,9 +500,37 @@ extern "C" int rans_encode(const void* symbols, const void* table_idx, const voi
   return (int)cudaGetLastError();
 }
 
-// out: registers, shared memory a block, blocks an SM, spill bytes of K7
-// (decode != 0) or K8 at alphabet A
-extern "C" int rans_kernel_info(int decode, int A, int* out) {
+// the wide kernels: any alphabet up to 2^k, no staged rows
+extern "C" int rans_decode_wide(const void* payload, const void* n_words, const void* offsets, const void* state,
+                                const void* table_idx, const void* slot2sym, const void* cums, int A, int k,
+                                long long n_lanes, int n_sym, void* out, void* x_out, void* ptr_out, void* stream) {
+  if (n_lanes <= 0) return (int)cudaSuccess;
+  if (A < 1 || A > (1 << k)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n_lanes + kLanes - 1) / kLanes);
+  rans_decode_wide_kernel<<<blocks, kLanes, 0, (cudaStream_t)stream>>>(
+      (const uint16_t*)payload, (const int*)n_words, (const long long*)offsets, (const uint32_t*)state,
+      (const int*)table_idx, (const uint16_t*)slot2sym, (const long long*)cums, A, k, n_lanes, n_sym, (int*)out,
+      (long long*)x_out, (long long*)ptr_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rans_encode_wide(const void* symbols, const void* table_idx, const void* cums, int A, int k,
+                                long long n_lanes, int n_sym, void* words, void* n_words, void* x_out,
+                                void* stream) {
+  if (n_lanes <= 0) return (int)cudaSuccess;
+  if (A < 1 || A > (1 << k)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n_lanes + kLanes - 1) / kLanes);
+  rans_encode_wide_kernel<<<blocks, kLanes, 0, (cudaStream_t)stream>>>(
+      (const int*)symbols, (const int*)table_idx, (const long long*)cums, A, k, n_lanes, n_sym, (int*)words,
+      (int*)n_words, (long long*)x_out);
+  return (int)cudaGetLastError();
+}
+
+// out: registers, shared memory a block, blocks an SM, spill bytes of a
+// kernel at alphabet A: K7 (decode != 0) or K8, staged (wide == 0) or wide
+extern "C" int rans_kernel_info(int decode, int wide, int A, int* out) {
+  if (wide)
+    return decode ? (int)info(rans_decode_wide_kernel, 0, out) : (int)info(rans_encode_wide_kernel, 0, out);
   return decode ? (int)info(rans_decode_kernel, decode_smem(A), out)
                 : (int)info(rans_encode_kernel, encode_smem(A), out);
 }

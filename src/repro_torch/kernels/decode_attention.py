@@ -15,7 +15,14 @@ outputs zeros.  The output has q's dtype.
 split-KV flash-decoding, then a small launch that merges the splits; its
 head says what bounds it and how the design answers) and counts one launch
 per call in ``.launches``; ``decode_attention_plain`` is the same function
-in PyTorch, the CPU path and the kernel's oracle.
+in PyTorch, the CPU path and the kernel's oracle.  Like the reference's
+kernel it takes any group size ``Hq / Hkv`` (a block serves at most 16
+query heads: larger groups are split, each part reading the KV head's
+tiles again) and any head dim up to ``_build.MAX_HEAD_DIM`` (256), on the
+smallest compiled plan at least as wide.  A cache whose rows are not whole
+16-byte chunks on 16-byte boundaries (an odd head dim in bf16, a view off
+its alignment) is read in place by the kernel's element-load path, never
+copied.
 """
 from __future__ import annotations
 
@@ -24,14 +31,13 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import HEAD_DIMS, aligned16, check, load_library
+from repro_torch.kernels._build import check, check_head_dim, is_aligned16, load_library
 
 __all__ = ["TILE", "decode_attention_plain", "decode_attention_cuda", "split_size"]
 
 TILE = 64  # cache positions per tile of the kernel
 _WAVES = 2  # blocks per SM the split size aims at
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_REP = 16
 
 
 def decode_attention_plain(q, k, v, kv_len, *, scale=None):
@@ -78,10 +84,9 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale=None):
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"decode_attention: k/v {tuple(k.shape)}/{tuple(v.shape)} do not fit q {tuple(q.shape)}")
     S, Hkv = k.shape[1], k.shape[2]
-    if Hq % Hkv or Hq // Hkv > _MAX_REP:
-        raise ValueError(f"decode_attention: Hq={Hq} must be a multiple of Hkv={Hkv}, at most {_MAX_REP}x")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
+    if Hq % Hkv:
+        raise ValueError(f"decode_attention: Hq={Hq} must be a multiple of Hkv={Hkv}")
+    check_head_dim("decode_attention", D)
     if q.dtype not in _DTYPE_CODE or k.dtype not in _DTYPE_CODE or v.dtype != k.dtype:
         raise TypeError(f"decode_attention: dtypes q={q.dtype} k={k.dtype} v={v.dtype} not supported")
     if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (B,) or not kv_len.is_contiguous():
@@ -93,7 +98,7 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale=None):
         raise ValueError("decode_attention: the head dim must be contiguous")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    k, v = aligned16(k), aligned16(v)  # the cache as it is, unless its rows are misaligned
+    narrow = not (is_aligned16(k) and is_aligned16(v))  # element loads: the cache is never copied
     dev = q.device
     split = split_size(S, B, Hkv, _n_sm(dev.index))
     n_splits = max(1, -(-S // split))
@@ -108,7 +113,7 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale=None):
             B, Hq, Hkv, S, D, n_splits,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            split, float(scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
+            split, float(scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], int(narrow),
             torch.cuda.current_stream(dev).cuda_stream,
         ), "decode_attention")
     decode_attention_cuda.launches += 1

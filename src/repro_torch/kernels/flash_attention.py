@@ -18,7 +18,10 @@ CPU path and the kernel's oracle.  ``flash_attention_magnitude`` is the
 scale of the rule the bf16 kernel is held to (``kernels.ops.BF16_TOL``).
 ``flash_attention_vjp`` is the plain version's VJP, recomputed a query
 chunk at a time: the backward of K4 under autograd (``kernels.ops``), as
-the reference trains through autodiff of ``chunked_mha``.
+the reference trains through autodiff of ``chunked_mha``.  K4 takes any
+head dim up to ``_build.MAX_HEAD_DIM`` (256) on the smallest compiled plan
+at least as wide; a bf16 head dim that is no multiple of 8 takes the
+kernel's element-load path instead of its 16-byte copies.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import HEAD_DIMS, aligned16, check, load_library
+from repro_torch.kernels._build import aligned16, check, check_head_dim, load_library
 
 __all__ = ["flash_attention_plain", "flash_attention_vjp", "flash_attention_cuda", "flash_attention_magnitude"]
 
@@ -118,8 +121,7 @@ def flash_attention_cuda(
     Tk, Hkv = k.shape[1], k.shape[2]
     if Hq % Hkv:
         raise ValueError(f"flash_attention: Hq={Hq} not a multiple of Hkv={Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    check_head_dim("flash_attention", D)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes q={q.dtype} k={k.dtype} v={v.dtype} not supported")
     if prefix_len is not None and (
@@ -134,10 +136,12 @@ def flash_attention_cuda(
         raise ValueError("flash_attention: the head dim must be contiguous")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    narrow = q.dtype == torch.bfloat16 and D % 8 != 0  # rows of no whole 16-byte chunks: element loads
     if q.dtype == torch.bfloat16:
         if not scale > 0:  # the kernel takes each row's max on the unscaled scores
             raise ValueError(f"flash_attention: the bf16 kernel needs a positive scale, not {scale}")
-        q, k, v = aligned16(q), aligned16(k), aligned16(v)  # it copies 16-byte row chunks
+        if not narrow:
+            q, k, v = aligned16(q), aligned16(k), aligned16(v)  # it copies 16-byte row chunks
     out = torch.empty((B, Tq, Hq, D), dtype=q.dtype, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):  # the launch runs on the tensors' card
@@ -147,7 +151,7 @@ def flash_attention_cuda(
             B, Hq, Hkv, Tq, Tk, D,
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
-            int(causal), int(prefix_len is not None), float(scale), _DTYPE_CODE[q.dtype],
+            int(causal), int(prefix_len is not None), float(scale), _DTYPE_CODE[q.dtype], int(narrow),
             torch.cuda.current_stream(q.device).cuda_stream,
         ), "flash_attention")
     flash_attention_cuda.launches += 1

@@ -10,7 +10,10 @@ launch counters, so a run can show that its path went through them.
 ``bf16_ulp_excess`` with ``BF16_TOL`` is the one rule by which a kernel with
 bf16 output is held against its plain version (K2, K5 and K6 are held bit
 for bit, and the rANS coder's K7 and K8 symbol for symbol and word for
-word).  K7 and K8 are picked by the device of their tables.
+word).  K7 and K8 are picked by the device of their tables, and on the
+card by their alphabet: the staged kernel while a block's staged rows fit,
+else the wide one (``kernels.rans.decode_kernel`` / ``encode_kernel``),
+each with its own launch count.
 
 Under autograd (grad enabled and an input that requires grad) K4 on the
 card goes through ``_FlashAttention``, a ``torch.autograd.Function``: its
@@ -58,7 +61,16 @@ from repro_torch.kernels.kvquant import (
     kv_quant_cuda,
     kv_quant_plain,
 )
-from repro_torch.kernels.rans import rans_decode_cuda, rans_decode_plain, rans_encode_cuda, rans_encode_plain
+from repro_torch.kernels.rans import (
+    decode_kernel,
+    encode_kernel,
+    rans_decode_cuda,
+    rans_decode_plain,
+    rans_decode_wide_cuda,
+    rans_encode_cuda,
+    rans_encode_plain,
+    rans_encode_wide_cuda,
+)
 
 __all__ = [
     "BF16_TOL",
@@ -88,6 +100,8 @@ KERNELS = {
     "kv_dequant": kv_dequant_cuda,
     "rans_decode": rans_decode_cuda,
     "rans_encode": rans_encode_cuda,
+    "rans_decode_wide": rans_decode_wide_cuda,
+    "rans_encode_wide": rans_encode_wide_cuda,
 }
 
 
@@ -114,9 +128,10 @@ def reset_launch_counts() -> None:
 # dtype at bf16; that moves an output by at most u * sum_t w_t |v_t|, which
 # ``rel`` admits on top of the output's rounding (``scale`` =
 # ``flash_attention_magnitude``).  K3's and K4's rules are the same at every
-# head dim their kernels take (``_build.HEAD_DIMS``, 32 to 256): a score's
-# f32 sum over D products moves by summation order only, far below a bf16
-# step of the output.
+# head dim their kernels take (1 to ``_build.MAX_HEAD_DIM`` = 256, on the
+# plans of ``_build.HEAD_DIMS``, the columns past D zeros) and every group
+# size: a score's f32 sum over D products moves by summation order only,
+# far below a bf16 step of the output.
 BF16_TOL = {
     "kv_dequant_tokens": {"ulps": 1, "atol": 2e-5},
     "kv_dequant": {"ulps": 1, "atol": 2e-5},
@@ -218,14 +233,14 @@ def kv_dequant(d_sym, anchors, bins, *, qmax: int, out_dtype=torch.bfloat16):
 def rans_decode(payload, n_words, offsets, state, table_idx, tables, n_sym: int):
     """K7: ``n_sym`` symbols a lane from the wire's compact rANS stream ->
     (symbols, final state, final word pointer); see ``kernels.rans``."""
-    fn = _pick(tables.freqs, rans_decode_cuda, rans_decode_plain)
+    fn = _pick(tables.freqs, decode_kernel(tables.freqs.shape[-1]), rans_decode_plain)
     return fn(payload, n_words, offsets, state, table_idx, tables, n_sym)
 
 
 def rans_encode(symbols, table_idx, tables):
     """K8: (n_lanes, n_sym) symbols -> (words, n_words, final state); see
     ``kernels.rans``."""
-    fn = _pick(tables.freqs, rans_encode_cuda, rans_encode_plain)
+    fn = _pick(tables.freqs, encode_kernel(tables.freqs.shape[-1]), rans_encode_plain)
     return fn(symbols, table_idx, tables)
 
 

@@ -6,7 +6,9 @@ jitted ``lax.scan`` over all lanes that the reference runs on its device
 between the wire and K1/K2 (load path) and between K5 and the wire (store
 path).  On the card each lane is one CUDA thread with its table's cum row
 staged in shared memory (``csrc/rans.cu``; see its head for what bounds the
-kernels on the H100 and how the design answers it).  Each ``*_plain``
+kernels on the H100 and how the design answers it); alphabets whose staged
+rows do not fit a block run on the wide kernels, which read each lane's
+table from device memory.  Each ``*_plain``
 function is the same scan as a Python loop of elementwise PyTorch ops over
 all lanes, one step per symbol, with the reference's own table reads
 (``slot2sym``, ``freqs``, ``cums``): the CPU's route and the kernels' oracle
@@ -47,11 +49,18 @@ with ``BLOCK_LANES`` lanes a block, raises on a launch error and counts its
 launches in ``.launches``; :func:`kernel_info` reads a kernel's registers,
 shared memory and blocks an SM.
 
-The staged rows bound the alphabet a launch takes (a block's shared memory):
-``A <= MAX_ALPHABET["decode"]`` (1,743) for K7 and ``MAX_ALPHABET["encode"]``
-(1,807) for K8.  A wider alphabet raises on the card; the plain versions
-take any.  The codec's widest, the alphabet-padded delta decode stack, is
-``max(2 * delta_qmax + 1, 509)``: 509 at the default ``delta_qmax``.
+Two kernels a direction, picked by the alphabet ``A`` alone
+(:func:`decode_kernel` / :func:`encode_kernel`, which ``kernels.ops``
+calls): the staged ones (``rans_decode_cuda``, ``rans_encode_cuda``) while
+a block's staged rows fit its shared memory, ``A <=
+MAX_ALPHABET["decode"]`` (1,743) for K7 and ``MAX_ALPHABET["encode"]``
+(1,807) for K8, and the wide ones (``rans_decode_wide_cuda``,
+``rans_encode_wide_cuda``, each with its own launch count) for any
+alphabet up to ``2**k``, as the reference's tables allow.  The staged
+wrappers raise past their cap; the wide ones take any alphabet, below the
+cap too.  The codec's widest alphabet, the alphabet-padded delta decode
+stack, is ``max(2 * delta_qmax + 1, 509)``: 509 at the default
+``delta_qmax``, 2,047 (wide) at 1023.
 """
 from __future__ import annotations
 
@@ -65,12 +74,16 @@ __all__ = [
     "BLOCK_LANES",
     "MAX_ALPHABET",
     "RANS_L",
+    "decode_kernel",
+    "encode_kernel",
     "guided_symbol",
     "kernel_info",
     "rans_decode_cuda",
     "rans_decode_plain",
+    "rans_decode_wide_cuda",
     "rans_encode_cuda",
     "rans_encode_plain",
+    "rans_encode_wide_cuda",
 ]
 
 RANS_L = 1 << 16  # lower bound of the normalized state interval
@@ -171,7 +184,10 @@ def rans_decode_plain(payload, n_words, offsets, state, table_idx, tables, n_sym
     return out.T, x, ptr  # symbols (n_lanes, n_sym) in forward order
 
 
-def _check_tables(name, tables, dev, kind):
+def _check_tables(name, tables, dev, kind, wide=False):
+    """Raise unless ``tables`` are what the kernel reads: int64 ``cums``
+    (and, for the wide K7, int16 ``slot2sym``) on ``dev``, an alphabet up
+    to ``2**k``, and for a staged kernel up to its ``MAX_ALPHABET``."""
     k = tables.precision
     if not 1 <= k <= 14:
         raise ValueError(f"{name}: precision must lie in 1..14, got {k}")
@@ -182,9 +198,17 @@ def _check_tables(name, tables, dev, kind):
     if tuple(cums.shape) != (n_t, A + 1):
         raise ValueError(f"{name}: cums of shape {tuple(cums.shape)}, want {(n_t, A + 1)} beside freqs {(n_t, A)}")
     _check_device(name, dev, cums)
-    if A > MAX_ALPHABET[kind]:
+    if not 1 <= A <= 1 << k:
+        raise ValueError(f"{name}: alphabet {A} outside 1..2**{k}")
+    if wide and kind == "decode":
+        s2s = tables.slot2sym
+        if s2s.dtype != torch.int16 or tuple(s2s.shape) != (n_t, 1 << k):
+            raise TypeError(f"{name}: slot2sym must be an ({n_t}, {1 << k}) int16 tensor, got {s2s.dtype} "
+                            f"{tuple(s2s.shape)}")
+        _check_device(name, dev, s2s)
+    if not wide and A > MAX_ALPHABET[kind]:
         raise ValueError(f"{name}: alphabet {A} is wider than the {MAX_ALPHABET[kind]} symbols whose staged rows "
-                         "fit a block's shared memory")
+                         "fit a block's shared memory (the wide kernel takes it)")
 
 
 def _check_device(name, dev, *tensors):
@@ -200,36 +224,54 @@ def _check_lane_vector(name, what, t, n_lanes, dtype=torch.int32):
         raise TypeError(f"{name}: {what} must be an ({n_lanes},) {dtype} tensor, got {t.dtype} {tuple(t.shape)}")
 
 
-def rans_decode_cuda(payload, n_words, offsets, state, table_idx, tables, n_sym: int):
-    """K7 on the card; same contract (symbol for symbol) as :func:`rans_decode_plain`."""
+def _decode_on_card(payload, n_words, offsets, state, table_idx, tables, n_sym: int, wide: bool):
+    """Check K7's inputs and launch its staged or wide kernel."""
+    name = "rans_decode_wide" if wide else "rans_decode"
     if payload.dtype != torch.int16 or payload.ndim != 1:
-        raise TypeError(f"rans_decode: payload must be a 1-d int16 tensor, got {payload.dtype} "
+        raise TypeError(f"{name}: payload must be a 1-d int16 tensor, got {payload.dtype} "
                         f"{tuple(payload.shape)}")
     n_lanes = n_words.shape[0]
     for what, t in (("n_words", n_words), ("state", state), ("table_idx", table_idx)):
-        _check_lane_vector("rans_decode", what, t, n_lanes)
-    _check_lane_vector("rans_decode", "offsets", offsets, n_lanes, torch.int64)
+        _check_lane_vector(name, what, t, n_lanes)
+    _check_lane_vector(name, "offsets", offsets, n_lanes, torch.int64)
     dev = n_words.device
-    _check_device("rans_decode", dev, payload, n_words, offsets, state, table_idx)
-    _check_tables("rans_decode", tables, dev, "decode")
+    _check_device(name, dev, payload, n_words, offsets, state, table_idx)
+    _check_tables(name, tables, dev, "decode", wide)
     if n_sym < 0:
-        raise ValueError(f"rans_decode: n_sym must be >= 0, got {n_sym}")
+        raise ValueError(f"{name}: n_sym must be >= 0, got {n_sym}")
     out = torch.empty((n_sym, n_lanes), dtype=torch.int32, device=dev)
     x = torch.empty((n_lanes,), dtype=torch.int64, device=dev)
     ptr = torch.empty((n_lanes,), dtype=torch.int64, device=dev)
     if n_lanes == 0:
         return out.T, x, ptr
+    lib = load_library()
+    tabs = (tables.slot2sym.data_ptr(), tables.cums.data_ptr()) if wide else (tables.cums.data_ptr(),)
     with torch.cuda.device(dev):  # the launch runs on the tensors' card
-        check(load_library().rans_decode(
+        check(getattr(lib, name)(
             payload.data_ptr(), n_words.data_ptr(), offsets.data_ptr(), state.data_ptr(), table_idx.data_ptr(),
-            tables.cums.data_ptr(), tables.freqs.shape[1], tables.precision, n_lanes, n_sym,
+            *tabs, tables.freqs.shape[1], tables.precision, n_lanes, n_sym,
             out.data_ptr(), x.data_ptr(), ptr.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        ), "rans_decode")
-    rans_decode_cuda.launches += 1
+        ), name)
+    (rans_decode_wide_cuda if wide else rans_decode_cuda).launches += 1
     return out.T, x, ptr
 
 
+def rans_decode_cuda(payload, n_words, offsets, state, table_idx, tables, n_sym: int):
+    """K7's staged kernel on the card (``A <= MAX_ALPHABET["decode"]``); same
+    contract (symbol for symbol) as :func:`rans_decode_plain`."""
+    return _decode_on_card(payload, n_words, offsets, state, table_idx, tables, n_sym, wide=False)
+
+
+def rans_decode_wide_cuda(payload, n_words, offsets, state, table_idx, tables, n_sym: int):
+    """K7's wide kernel on the card (any alphabet up to ``2**k``); same
+    contract (symbol for symbol) as :func:`rans_decode_plain`."""
+    return _decode_on_card(payload, n_words, offsets, state, table_idx, tables, n_sym, wide=True)
+
+
+
+
 rans_decode_cuda.launches = 0
+rans_decode_wide_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -268,40 +310,67 @@ def rans_encode_plain(symbols, table_idx, tables):
     return buf, ptr[:, 0].to(torch.int32), x
 
 
-def rans_encode_cuda(symbols, table_idx, tables):
-    """K8 on the card; same contract (word for word) as :func:`rans_encode_plain`."""
+def _encode_on_card(symbols, table_idx, tables, wide: bool):
+    """Check K8's inputs and launch its staged or wide kernel."""
+    name = "rans_encode_wide" if wide else "rans_encode"
     if symbols.dtype != torch.int32 or symbols.ndim != 2:
-        raise TypeError(f"rans_encode: symbols must be a 2-d int32 tensor, got {symbols.dtype} "
+        raise TypeError(f"{name}: symbols must be a 2-d int32 tensor, got {symbols.dtype} "
                         f"{tuple(symbols.shape)}")
     n_lanes, n_sym = symbols.shape
-    _check_lane_vector("rans_encode", "table_idx", table_idx, n_lanes)
+    _check_lane_vector(name, "table_idx", table_idx, n_lanes)
     dev = symbols.device
-    _check_device("rans_encode", dev, symbols, table_idx)
-    _check_tables("rans_encode", tables, dev, "encode")
+    _check_device(name, dev, symbols, table_idx)
+    _check_tables(name, tables, dev, "encode", wide)
     words = torch.empty((n_lanes, n_sym), dtype=torch.int32, device=dev)  # the kernel writes every element
     n_words = torch.empty((n_lanes,), dtype=torch.int32, device=dev)
     x = torch.empty((n_lanes,), dtype=torch.int64, device=dev)
     if n_lanes == 0:
         return words, n_words, x
     with torch.cuda.device(dev):  # the launch runs on the tensors' card
-        check(load_library().rans_encode(
+        check(getattr(load_library(), name)(
             symbols.data_ptr(), table_idx.data_ptr(), tables.cums.data_ptr(), tables.freqs.shape[1],
             tables.precision, n_lanes, n_sym, words.data_ptr(), n_words.data_ptr(), x.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
-        ), "rans_encode")
-    rans_encode_cuda.launches += 1
+        ), name)
+    (rans_encode_wide_cuda if wide else rans_encode_cuda).launches += 1
     return words, n_words, x
 
 
+def rans_encode_cuda(symbols, table_idx, tables):
+    """K8's staged kernel on the card (``A <= MAX_ALPHABET["encode"]``); same
+    contract (word for word) as :func:`rans_encode_plain`."""
+    return _encode_on_card(symbols, table_idx, tables, wide=False)
+
+
+def rans_encode_wide_cuda(symbols, table_idx, tables):
+    """K8's wide kernel on the card (any alphabet up to ``2**k``); same
+    contract (word for word) as :func:`rans_encode_plain`."""
+    return _encode_on_card(symbols, table_idx, tables, wide=True)
+
+
 rans_encode_cuda.launches = 0
+rans_encode_wide_cuda.launches = 0
 
 
-def kernel_info(kind: str, alphabet: int, device=None) -> dict:
+def decode_kernel(alphabet: int):
+    """K7's kernel for tables of ``alphabet`` symbols: the staged one while
+    its rows fit a block, else the wide one."""
+    return rans_decode_cuda if alphabet <= MAX_ALPHABET["decode"] else rans_decode_wide_cuda
+
+
+def encode_kernel(alphabet: int):
+    """K8's kernel for tables of ``alphabet`` symbols: the staged one while
+    its rows fit a block, else the wide one."""
+    return rans_encode_cuda if alphabet <= MAX_ALPHABET["encode"] else rans_encode_wide_cuda
+
+
+def kernel_info(kind: str, alphabet: int, device=None, wide: bool = False) -> dict:
     """K7's (``kind="decode"``) or K8's registers a thread, shared memory a
     block (bytes), blocks an SM and spilled bytes a thread at ``alphabet``,
-    as the CUDA runtime reports them for the current card."""
+    staged or ``wide``, as the CUDA runtime reports them for the current
+    card."""
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        check(load_library().rans_kernel_info(int(kind == "decode"), alphabet, out), "rans_kernel_info")
+        check(load_library().rans_kernel_info(int(kind == "decode"), int(wide), alphabet, out), "rans_kernel_info")
     return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2], spill_bytes=out[3],
                 lanes_per_sm=out[2] * BLOCK_LANES)

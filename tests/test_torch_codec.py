@@ -212,3 +212,59 @@ def test_checksum_gate_and_header(shared, mixed_blobs):
     bad[100] ^= 1
     with pytest.raises(ValueError):
         codec.decode_chunks([bytes(bad)], ct)
+
+
+# ---------------------------------------------------------------------------
+# A wide alphabet: delta_qmax 1023 gives 2,047-symbol delta tables (the
+# decode stack too), past the staged K7's and K8's caps on the card
+# ---------------------------------------------------------------------------
+
+WIDE = dict(delta_qmax=1023, precision=12)
+
+
+@pytest.fixture(scope="module")
+def wide_shared(samples):
+    """Both packages' profiles of the samples under ``WIDE``."""
+    return jcodec.profile(samples, jcodec.CodecConfig(**WIDE)), codec.profile(
+        samples, codec.CodecConfig(**WIDE), device="cpu")
+
+
+def test_wide_alphabet_profile_matches_reference(wide_shared):
+    jct, ct = wide_shared
+    assert ct.config.delta_alphabet == 2047 and ct.delta_decode_stack.freqs.shape[1] == 2047
+    for mine, ref in [(ct.anchor, jct.anchor), (ct.ll_delta, jct.ll_delta)] + [
+        (ct.deltas[l], jct.deltas[l]) for l in jct.deltas
+    ]:
+        np.testing.assert_array_equal(mine.freqs.numpy(), np.asarray(ref.freqs))
+        np.testing.assert_array_equal(mine.slot2sym.numpy(), np.asarray(ref.slot2sym))
+
+
+@pytest.mark.parametrize("T", [40, 23])
+def test_wide_alphabet_encode_byte_identical_to_reference(wide_shared, T):
+    jct, ct = wide_shared
+    kv = _kv(60 + T, T)
+    mine = codec.encode_all_levels(kv, ct, chunk_idx=1)
+    ref = jcodec.encode_all_levels(kv, jct, chunk_idx=1)
+    assert mine.keys() == ref.keys()
+    for lvl in ref:
+        assert mine[lvl] == ref[lvl], f"level {lvl} differs"
+
+
+def test_wide_alphabet_decode_chunks_matches_reference(wide_shared):
+    """Level 0 bit for bit, the lossy levels within 2e-5, from the
+    reference's blobs; the port's own blobs decode to the same."""
+    jct, ct = wide_shared
+    spec = [(0, 40, 0), (1, 37, 1), (2, 23, 4)]
+    blobs = [jcodec.encode_all_levels(_kv(70 + i, T), jct)[lvl] for i, T, lvl in spec]
+    got = codec.decode_chunks(blobs, ct).numpy()
+    want = np.asarray(jcodec.decode_chunks(blobs, jct))
+    off = 0
+    for _, T, lvl in spec:
+        sl = slice(off, off + T)
+        off += T
+        if lvl == 0:
+            np.testing.assert_array_equal(got[:, :, sl], want[:, :, sl])
+        else:
+            np.testing.assert_allclose(got[:, :, sl], want[:, :, sl], atol=2e-5, rtol=2e-5)
+    own = [codec.encode_all_levels(_kv(70 + i, T), ct)[lvl] for i, T, lvl in spec]
+    assert own == blobs

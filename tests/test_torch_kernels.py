@@ -731,11 +731,64 @@ def test_cuda_decode_attention_geometries(cuda, Hq, Hkv, D, kv_dtype):
     # cache, and a head slice of a wider one
     wide = torch.cat([k, k], dim=2)
     _check_decode(q, torch.stack([k, k])[1], wide[:, :, Hkv:], lens)
-    # rows misaligned for 16-byte copies: the wrapper copies them
+    # rows misaligned for 16-byte copies: the kernel's element loads read them in place
     flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
     odd = flat[1:].view(k.shape)
     odd.copy_(v)
     _check_decode(q, k, odd, lens)
+
+
+# (Hq, Hkv, D, kv_dtype): groups past 16 query heads a KV head (Falcon-7B's
+# 71:1, 32:1, 20:1 in two groups of 10), and head dims off the compiled
+# plans (each runs on the smallest plan at least as wide): 16, 48, 96
+# (Phi-3-mini's MHA 32 x 96), 100 (no whole 16-byte chunks in bf16: the
+# element loads), 160, 192 and 7
+CUDA_DECODE_SHAPES = [
+    (32, 1, 64, torch.bfloat16),
+    (71, 1, 64, torch.bfloat16),
+    (71, 1, 64, torch.float32),
+    (40, 2, 48, torch.bfloat16),
+    (4, 4, 16, torch.bfloat16),
+    (8, 2, 48, torch.float32),
+    (32, 32, 96, torch.bfloat16),
+    (32, 32, 96, torch.float32),
+    (8, 2, 100, torch.bfloat16),
+    (8, 2, 100, torch.float32),
+    (4, 1, 160, torch.bfloat16),
+    (4, 1, 192, torch.float32),
+    (71, 1, 100, torch.bfloat16),
+    (6, 2, 7, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv,D,kv_dtype", CUDA_DECODE_SHAPES)
+def test_cuda_decode_attention_any_group_and_head_dim(cuda, Hq, Hkv, D, kv_dtype):
+    """K3 at group sizes past 16 and head dims off its plans equals its
+    plain version under the same rule, at ragged lengths, on a layer of a
+    stacked cache and on rows off their 16-byte alignment (read in place)."""
+    q, k, v = _decode_case(cuda, Hq * D, 3, Hq, Hkv, 700, D, torch.bfloat16, kv_dtype)
+    lens = torch.tensor([700, 65, 0], dtype=torch.int32, device=cuda)
+    _check_decode(q, k, v, lens)
+    _check_decode(q.float(), torch.stack([k, k])[1], v, lens)
+    flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    odd = flat[1:].view(k.shape)
+    odd.copy_(v)
+    _check_decode(q, k, odd, lens)
+
+
+def test_head_dims_past_256_raise_naming_the_limit():
+    """Past 256, the widest plan, both wrappers raise a ValueError that
+    names the limit, before any launch (the one head dim the card refuses
+    that the reference's kernels take)."""
+    before = (decode_attention_cuda.launches, flash_attention_cuda.launches)
+    q, k = torch.zeros(1, 2, 272), torch.zeros(1, 8, 1, 272)
+    with pytest.raises(ValueError, match=r"1\.\.256"):
+        decode_attention_cuda(q, k, k, torch.tensor([8], dtype=torch.int32))
+    qf, kf = torch.zeros(1, 8, 2, 272), torch.zeros(1, 8, 1, 272)
+    with pytest.raises(ValueError, match=r"1\.\.256"):
+        flash_attention_cuda(qf, kf, kf)
+    assert (decode_attention_cuda.launches, flash_attention_cuda.launches) == before
 
 
 @pytest.mark.gpu
@@ -772,6 +825,8 @@ CUDA_GRAD_CASES = [
     (1, 8, 1, 260, 256, True, [100]),
     (1, 4, 2, 2100, 64, True, None),
     (8, 15, 5, 1024, 64, True, None),
+    (1, 32, 32, 200, 96, True, None),  # Phi-3-mini's head dim: the plan of 128
+    (1, 8, 2, 130, 100, True, [40]),  # the element loads
 ]
 
 
@@ -889,6 +944,15 @@ CUDA_FLASH_CASES = [
     (2, 16, 16, 3072, 3072, 64, False, None),  # seamless-m4t-large-v2's encoder: bidirectional over 3,072 frames
     (2, 16, 16, 3000, 3000, 64, False, None),  # ragged: the last key tile masked at key >= Tk
     (2, 16, 16, 1024, 1024, 64, True, None),  # its decoder prompt, causal
+    (1, 32, 32, 3072, 3072, 96, True, None),  # Phi-3-mini's prefill: MHA 32 x 96 on the plan of 128
+    (2, 6, 2, 77, 200, 96, True, [0, 150]),
+    (1, 8, 2, 300, 300, 48, True, None),  # the plan of 64
+    (1, 8, 2, 300, 300, 100, True, None),  # no whole 16-byte chunks: the element loads
+    (2, 4, 1, 130, 200, 100, False, None),
+    (1, 8, 1, 300, 300, 160, True, [40]),  # the plan of 256
+    (1, 8, 1, 300, 300, 192, True, None),
+    (1, 4, 2, 65, 65, 16, True, None),  # the plan of 32
+    (1, 4, 4, 77, 77, 7, True, None),
 ]
 
 

@@ -26,8 +26,10 @@ from repro_torch.kernels.rans import (
     guided_symbol,
     rans_decode_cuda,
     rans_decode_plain,
+    rans_decode_wide_cuda,
     rans_encode_cuda,
     rans_encode_plain,
+    rans_encode_wide_cuda,
 )
 
 torch.set_num_threads(1)
@@ -84,6 +86,14 @@ CASES = {
     "anchor stack": (3, 12, (256, 256), 4, 24, 7),
     "n_sym 1": (4, 10, (40,), 3, 9, 1),
     "k 14": (5, 14, (509,), 2, 5, 64),
+    # alphabets past K7's staged cap (1,743), as the card's wide kernels
+    # take them: one past it, the codec's delta decode stack at delta_qmax
+    # 1023 (padded, beside the lossless 509), 4,096 = 2**12 and 16,384 =
+    # 2**14 (every symbol one slot)
+    "A 1744": (10, 12, (1744,), 3, 20, 45),
+    "A 2047, padded": (11, 12, (2047, 2047, 509), 2, 24, 40),
+    "A 4096": (12, 12, (4096,), 2, 12, 33),
+    "A 16384, k 14": (13, 14, (16384,), 2, 9, 30),
 }
 
 
@@ -484,22 +494,28 @@ def cuda():
     return torch.device("cuda")
 
 
-def _held(cuda, stack, t_idx, syms):
+def _held(cuda, stack, t_idx, syms, wide=None):
     """K8 and then K7 on the card equal their plain versions there, word for
-    word and symbol for symbol, and K7 inverts K8."""
+    word and symbol for symbol, and K7 inverts K8: each the kernel that
+    ``kernels.ops`` picks for the alphabet, or the wide ones (``wide``)."""
+    A = stack.freqs.shape[1]
+    encode = rans_encode_wide_cuda if wide else krans.encode_kernel(A)
+    decode = rans_decode_wide_cuda if wide else krans.decode_kernel(A)
     t_t = torch.as_tensor(t_idx, device=cuda)
     sym_t = torch.as_tensor(syms, device=cuda)
-    got, want = rans_encode_cuda(sym_t, t_t, stack), rans_encode_plain(sym_t, t_t, stack)
+    before = (encode.launches, decode.launches)
+    got, want = encode(sym_t, t_t, stack), rans_encode_plain(sym_t, t_t, stack)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     w, n, x = got
     assert w.is_contiguous()  # lane-major, as the plain version's
     payload = rans.wire_bits(w, 16, w.device)[torch.arange(w.shape[1], device=cuda)[None, :] < n[:, None]]
     args = (payload, n, _offsets(n), rans.wire_bits(x, 32, x.device), t_t, stack, syms.shape[1])
-    got, want = rans_decode_cuda(*args), rans_decode_plain(*args)
+    got, want = decode(*args), rans_decode_plain(*args)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert torch.equal(got[0], sym_t) and bool((got[1] == RANS_L).all()) and bool((got[2] == -1).all())
+    assert (encode.launches, decode.launches) == (before[0] + 1, before[1] + 1)
 
 
 # (seed, precision, alphabets, tables a set, lanes, symbols a lane): the CPU
@@ -514,6 +530,16 @@ def test_cuda_rans_matches_plain(cuda, case):
     seed, k, alphabets, n_t, n_lanes, n_sym = case
     _, _, stack, t_idx, syms = _world(seed, k, alphabets, n_t, n_lanes, n_sym, device=cuda)
     _held(cuda, stack, t_idx, syms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CUDA_CASES + [(14, 12, (2047,), 16, 20_481, 154), (15, 14, (16384,), 4, 4_160, 300)])
+def test_cuda_wide_rans_matches_plain(cuda, case):
+    """The wide kernels at every case, below the staged cap too, and at the
+    wide alphabets over many lanes."""
+    seed, k, alphabets, n_t, n_lanes, n_sym = case
+    _, _, stack, t_idx, syms = _world(seed, k, alphabets, n_t, n_lanes, n_sym, device=cuda)
+    _held(cuda, stack, t_idx, syms, wide=True)
 
 
 @pytest.mark.gpu
@@ -591,34 +617,60 @@ def test_cuda_decode_refuses_more_words_than_a_row_holds(cuda):
 
 
 def test_alphabet_cap_is_one_block_of_staged_rows():
-    """The widest alphabet each kernel's staged rows take fills a block's
-    227 KB and one symbol more does not; the codec's delta decode stack
-    stays within K7's cap up to ``delta_qmax`` 871, as ``CodecConfig``
-    states."""
+    """The shape rule that picks K7's and K8's kernel: the staged one up to
+    the widest alphabet whose rows fill a block's 227 KB (one symbol more
+    does not fit), the wide one past it, up to 2**14.  The codec's default
+    delta stacks stay staged; at ``delta_qmax`` 1023 its 2,047-symbol
+    stacks take the wide kernels, its anchors the staged ones."""
     assert MAX_ALPHABET == {"decode": 1743, "encode": 1807}
     for kind, A in MAX_ALPHABET.items():
         assert krans._smem_bytes(kind, A) <= 232448 < krans._smem_bytes(kind, A + 1)
-    assert codec.CodecConfig().delta_alphabet <= MAX_ALPHABET["decode"]
-    assert codec.CodecConfig(delta_qmax=871).delta_alphabet <= MAX_ALPHABET["decode"]
-    assert codec.CodecConfig(delta_qmax=872).delta_alphabet > MAX_ALPHABET["decode"]
+    for A in (1, 256, 509, 1743):
+        assert krans.decode_kernel(A) is rans_decode_cuda
+    for A in (1744, 2047, 4096, 16384):
+        assert krans.decode_kernel(A) is rans_decode_wide_cuda
+    for A in (1, 1743, 1807):
+        assert krans.encode_kernel(A) is rans_encode_cuda
+    for A in (1808, 2047, 16384):
+        assert krans.encode_kernel(A) is rans_encode_wide_cuda
+    assert {ops.KERNELS[n] for n in ("rans_decode", "rans_decode_wide", "rans_encode", "rans_encode_wide")} == {
+        rans_decode_cuda, rans_decode_wide_cuda, rans_encode_cuda, rans_encode_wide_cuda}
+    assert krans.decode_kernel(codec.CodecConfig().delta_alphabet) is rans_decode_cuda
+    assert krans.encode_kernel(codec.CodecConfig().delta_alphabet) is rans_encode_cuda
+    wide = codec.CodecConfig(delta_qmax=1023)
+    assert wide.delta_alphabet == 2047
+    assert krans.decode_kernel(wide.delta_alphabet) is rans_decode_wide_cuda
+    assert krans.encode_kernel(wide.delta_alphabet) is rans_encode_wide_cuda
+    assert krans.decode_kernel(256) is rans_decode_cuda  # the anchors
 
 
 @pytest.mark.gpu
 def test_cuda_rans_at_the_widest_alphabet(cuda):
-    """At K7's widest alphabet (its block's rows fill 227 KB) both kernels
-    equal their plain versions; one symbol wider, K8 still runs and K7
-    raises without a launch."""
+    """At K7's widest staged alphabet (its block's rows fill 227 KB) both
+    staged kernels equal their plain versions; one symbol wider,
+    ``kernels.ops`` runs the wide K7 (and the staged K8), equal to the plain
+    versions, and the staged K7 raises without a launch."""
     A = MAX_ALPHABET["decode"]
     _, _, stack, t_idx, syms = _world(13, 12, (A,), 4, 200, 64, device=cuda)
     _held(cuda, stack, t_idx, syms)
     _, _, wide, t_w, s_w = _world(14, 12, (A + 1,), 2, 8, 16, device=cuda)
-    t_t = torch.as_tensor(t_w, device=cuda)
-    w, n, x = rans_encode_cuda(torch.as_tensor(s_w, device=cuda), t_t, wide)
+    t_t, s_t = torch.as_tensor(t_w, device=cuda), torch.as_tensor(s_w, device=cuda)
+    before = ops.launch_counts()
+    w, n, x = ops.rans_encode(s_t, t_t, wide)
+    for g, want in zip((w, n, x), rans_encode_plain(s_t, t_t, wide)):
+        assert torch.equal(g, want)
     payload = rans.wire_bits(w, 16, cuda)[torch.arange(w.shape[1], device=cuda)[None, :] < n[:, None]]
-    before = rans_decode_cuda.launches
+    args = (payload, n, _offsets(n), rans.wire_bits(x, 32, cuda), t_t, wide, 16)
+    got = ops.rans_decode(*args)
+    for g, want in zip(got, rans_decode_plain(*args)):
+        assert torch.equal(g, want)
+    assert torch.equal(got[0], s_t)
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {
+        "rans_encode": 1, "rans_decode_wide": 1}
     with pytest.raises(ValueError, match="alphabet"):
-        rans_decode_cuda(payload, n, _offsets(n), rans.wire_bits(x, 32, cuda), t_t, wide, 16)
-    assert rans_decode_cuda.launches == before
+        rans_decode_cuda(*args)
+    assert ops.launch_counts() == after
 
 
 @pytest.mark.gpu
@@ -646,6 +698,32 @@ def test_cuda_rans_table_past_2_31_slots(cuda):
     t_idx[1] = n_t - 1  # its cum row starts past 2^31 bytes: past any int32 byte offset
     assert int(t_idx.max()) * (A + 1) * 8 >= 1 << 31
     local = np.where(t_idx >= n_t - real, t_idx - (n_t - real) + real, t_idx)  # row of ``small``
+    syms = small.slot2sym.cpu().numpy()[local[:, None], rng.integers(0, 1 << k, size=(n_lanes, n_sym))].astype(np.int32)
+    _held(cuda, stack, t_idx, syms)
+
+
+@pytest.mark.gpu
+def test_cuda_wide_rans_table_past_2_31_bytes(cuda):
+    """The wide kernels index the tables in 64 bits: lanes whose cum row
+    starts past 2^31 bytes in a stack of 2,047-symbol tables (2,048 int64
+    cums a row, 131,073 tables; their slot2sym rows past 2^30 bytes), and
+    lanes at its start."""
+    k, real, A = 12, 16, 2047
+    n_t = -(-(1 << 31) // ((A + 1) * 8)) + 1
+    rng = np.random.default_rng(16)
+    small = tables.build_coder_tables(_freqs(rng, 2 * real, A, k), k, cuda)
+    freqs = torch.zeros((n_t, A), dtype=torch.int64, device=cuda)
+    cums = torch.zeros((n_t, A + 1), dtype=torch.int64, device=cuda)
+    s2s = torch.zeros((n_t, 1 << k), dtype=torch.int16, device=cuda)
+    for rows, src in ((slice(0, real), slice(0, real)), (slice(n_t - real, n_t), slice(real, 2 * real))):
+        freqs[rows], cums[rows], s2s[rows] = small.freqs[src], small.cums[src], small.slot2sym[src]
+    stack = rans.CoderTables(freqs, cums, s2s, k)
+    n_lanes, n_sym = 256, 300
+    t_idx = np.where(np.arange(n_lanes) % 2, n_t - real + rng.integers(0, real, n_lanes),
+                     rng.integers(0, real, n_lanes)).astype(np.int32)
+    t_idx[1] = n_t - 1
+    assert int(t_idx.max()) * (A + 1) * 8 >= 1 << 31
+    local = np.where(t_idx >= n_t - real, t_idx - (n_t - real) + real, t_idx)
     syms = small.slot2sym.cpu().numpy()[local[:, None], rng.integers(0, 1 << k, size=(n_lanes, n_sym))].astype(np.int32)
     _held(cuda, stack, t_idx, syms)
 

@@ -73,6 +73,45 @@ def test_chip_smoke_store_path_runs_on_cpu_at_tiny_size(rehearsal, stored):
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
 
 
+def test_chip_smoke_wide_codec_path_runs_on_cpu_at_tiny_size(rehearsal):
+    """Phase 19 at 40 tokens: the codec at delta_qmax 1023 profiles
+    2,047-symbol delta tables, its blobs equal the CPU route's (here the
+    same route), level 0 decodes bit for bit and a lossy level within K1's
+    rule of ``decode_chunk``."""
+    smoke, cfg, gen, served, _ = rehearsal
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        smoke.drive_wide_codec_path(cfg, torch.device("cpu"), gen, served, ctx_len=40, gen_tokens=4)
+    out = out.getvalue()
+    assert "delta alphabet 2047" in out and "decode_chunks at level 2" in out and "wide codec steps ms" in out
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_shapes_path_runs_on_cpu_at_tiny_size():
+    """Phase 20 at tiny widths (the heads kept: MHA 32 x 96 and 71:1 x 64):
+    every K3/K4 call held to its plain version (here the plain version
+    itself), the logits against the plain attention."""
+    smoke = _load_smoke()
+    smoke.ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        smoke.drive_shapes_path(torch.device("cpu"), torch.Generator(device="cpu"), prompt=24, steps=3, tiny=True)
+    out = out.getvalue()
+    assert "shapes Phi-3-mini MHA 32 x 96: 2 layers" in out and "71/1 heads x 64" in out
+    assert out.count("held calls") == 2
+    assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
+
+
+def test_chip_smoke_paths_cover_the_wide_kernels_apart():
+    """The wide rANS kernels run on the wide codec path alone: the staged
+    paths' lists leave them out, and the lists cover every kernel."""
+    smoke = _load_smoke()
+    assert set(smoke.WIDE_KERNELS) == {n for n in smoke.ops.KERNELS if n.endswith("_wide")}
+    assert not set(smoke.ALL_KERNELS) & set(smoke.WIDE_KERNELS)
+    assert set(smoke.WIDE_KERNELS) <= set(smoke.WIDE_CODEC_KERNELS)
+    assert set(smoke.ALL_KERNELS) | set(smoke.WIDE_CODEC_KERNELS) == set(smoke.ops.KERNELS)
+
+
 @pytest.fixture(scope="module")
 def sessioned(rehearsal, stored):
     smoke, cfg = rehearsal[:2]
