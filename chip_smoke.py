@@ -56,12 +56,14 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            decode stack, K8 over its lossy stack, and 4,096 and 16,384
            (precision 14) symbols, held with ``torch.equal``, with planted
            faults (a word flipped, a table off by one, a cum entry off by
-           one, a slot2sym entry changed, an emitted word dropped); both
-           also on the staged kernels' wave and timed beside them.  K3 and
-           K4 across the reference's domain: Phi-3-mini's attention (MHA 32
-           x 96), K3 at Falcon-7B's 71 query heads on one KV head and at
-           32:1, both at head dims 48, 96, 100, 160 and 192, each held and
-           timed.
+           one, a lane's payload offset moved, an emitted word dropped);
+           both also on the staged kernels' wave and timed beside them.  K3
+           and K4 across the reference's domain: Phi-3-mini's attention (MHA
+           32 x 96), K3 at Falcon-7B's 71 query heads on one KV head and at
+           32:1, both at head dims 48, 96, 100, 160 and 192 and past 256
+           (300, 512, 1000: the wide path's output panels; K4 also at 3,072
+           tokens with a prefix and K3 at 32:1, D = 512), each held and
+           timed, SDPA's backends named past 256.
 4. serve   smollm-360m at full width (random bf16 weights from a seed):
            four requests go through ``calculate_kv`` (K4), their KV is
            profiled and encoded at every level in 1536-token chunks (K5),
@@ -373,9 +375,10 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
            K1), level 0 bit for bit against ``decode_chunk`` and the CPU
            route, level 2 within K1's rule, and 32 greedy tokens from the
            level-0 cache (K3).
-20. shapes two 2-layer models at public widths the registry lacks
-           (Phi-3-mini's MHA 32 x 96, Falcon-7B's 71:1 x 64 with its parallel
-           block), random weights from a seed: a 1,024-token prefill (K4)
+20. shapes three 2-layer models the registry lacks (Phi-3-mini's MHA 32 x
+           96, Falcon-7B's 71:1 x 64 with its parallel block, and a GQA 8:2
+           model at head dim 512, K3's and K4's wide path), random weights
+           from a seed: a 1,024-token prefill (K4)
            and 16 greedy steps (K3) with the plain versions refusing any
            call, the launches counted exactly, then every call held to its
            plain version, and the prefill's and first step's logits within
@@ -452,7 +455,6 @@ from repro_torch.kernels.kvquant import (  # noqa: E402
     vector_width,
 )
 from repro_torch.kernels import rans as krans  # noqa: E402
-from repro_torch.kernels.rans import BLOCK_LANES as RANS_BLOCK_LANES  # noqa: E402
 from repro_torch.kernels.rans import kernel_info as rans_kernel_info  # noqa: E402
 from repro_torch.kernels.rans import (  # noqa: E402
     rans_decode_cuda,
@@ -568,8 +570,10 @@ WIDE_CTX = 1536
 WIDE_LEVELS = (0, 2)
 WIDE_CODEC_KERNELS = ("kv_quant", "rans_encode", "rans_encode_wide", "rans_decode", "rans_decode_wide",
                       "kv_lossless_tokens", "kv_dequant_tokens", "decode_attention")
-# the kernels phase's and phase 20's head dims off the compiled plans
+# the kernels phase's head dims off the compiled plans, and past them (the
+# wide path; 300 in bf16 takes the element loads)
 SHAPE_HEAD_DIMS = (48, 96, 100, 160, 192)
+WIDE_HEAD_DIMS = (300, 512, 1000)
 # phase 20: two 2-layer models at public widths the registry lacks (random
 # weights from a seed): Phi-3-mini's (MHA 32 x 96, microsoft/Phi-3-mini-4k-
 # instruct) and Falcon-7B's (71 query heads on one KV head x 64, parallel
@@ -972,6 +976,26 @@ def rans_bound(kind, n_lanes, n_sym, pairs, n_words_read=0):
             bound(base + 32 * gathers * steps, n_ops, timing.INT32_OPS)[0])
 
 
+def sdpa_backends(call):
+    """The names of SDPA's backends that take ``call`` when each is the only
+    one allowed (SDPA picks among them).  A yardstick's note only: the port
+    never calls SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    accepts = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+            accepts.append(backend.name.lower())
+        except RuntimeError:
+            pass
+    return accepts
+
+
 def compact_stream(w, n, x):
     """A coded stream as the wire holds it and K7 takes it: the valid words
     lane-major (int16 bits), the word counts, each lane's offset into the
@@ -1302,15 +1326,18 @@ def drive_wide_codec_path(cfg, dev, gen, served, phase=lambda name: contextlib.n
 
 
 def shapes_configs(tiny=False):
-    """Phase 20's two 2-layer models (``SHAPES_*``) at published widths the
-    registry lacks, derived from smollm-360m's config; ``tiny`` shrinks
-    d_model, d_ff and the vocab and keeps the heads."""
+    """Phase 20's three 2-layer models, derived from smollm-360m's config:
+    two at published attention widths the registry lacks, and one at head
+    dim 512 (K3's and K4's wide path; no published model has one); ``tiny``
+    shrinks d_model, d_ff and the vocab and keeps the heads."""
     base = dataclasses.replace(registry.get("smollm-360m"), n_layers=2, tie_embeddings=False, remat=False)
     phi3 = dataclasses.replace(base, name="phi-3-mini-2l", d_model=3072, n_heads=32, n_kv_heads=32, d_head=96,
                                d_ff=8192, vocab_size=32064)
     falcon = dataclasses.replace(base, name="falcon-7b-2l", d_model=4544, n_heads=71, n_kv_heads=1, d_head=64,
                                  d_ff=18176, vocab_size=65024, norm="layernorm", mlp="gelu", parallel_block=True)
-    out = {"Phi-3-mini MHA 32 x 96": phi3, "Falcon-7B 71:1 x 64": falcon}
+    wide = dataclasses.replace(base, name="gqa-8-2-d512-2l", d_model=2048, n_heads=8, n_kv_heads=2, d_head=512,
+                               d_ff=8192, vocab_size=32000)
+    out = {"Phi-3-mini MHA 32 x 96": phi3, "Falcon-7B 71:1 x 64": falcon, "GQA 8:2 x 512": wide}
     if tiny:
         out = {k: dataclasses.replace(c, d_model=128, d_ff=256, vocab_size=512) for k, c in out.items()}
     return out
@@ -4543,7 +4570,8 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
             pairs = n * (n + 1) // 2 if causal else n * n  # the (query, key) pairs a row computes
             return dict(
                 ms=time_ms(lambda: flash_attention_cuda(qq, kk, vv, causal=causal)),
-                device_ms=device_ms(lambda: flash_attention_cuda(qq, kk, vv, causal=causal), "flash_tc_kernel"),
+                device_ms=device_ms(lambda: flash_attention_cuda(qq, kk, vv, causal=causal),
+                                    "flash_tc_wide_kernel" if dh > 256 else "flash_tc_kernel"),
                 library_ms=time_ms(lambda: sdpa(qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
                                                 is_causal=causal, enable_gqa=True)) if gqa_ok else None,
                 bound=bound((qq.numel() * 2 + kk.numel() + vv.numel()) * 2, b * 4 * dh * hq * pairs),
@@ -4836,7 +4864,7 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         # 20,480 lanes); 4,096 = 2^12 symbols, and 16,384 = 2^14 at precision
         # 14 (every symbol one slot).  Planted faults, each changed in place
         # and put back: a word flipped, a lane's table off by one, a cum entry
-        # off by one (K7 and K8), the slot2sym entry of a lane's first slot
+        # off by one (K7 and K8), a lane's payload offset moved one word on
         # (K7), one emitted word dropped (K8).
         wcc = codec.CodecConfig(**WIDE_CODEC)
         wA = wcc.delta_alphabet
@@ -4860,13 +4888,11 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         wide_faults["rans_decode_wide: a cum entry off by one"] = torch.equal(
             rans_decode_wide_cuda(*w_args)[0], w_want[0])
         w_stack.cums[t0, s_hot] -= 1
-        slot0 = int(st[0]) & ((1 << rk) - 1)  # the slot of lane 0's first step
-        s_old = int(w_stack.slot2sym[t0, slot0])
-        w_stack.slot2sym[t0, slot0] = (s_old + 1) % wA
-        wide_faults["rans_decode_wide: its first slot's slot2sym entry changed"] = torch.equal(
-            rans_decode_wide_cuda(*w_args)[0], w_want[0])
-        w_stack.slot2sym[t0, slot0] = s_old
-        del bad, t_bad, payload, n_w, offs, st, t_w
+        o_bad = offs.clone()
+        o_bad[lane] += 1  # the lane with the most words reads from one word on
+        wide_faults["rans_decode_wide: a lane's payload offset moved"] = torch.equal(
+            rans_decode_wide_cuda(payload, n_w, o_bad, *w_args[3:])[0], w_want[0])
+        del bad, t_bad, o_bad, payload, n_w, offs, st, t_w
         n_wl = n_lossy * r_lanes
         wl_stack = rans.CoderTables(w_stack.freqs[:n_wl], w_stack.cums[:n_wl], w_stack.slot2sym[:n_wl], rk)
         wl_syms = coder_symbols(wl_stack, t_l, CHUNK - G, gen)
@@ -4904,7 +4930,7 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
             library_ms=None,
             bound=wd_bound,
             sector_ms=wd_sector,
-            info={f"A = {wA}": rans_kernel_info("decode", wA, wide=True)},
+            info={f"A = {wA}": rans_kernel_info("decode", wA, wide=True, precision=rk)},
             shape=f"a wave's deltas at delta_qmax {wcc.delta_qmax}: {t_d.numel()} lanes x {CHUNK - G} steps over "
                   f"{w_stack.n_tables} padded {wA}-symbol tables, {n_read} words; A = 4,096 and 16,384 (k 14) held",
         )
@@ -4917,7 +4943,7 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
             library_ms=None,
             bound=we_bound,
             sector_ms=we_sector,
-            info={f"A = {wA}": rans_kernel_info("encode", wA, wide=True)},
+            info={f"A = {wA}": rans_kernel_info("encode", wA, wide=True, precision=rk)},
             shape=f"encode_all_levels' lossy deltas at delta_qmax {wcc.delta_qmax}: {t_l.numel()} lanes x "
                   f"{CHUNK - G} steps over {wl_stack.n_tables} {wA}-symbol tables, {int(wl_got[1].sum())} words",
         )
@@ -5306,15 +5332,17 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
                             enable_gqa=hq != hkv)
 
             n_tok = sum(min(n, cap) for n in lens_list)
+            split_ = split_size(cap, B_, hkv, n_sm, dh)
             shapes_report[f"decode_attention {what}"] = dict(
                 max_abs_err=(got.float() - want).abs().max().item(), excess=x,
                 ms=time_ms(run, iters=20),
-                device_ms=device_ms(run, "decode_split_kernel", "decode_combine_kernel", iters=8),
+                device_ms=device_ms(run, "decode_wide_kernel" if dh > 256 else "decode_split_kernel",
+                                    "decode_combine_kernel", iters=8),
                 plain_ms=time_ms(lambda: decode_attention_plain(qd, kc_[0], vc_[0], lens_), iters=3, warmup=1),
                 library_ms=time_ms(lib, iters=20) if gqa_ok or hq == hkv else None,
                 bound=bound(qd.numel() * 2 * 2 + n_tok * hkv * dh * 2 * 2 + B_ * 4, 4 * hq * dh * n_tok),
-                shape=f"q {tuple(qd.shape)} vs cache {tuple(kc_[0].shape)} bf16, kv_len {lens_list}, split "
-                      f"{split_size(cap, B_, hkv, n_sm)}",
+                shape=f"q {tuple(qd.shape)} vs cache {tuple(kc_[0].shape)} bf16, kv_len {lens_list}, split {split_}",
+                library_backend=sdpa_backends(lib) if dh > 256 else None,
             )
 
         def k4_shape(what, B_, T_, hq, hkv, dh, prefix=None):
@@ -5326,6 +5354,9 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
                 plain_ms=time_ms(lambda: flash_attention_plain(qq_, kk_, vv_), iters=2, warmup=1),
                 shape=f"q {tuple(qq_.shape)} k/v {tuple(kk_.shape)} bf16 causal"
                       + (f", prefix {prefix} (timed without)" if prefix else ""),
+                library_backend=sdpa_backends(lambda: sdpa(qq_.transpose(1, 2), kk_.transpose(1, 2),
+                                                           vv_.transpose(1, 2), is_causal=True, enable_gqa=True))
+                if dh > 256 else None,
                 **k4_timing(qq_, kk_, vv_),
             )
 
@@ -5334,9 +5365,13 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
         k3_shape("Falcon-7B 71:1 x 64", 1, 71, 1, 64, cap3, [SSM_CTX + 1])
         k3_shape("32:1 x 64", 1, 32, 1, 64, cap3, [SSM_CTX + 1])
         k4_shape("Phi-3-mini MHA 32 x 96", 1, SSM_CTX, 32, 32, 96)
-        for dh in SHAPE_HEAD_DIMS:
+        for dh in SHAPE_HEAD_DIMS + WIDE_HEAD_DIMS:
             k3_shape(f"D = {dh}", 4, 8, 2, dh, 2080, [2049, 2080, TILE + 1, 0])
-            k4_shape(f"D = {dh}", 1, 2048, 8, 2, dh, [256] if dh == 160 else None)
+            k4_shape(f"D = {dh}", 1, 2048, 8, 2, dh, [256] if dh in (160, 300) else None)
+        # past 256 at the main path's lengths: K4 over a 3,072-token prefill
+        # with a 256-row prefix, K3 at 32:1 over a 3,106-slot cache
+        k4_shape("D = 512, T = 3072", 1, SSM_CTX, 8, 2, 512, [256])
+        k3_shape("32:1 x 512", 1, 32, 1, 512, cap3, [SSM_CTX + 1])
 
         # K4 under autograd at phase 14's training shape (smollm-360m, 8 rows
         # of 1,024 tokens, causal): the Function's forward (K4) and backward
@@ -5388,8 +5423,7 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
             r = report[name]
             print(f"{name}: at one 32-byte sector a table gather {r['sector_ms']:.4f} ms "
                   f"({r['sector_ms'] / r['ms']:.1%} of the kernel ms; no bound)")
-            print(f"{name}: at {RANS_BLOCK_LANES} lanes a block, registers, shared memory a block, blocks an "
-                  f"SM: {r['info']}")
+            print(f"{name}: registers, shared memory a block, blocks an SM, lanes a block: {r['info']}")
         r = report["rans_decode"]
         print(f"rans_decode: the wave's anchors {r['anchors_ms']:.4f} ms (bound {r['anchors_bound'][0]:.4f} ms "
               f"({r['anchors_bound'][1]}), sector time {r['anchors_sector_ms']:.4f} ms); "
@@ -5437,7 +5471,9 @@ def _card_phases(dev, gen, phase_ms, smi, children) -> int:
             require(r["device_ms"] is not None, f"the profiler holds no device time for {name}")
             print(f"{name}: {r['shape']}  max_abs_err {r['max_abs_err']:.3g} ({r['excess']:.3f} of its rule)  "
                   f"kernel {r['ms']:.4f} ms  (device time {r['device_ms']} ms)  plain {r['plain_ms']:.4f} ms  "
-                  f"library {r['library_ms']}  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, "
+                  f"library {r['library_ms']}"
+                  + (f" (SDPA's backends that take it: {r['library_backend']})" if r["library_backend"] else "")
+                  + f"  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, "
                   f"{r['bound'][0] / r['ms']:.1%} of it reached, {r['bound'][0] / r['device_ms']:.1%} of device time)")
         r = train_k4
         require(r["device_ms"] is not None, "the profiler holds no device time for K4 at the training shape")

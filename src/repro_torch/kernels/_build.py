@@ -27,15 +27,14 @@ from typing import Optional
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "HEAD_DIMS", "MAX_HEAD_DIM", "aligned16", "check", "check_head_dim", "is_aligned16",
-           "load_library"]
+__all__ = ["CSRC", "BUILD_DIR", "HEAD_DIMS", "aligned16", "check", "check_head_dim", "is_aligned16", "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-# the head dims of K3's and K4's compiled plans; any head dim up to
-# MAX_HEAD_DIM runs on the smallest plan at least as wide (check_head_dim)
+# the head dims of K3's and K4's compiled plans; any head dim up to the
+# last runs on the smallest plan at least as wide, any wider one on the
+# kernels' wide path (output panels across blocks)
 HEAD_DIMS = (32, 64, 80, 128, 256)
-MAX_HEAD_DIM = HEAD_DIMS[-1]
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",
@@ -80,14 +79,14 @@ _SIGNATURES = {
         _L, _I, _P, _P, _P, _P,  # n_lanes n_sym words n_words x_out stream
     ),
     "rans_decode_wide": (
-        _P, _P, _P, _P, _P, _P, _P,  # payload n_words offsets state table_idx slot2sym cums
+        _P, _P, _P, _P, _P, _P,  # payload n_words offsets state table_idx cums
         _I, _I, _L, _I, _P, _P, _P, _P,  # A k n_lanes n_sym out x_out ptr_out stream
     ),
     "rans_encode_wide": (
         _P, _P, _P, _I, _I,  # symbols table_idx cums A k
         _L, _I, _P, _P, _P, _P,  # n_lanes n_sym words n_words x_out stream
     ),
-    "rans_kernel_info": (_I, _I, _I, _P),  # decode wide A out[4]
+    "rans_kernel_info": (_I, _I, _I, _I, _P),  # decode wide A k out[5]
 }
 
 
@@ -173,11 +172,11 @@ def check(err: int, name: str) -> None:
 
 def check_head_dim(name: str, D: int) -> None:
     """Raise a ``ValueError`` unless K3 or K4 (``name``) takes head dim
-    ``D``: 1 to ``MAX_HEAD_DIM``, each run on the smallest of ``HEAD_DIMS``
-    at least ``D`` wide (the kernels' own choice of plan)."""
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {D} is outside 1..{MAX_HEAD_DIM}, the widest plan the kernel has "
-                         "(its shared memory holds no wider panel)")
+    ``D``: any ``D >= 1``, up to ``HEAD_DIMS[-1]`` on the smallest compiled
+    plan at least as wide, past it on the wide path (the kernels' own
+    choice)."""
+    if D < 1:
+        raise ValueError(f"{name}: head dim {D} is below 1")
 
 
 def is_aligned16(t: torch.Tensor) -> bool:

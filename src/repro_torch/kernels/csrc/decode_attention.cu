@@ -48,7 +48,7 @@
 // q and the output are f32 or bf16 (a runtime flag: q is read once per
 // block, the output written once); K/V f32 or bf16 (a template parameter).
 //
-// Any head dim from 1 to 256 runs on one of five compiled plans (32, 64,
+// Any head dim up to 256 runs on one of five compiled plans (32, 64,
 // 80, 128, 256): the smallest at least as wide.  The kernel takes the real
 // D at run time: it loads only D columns, the rest of its panels (q in
 // shared memory, the K/V rows of the ring) holds zeros, so a score over the
@@ -65,6 +65,9 @@
 // again (Falcon-7B's 71 query heads on one KV head: 5 groups of 15, the
 // last holding 11 heads and 4 idle ones).  The merge launch covers every
 // (row, query head).
+//
+// A head dim past 256 runs on decode_wide_kernel (below): output panels
+// across blocks, scores summed over column chunks, no buffer sized by D.
 //
 // The shared memory is sized once, for
 // kMaxRep query heads; at D = 256 with bf16 K/V the 3-stage ring still fits
@@ -389,6 +392,206 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
   }
 }
 
+// ------------------------------------------------------- wide head dims
+// A head dim past 256: no q panel or K/V row of D columns is kept.  The
+// block of a (split, group) is split again by output panel (W columns of
+// V: 256 for bf16 K/V, 128 for f32, 512-byte rows either way; a grid axis,
+// blockIdx.y = (KV head * n_groups + group) * n_panels + panel).  First
+// the split's scores: for each chunk of W columns of Dr, the group's q
+// chunk is staged (scaled into log2 units) and each tile's K chunk
+// streamed through a 2-tile ring, the scores summed into shared memory
+// ([gh][kWideSplit]: the wrapper caps the split at kWideSplit positions).
+// Then the same online softmax and P V as decode_split_kernel, tile by
+// tile, over the panel's V columns.  Every panel's block sums the same
+// scores in the same order, so (m, l) agree across panels; panel 0 writes
+// them, each panel its accumulator columns, and the merge is unchanged.
+// Each panel's block re-reads the split's K (at D = 512 in bf16, two
+// panels: twice K's bytes); the ring rows are sized by the chunk, so the
+// shared memory (120,832 bytes at 16 query heads) does not grow with D.
+constexpr int kWideSplit = 512;  // positions a split past 256 columns
+
+template <typename TKV>
+struct WideGeom {
+  static constexpr int W = 512 / (int)sizeof(TKV);  // columns a chunk of S and a panel of V
+  static constexpr int E = 16 / (int)sizeof(TKV);
+  static constexpr int NC = W / E;                  // 16-byte chunks a row
+  static constexpr int RB = W * (int)sizeof(TKV) + 16;
+  static constexpr int TILE_B = kTile * RB;
+  static constexpr int CPL = W / 32;                // output columns a lane
+  static constexpr int smem(int gh) { return gh * W * 4 + gh * kWideSplit * 4 + gh * kTile * 4 + 2 * TILE_B; }
+};
+
+template <typename TKV, bool kNarrow>
+__global__ void __launch_bounds__(kTile * kMaxRep)
+decode_wide_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restrict__ k,
+                   const TKV* __restrict__ v, const int* __restrict__ kv_len, float* __restrict__ part,
+                   int Hq, int rep, int n_groups, int n_panels, int Dr, int S, int n_splits, long long n_part,
+                   long long q_sb, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+                   long long v_sb, long long v_ss, long long v_sh, int split_size, float scale_log2) {
+  using G = WideGeom<TKV>;
+  constexpr int W = G::W;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int gh = blockDim.x / kTile;
+  float* q_s = (float*)smem;                      // [gh][W]: a q chunk, at the end the halves' merge
+  float* s_s = q_s + gh * W;                      // [gh][kWideSplit] the split's scores
+  float* p_s = s_s + gh * kWideSplit;             // [gh][kTile] weights
+  uint8_t* ring = (uint8_t*)(p_s + gh * kTile);   // 2 tiles
+
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int panel = blockIdx.y % n_panels, hg = blockIdx.y / n_panels;
+  const int kvh = hg / n_groups, g0 = (hg % n_groups) * gh;
+  const int nh = min(gh, rep - g0), h0 = kvh * rep + g0, p0 = panel * W;
+  const int len = min(max(kv_len[b], 0), S);
+  const int s0 = split * split_size;
+  if (s0 >= len) return;
+  const int s1 = min(s0 + split_size, len);
+  const int n_tiles = (s1 - s0 + kTile - 1) / kTile;
+  const int tid = threadIdx.x, r = tid / kTile, i = tid % kTile, lane = tid % 32, half = i / 32;
+
+  const TKV* kg = k + b * k_sb + (long long)kvh * k_sh;
+  const TKV* vg = v + b * v_sb + (long long)kvh * v_sh;
+  // tile j's columns [c0, c0 + W) of K or V into ring buffer bi; rows past
+  // the split and columns past Dr are zeros
+  auto load_tile = [&](const TKV* g, long long ss, int j, int c0, int bi) {
+    uint8_t* st = ring + bi * G::TILE_B;
+    const int t0 = s0 + j * kTile;
+    if constexpr (kNarrow) {
+      using Wd = std::conditional_t<sizeof(TKV) == 2, uint16_t, uint32_t>;
+      const Wd* gw = reinterpret_cast<const Wd*>(g);
+      for (int e = tid; e < kTile * W; e += blockDim.x) {
+        const int row = e / W, c = e % W;
+        const bool ok = t0 + row < s1 && c0 + c < Dr;
+        reinterpret_cast<Wd*>(st + row * G::RB)[c] = ok ? gw[(long long)(t0 + row) * ss + c0 + c] : Wd(0);
+      }
+    } else {
+      const uint32_t sa = smem_addr(st);
+      const int nc = min(G::NC, (Dr - c0) / G::E);  // chunks that hold data
+      for (int e = tid; e < kTile * G::NC; e += blockDim.x) {
+        const int row = e / G::NC, c = e % G::NC;
+        const bool ok = t0 + row < s1 && c < nc;
+        const long long t = ok ? t0 + row : s0;
+        cp_async16(sa + row * G::RB + c * 16, g + t * ss + c0 + (ok ? c : 0) * G::E, ok);
+      }
+    }
+  };
+
+  // the split's scores, chunk by chunk of Dr (unit u: chunk u / n_tiles, tile u % n_tiles)
+  const int n_units = (Dr + W - 1) / W * n_tiles;
+  load_tile(kg, k_ss, 0, 0, 0);
+  cp_async_commit();
+  for (int u = 0; u < n_units; ++u) {
+    const int c = u / n_tiles, j = u % n_tiles;
+    cp_async_wait<0>();
+    __syncthreads();  // unit u landed; every thread is done with unit u - 1's buffer and q chunk
+    if (u + 1 < n_units) load_tile(kg, k_ss, (u + 1) % n_tiles, (u + 1) / n_tiles * W, (u + 1) % 2);
+    cp_async_commit();
+    if (j == 0) {  // the group's q chunk c; columns past Dr and heads past the group's are zeros
+      for (int e = tid; e < gh * W; e += blockDim.x) {
+        const int hh = e / W, col = c * W + e % W;
+        float x = 0.f;
+        if (hh < nh && col < Dr) {
+          const long long off = b * q_sb + (long long)(h0 + hh) * q_sh + col;
+          x = q_bf16 ? __bfloat162float(((const __nv_bfloat16*)q)[off]) : ((const float*)q)[off];
+        }
+        q_s[e] = x * scale_log2;
+      }
+      __syncthreads();
+    }
+    const uint8_t* krow = ring + (u % 2) * G::TILE_B + i * G::RB;
+    const float* qr = q_s + r * W;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int cc = 0; cc < G::NC; ++cc) {
+      float x[G::E];
+      to_f32(*reinterpret_cast<const uint4*>(krow + cc * 16), x);
+#pragma unroll
+      for (int e4 = 0; e4 < G::E; e4 += 4) {
+        const float4 qq = *reinterpret_cast<const float4*>(qr + cc * G::E + e4);
+        s[0] = fmaf(qq.x, x[e4], s[0]);
+        s[1] = fmaf(qq.y, x[e4 + 1], s[1]);
+        s[2] = fmaf(qq.z, x[e4 + 2], s[2]);
+        s[3] = fmaf(qq.w, x[e4 + 3], s[3]);
+      }
+    }
+    float* sp = s_s + r * kWideSplit + j * kTile + i;  // this thread's own score
+    const float sum = (s[0] + s[1]) + (s[2] + s[3]);
+    *sp = c == 0 ? sum : *sp + sum;
+  }
+
+  // the panel's P V, tile by tile, with decode_split_kernel's online softmax
+  __syncthreads();  // every thread is done with the ring
+  load_tile(vg, v_ss, 0, p0, 0);
+  cp_async_commit();
+  float m = -INFINITY, l = 0.f, o[G::CPL];
+#pragma unroll
+  for (int cc = 0; cc < G::CPL; ++cc) o[cc] = 0.f;
+  float* pr = p_s + r * kTile;
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j landed; tile j - 1's buffer and weights are free
+    if (j + 1 < n_tiles) load_tile(vg, v_ss, j + 1, p0, (j + 1) % 2);
+    cp_async_commit();
+    const int t0 = s0 + j * kTile;
+    const float* sr = s_s + r * kWideSplit + j * kTile;
+    const float a0 = t0 + lane < s1 ? sr[lane] : -INFINITY;
+    const float a1 = t0 + lane + 32 < s1 ? sr[lane + 32] : -INFINITY;
+    float tm = fmaxf(a0, a1);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, w));
+    const float m_new = fmaxf(m, tm);
+    const float alpha = exp2f(m - m_new);
+    const float p0w = exp2f(a0 - m_new), p1w = exp2f(a1 - m_new);
+    float ps = p0w + p1w;
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, w);
+    l = l * alpha + ps;
+    m = m_new;
+    pr[i] = i < 32 ? p0w : p1w;
+    __syncthreads();
+    float pv[2][G::CPL] = {};
+    const float* pw = pr + half * 32;
+    const uint8_t* vh = ring + (j % 2) * G::TILE_B + half * 32 * G::RB;
+#pragma unroll 2
+    for (int t = 0; t < 32; t += 4) {
+      const float4 p4 = *reinterpret_cast<const float4*>(pw + t);
+      const float w4[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int uu = 0; uu < 4; ++uu) {
+        float x[G::CPL];
+        load_f32(reinterpret_cast<const TKV*>(vh + (t + uu) * G::RB) + lane * G::CPL, x);
+#pragma unroll
+        for (int cc = 0; cc < G::CPL; ++cc) pv[uu % 2][cc] = fmaf(w4[uu], x[cc], pv[uu % 2][cc]);
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < G::CPL; ++cc) o[cc] = o[cc] * alpha + (pv[0][cc] + pv[1][cc]);
+  }
+  cp_async_wait<0>();
+
+  // this split's partial for head (h0 + r): panel 0 writes (m, l), each
+  // panel its columns of the accumulator, the halves added through q_s
+  float* o_s = q_s + r * W;
+  __syncthreads();
+  if (half == 1) {
+#pragma unroll
+    for (int cc = 0; cc < G::CPL; ++cc) o_s[lane * G::CPL + cc] = o[cc];
+  }
+  __syncthreads();
+  if (half == 0 && r < nh) {
+    const long long ph = ((long long)b * Hq + h0 + r) * n_splits + split;
+    if (lane == 0 && panel == 0) {
+      part[2 * ph] = m;
+      part[2 * ph + 1] = l;
+    }
+    float* acc = part + 2 * n_part + ph * Dr + p0;
+#pragma unroll
+    for (int cc = 0; cc < G::CPL; ++cc) {
+      const int col = lane * G::CPL + cc;
+      if (p0 + col < Dr) acc[col] = o[cc] + o_s[col];
+    }
+  }
+}
+
 // over a block of whole warps (the merge rounds D up to them)
 __device__ __forceinline__ float block_reduce(float x, bool is_max, float* red) {
 #pragma unroll
@@ -405,13 +608,14 @@ __device__ __forceinline__ float block_reduce(float x, bool is_max, float* red) 
 }
 
 // merge the splits below kv_len of one (row, query head); D threads
-// rounded up to whole warps, the threads past D only in the reductions.
+// rounded up to whole warps (at most 8: past 256 each thread takes several
+// columns), the threads past D only in the reductions.
 // The splits' weights exp2(m_s - M) are computed once, into shared memory
 __global__ void decode_combine_kernel(const float* __restrict__ part, const int* __restrict__ kv_len,
                                       void* __restrict__ out, int out_bf16, int Hq, int S,
                                       int n_splits, long long n_part, int split_size, int D) {
   extern __shared__ float w_s[];  // [n_splits]
-  __shared__ float red[8];        // one slot a warp: D <= 256 threads
+  __shared__ float red[8];        // one slot a warp: at most 256 threads
   const long long bh = blockIdx.x;  // b * Hq + query head
   const int len = min(max(kv_len[bh / Hq], 0), S);
   const int n = (len + split_size - 1) / split_size;
@@ -466,6 +670,28 @@ int launch_split(const void* q, int q_bf16, const void* k, const void* v, const 
 }
 
 template <typename TKV, bool kNarrow>
+int launch_wide(const void* q, int q_bf16, const void* k, const void* v, const int* kv_len, float* part,
+                int B, int Hq, int Hkv, int Dr, int S, int n_splits, long long q_sb, long long q_sh,
+                long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+                int split_size, float scale_log2, cudaStream_t stream) {
+  using G = WideGeom<TKV>;
+  static_assert(G::smem(kMaxRep) <= 232448, "the plan fits a block's shared memory");
+  if (split_size > kWideSplit) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_wide_kernel<TKV, kNarrow>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::smem(kMaxRep));
+  if (attr != cudaSuccess) return (int)attr;
+  const int rep = Hq / Hkv;
+  const int n_groups = (rep + kMaxRep - 1) / kMaxRep;
+  const int gh = (rep + n_groups - 1) / n_groups;
+  const int n_panels = (Dr + G::W - 1) / G::W;
+  dim3 grid(n_splits, Hkv * n_groups * n_panels, B);
+  decode_wide_kernel<TKV, kNarrow><<<grid, kTile * gh, G::smem(gh), stream>>>(
+      q, q_bf16, (const TKV*)k, (const TKV*)v, kv_len, part, Hq, rep, n_groups, n_panels, Dr, S, n_splits,
+      (long long)B * Hq * n_splits, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, split_size, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <typename TKV, bool kNarrow>
 int launch_plan(int D, const void* q, int q_bf16, const void* k, const void* v,
                 const int* kv_len, float* part, int B, int Hq, int Hkv, int S, int n_splits,
                 long long q_sb, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
@@ -478,7 +704,8 @@ int launch_plan(int D, const void* q, int q_bf16, const void* k, const void* v,
   if (D <= 64) return launch_split<TKV, 64, kNarrow>(ARGS);
   if (D <= 80) return launch_split<TKV, 80, kNarrow>(ARGS);
   if (D <= 128) return launch_split<TKV, 128, kNarrow>(ARGS);
-  return launch_split<TKV, 256, kNarrow>(ARGS);
+  if (D <= 256) return launch_split<TKV, 256, kNarrow>(ARGS);
+  return launch_wide<TKV, kNarrow>(ARGS);
 #undef ARGS
 }
 
@@ -503,13 +730,15 @@ int launch_typed(int narrow, int D, const void* q, int q_bf16, const void* k, co
 // With narrow 0, K/V rows are read with 16-byte copies: the wrapper
 // guarantees 16-byte aligned base pointers and row strides, and rows of
 // whole 16-byte chunks; with narrow 1 any layout with a contiguous head dim.
+// Any D >= 1: up to 256 on the plans, past it on decode_wide_kernel, whose
+// split_size must be at most kWideSplit.
 extern "C" int decode_attention(const void* q, const void* k, const void* v, const void* kv_len,
                                 void* out, void* part, int B, int Hq, int Hkv, int S, int D,
                                 int n_splits, long long q_sb, long long q_sh, long long k_sb,
                                 long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                                 long long v_sh, int split_size, float scale, int q_dtype,
                                 int kv_dtype, int narrow, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv || D <= 0 || D > 256 || n_splits <= 0 ||
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv || D <= 0 || n_splits <= 0 ||
       split_size % kTile || (long long)n_splits * split_size < S)
     return (int)cudaErrorInvalidValue;
   if ((q_dtype != 0 && q_dtype != 1) || (kv_dtype != 0 && kv_dtype != 1))
@@ -521,7 +750,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v, con
   const int err = kv_dtype == 1 ? launch_typed<__nv_bfloat16>(ARGS) : launch_typed<float>(ARGS);
 #undef ARGS
   if (err) return err;
-  const int merge_threads = (D + 31) / 32 * 32;  // whole warps for block_reduce's shuffles
+  const int merge_threads = D > 256 ? 256 : (D + 31) / 32 * 32;  // whole warps for block_reduce, at most 8
   decode_combine_kernel<<<B * Hq, merge_threads, n_splits * sizeof(float), s>>>((const float*)part, (const int*)kv_len, out, q_dtype,
                                              Hq, S, n_splits, (long long)B * Hq * n_splits,
                                              split_size, D);

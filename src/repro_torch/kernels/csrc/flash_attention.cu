@@ -79,7 +79,10 @@
 // wrapper's, 1/sqrt(Dr).  A head dim that is a multiple of 8 keeps the
 // 16-byte cp.async copies; any other (D = 100) fills the same swizzled
 // panels by element loads and stores its output element by element
-// (kNarrow), a path of the same kernel with the same products.
+// (kNarrow), a path of the same kernel with the same products.  A head dim
+// past 256 runs on the wide kernels (flash_tc_wide_kernel, flash_wide_kernel
+// for f32): output panels of 256 columns (128 for f32) across blocks, S
+// summed over k-chunks (128 columns; 64 for f32), no buffer that grows with D.
 //
 // f32 keeps the first, scalar design: one thread per query row, K/V tiles
 // of 32 keys (16 at D = 256, so the static shared memory stays under 48 KB;
@@ -594,6 +597,371 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
   }
 }
 
+// ------------------------------------------------------- wide head dims
+// A head dim past 256 (Dr > 256): no panel of D columns fits beside a ring,
+// so each block computes one panel of at most kPanel output columns (a grid
+// axis: blockIdx.x = head * n_panels + panel).  Its S = Q K^T sums over all
+// Dr columns in k-chunks of 128 (two swizzle atoms), the Q chunk and the K
+// chunk of a key pair streamed through a 3-stage ring (no whole-D Q panel:
+// Q is read again for every key pair, from L2); then the online softmax as
+// above and O += P V over its panel of V, a (kPair x kPanel) tile in a
+// double buffer.  Every panel's block computes the same S in the same order,
+// so their (m, l) agree and each panel's output is what one block over all
+// Dr columns would write.  Each block re-reads all of K: at Dr = 512 the
+// two panels' blocks do 1.5x the flops of one pass.  Plan: D = 256's tiles
+// (32 keys a warpgroup, wgmma m64n32k16 for S, m64n256k16 for P V), 164,864
+// bytes of shared memory whatever Dr is.  Loads go in one sequence of units
+// per key pair (its n_chunks QK chunks, then its V tile), each unit one
+// cp.async group issued two units ahead of its use.
+constexpr int kPanel = 256;  // output columns a block
+constexpr int kChunk = 128;  // columns of S's k-chunks
+
+struct WidePlan {
+  static constexpr int kBN = 32;                            // keys a warpgroup's tile
+  static constexpr int kPair = kWG * kBN;                   // keys a pair
+  static constexpr int kQBytes = kBM * kChunk * 2;          // a Q chunk
+  static constexpr int kKBytes = kPair * kChunk * 2;        // a K chunk of the pair
+  static constexpr int kQKStages = 3;
+  static constexpr int kVBytes = kPair * kPanel * 2;        // the pair's V tile of the panel
+  static constexpr int kSmem = kQKStages * (kQBytes + kKBytes) + 2 * kVBytes + 1024;
+  static_assert(kSmem <= 232448, "the plan fits a block's shared memory");
+  static_assert((kPanel / 2 + 4) * 128 * 4 <= kSmem - 1024, "the merge fits the ring");
+};
+
+template <bool kNarrow>
+__global__ void __launch_bounds__(kThreads)
+flash_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     const int* __restrict__ prefix_len, bf16* __restrict__ out, int Hq, int Hkv, int Tq,
+                     int Tk, int Dr, int n_panels, long long q_sb, long long q_st, long long q_sh,
+                     long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
+                     long long v_sh, long long o_sb, long long o_st, long long o_sh, int causal,
+                     int use_prefix, float scale_log2) {
+  using P = WidePlan;
+  constexpr int kBN = P::kBN, kPair = P::kPair;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQK = base;  // stage s: Q chunk, then the pair's K chunk
+  const uint32_t sV = base + P::kQKStages * (P::kQBytes + P::kKBytes);  // buffer j at + j * kVBytes
+
+  const int h = blockIdx.x / n_panels, p0 = (blockIdx.x % n_panels) * kPanel, b = blockIdx.z;
+  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * kBM;  // heaviest tiles first
+  const int kvh = h / (Hq / Hkv);
+  const int off = Tk - Tq;
+  const int plen = use_prefix ? prefix_len[b] : 0;
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+
+  const int first = q0 + off, last = min(q0 + kBM, Tq) - 1 + off;
+  const int kend = causal ? min(Tk, max(last + 1, plen)) : Tk;
+  const int n_pairs = kend > 0 ? (kend + kPair - 1) / kPair : 0;
+  const int n_chunks = (Dr + kChunk - 1) / kChunk;
+  const int n_units = n_pairs * (n_chunks + 1);  // per pair: its QK chunks, then its V tile
+
+  const bf16* qg = q + b * q_sb + (long long)h * q_sh + (long long)q0 * q_st;
+  const bf16* kg = k + b * k_sb + (long long)kvh * k_sh;
+  const bf16* vg = v + b * v_sb + (long long)kvh * v_sh;
+  auto generic = [&](uint32_t a) { return smem_raw + (a - raw); };
+  auto qk_stage = [&](int u) {  // the ring stage of QK unit u (its index among the QK units)
+    const int i = u / (n_chunks + 1), c = u % (n_chunks + 1);
+    return sQK + (uint32_t)((i * n_chunks + c) % P::kQKStages) * (P::kQBytes + P::kKBytes);
+  };
+  auto load_unit = [&](int u) {
+    const int i = u / (n_chunks + 1), c = u % (n_chunks + 1);
+    const int k0 = i * kPair;
+    if (c < n_chunks) {
+      const uint32_t st = qk_stage(u);
+      const int c0 = c * kChunk;
+      load_panel<kBM, kChunk, kNarrow>(st, generic(st), qg + c0, q_st, Tq - q0, Dr - c0, qg, tid);
+      load_panel<kPair, kChunk, kNarrow>(st + P::kQBytes, generic(st + P::kQBytes), kg + (long long)k0 * k_st + c0,
+                                         k_st, Tk - k0, Dr - c0, kg, tid);
+    } else {
+      const uint32_t st = sV + (uint32_t)(i % 2) * P::kVBytes;
+      load_panel<kPair, kPanel, kNarrow>(st, generic(st), vg + (long long)k0 * v_st + p0, v_st, Tk - k0, Dr - p0,
+                                         vg, tid);
+    }
+  };
+  if (n_units > 0) load_unit(0);
+  cp_async_commit();
+  if (n_units > 1) load_unit(1);
+  cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int pos0 = row0 + off, pos1 = row0 + 8 + off;
+  const int cq = 2 * (lane % 4);
+
+  float o[kPanel / 2];
+#pragma unroll
+  for (int i = 0; i < kPanel / 2; ++i) o[i] = 0.f;
+  float s[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait<1>();  // unit u landed for this thread's copies
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();     // ... for every thread's; the buffer of unit u + 2 is free
+    if (u + 2 < n_units) load_unit(u + 2);
+    cp_async_commit();
+
+    const int i = u / (n_chunks + 1), c = u % (n_chunks + 1);
+    const int k0 = i * kPair + wg * kBN;
+    if (k0 >= kend) continue;  // warpgroup-uniform: past the keys any row sees
+    if (c < n_chunks) {
+      // S += Q_c K_c^T over the chunk's k-steps that hold data (the first
+      // chunk's first overwrites s)
+      const uint32_t st = qk_stage(u), sK = st + P::kQBytes + wg * kBN * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        if (c * kChunk + kk * 16 >= Dr) break;  // warpgroup-uniform
+        const uint32_t koff = (uint32_t)(kk % 4) * 32;  // 16 columns into the 128-byte row
+        const uint64_t da = smem_desc(st + (kk / 4) * kBM * 128 + koff, 16, 1024);
+        const uint64_t db = smem_desc(sK + (kk / 4) * kPair * 128 + koff, 16, 1024);
+        wgmma_qk<kBN>(s, da, db, c == 0 && kk == 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      continue;
+    }
+
+    // the pair's S is complete: online softmax as flash_tc_kernel's
+    const bool mask = k0 + kBN > Tk || (causal && k0 + kBN - 1 > first && k0 + kBN > plen);
+    float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e) {
+      if (mask) {
+        const int key = k0 + 8 * (e / 4) + cq + (e % 2);
+        const int pos = (e % 4) < 2 ? pos0 : pos1;
+        if (key >= Tk || (causal && key > pos && key >= plen)) s[e] = -INFINITY;
+      }
+      if ((e % 4) < 2)
+        t0 = fmaxf(t0, s[e]);
+      else
+        t1 = fmaxf(t1, s[e]);
+    }
+    t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 1));
+    t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 2));
+    t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 1));
+    t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 2));
+    const float n0 = fmaxf(m0, t0 * scale_log2), n1 = fmaxf(m1, t1 * scale_log2);
+    const float u0 = n0 == -INFINITY ? 0.f : n0;
+    const float u1 = n1 == -INFINITY ? 0.f : n1;
+    const float a0 = ex2(m0 - u0), a1 = ex2(m1 - u1);
+    m0 = n0;
+    m1 = n1;
+    float r0 = 0.f, r1 = 0.f;
+    uint32_t pf[kBN / 16][4];
+#pragma unroll
+    for (int e = 0; e < kBN / 2; e += 2) {
+      const bool top = (e % 4) < 2;
+      const float e0 = ex2(fmaf(s[e], scale_log2, -(top ? u0 : u1)));
+      const float e1 = ex2(fmaf(s[e + 1], scale_log2, -(top ? u0 : u1)));
+      if (top)
+        r0 += e0 + e1;
+      else
+        r1 += e0 + e1;
+      pf[e / 8][(e % 8) / 2] = pack_bf16(e0, e1);
+    }
+    l0 = l0 * a0 + r0;
+    l1 = l1 * a1 + r1;
+#pragma unroll
+    for (int e = 0; e < kPanel / 2; ++e) o[e] *= (e % 4) < 2 ? a0 : a1;
+
+    // O += P V over the panel's columns
+    const uint32_t sVt = sV + (uint32_t)(i % 2) * P::kVBytes + wg * kBN * 128;
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      wgmma_rs_n256(o, pf[kk], smem_desc(sVt + kk * 16 * 128, kPair * 128, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+  cp_async_wait<0>();
+
+  // merge the two warpgroups' (m, l, o) as flash_tc_kernel does
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  float* xs = reinterpret_cast<float*>(smem_raw + (base - raw));  // [kPanel / 2 + 4][128]
+  const int t = tid % 128;
+  __syncthreads();
+  if (wg == 1) {
+    xs[0 * 128 + t] = m0;
+    xs[1 * 128 + t] = m1;
+    xs[2 * 128 + t] = l0;
+    xs[3 * 128 + t] = l1;
+#pragma unroll
+    for (int e = 0; e < kPanel / 2; ++e) xs[(4 + e) * 128 + t] = o[e];
+  }
+  __syncthreads();
+  if (wg == 1 || q0 >= Tq) return;
+  const float mb0 = xs[0 * 128 + t], mb1 = xs[1 * 128 + t];
+  const float M0 = fmaxf(m0, mb0), M1 = fmaxf(m1, mb1);
+  const float ca0 = M0 == -INFINITY ? 0.f : ex2(m0 - M0), cb0 = M0 == -INFINITY ? 0.f : ex2(mb0 - M0);
+  const float ca1 = M1 == -INFINITY ? 0.f : ex2(m1 - M1), cb1 = M1 == -INFINITY ? 0.f : ex2(mb1 - M1);
+  const float L0 = l0 * ca0 + xs[2 * 128 + t] * cb0, L1 = l1 * ca1 + xs[3 * 128 + t] * cb1;
+  const float inv0 = L0 > 0.f ? 1.f / L0 : 0.f, inv1 = L1 > 0.f ? 1.f / L1 : 0.f;
+  bf16* op0 = out + b * o_sb + (long long)row0 * o_st + (long long)h * o_sh + p0;
+  bf16* op1 = op0 + 8 * o_st;
+  const int dr = Dr - p0;  // the panel's columns that hold data
+#pragma unroll
+  for (int nb = 0; nb < kPanel / 8; ++nb) {
+    const int col = nb * 8 + cq;
+    if (col >= dr) break;
+    const float x0 = (o[4 * nb] * ca0 + xs[(4 + 4 * nb) * 128 + t] * cb0) * inv0;
+    const float x1 = (o[4 * nb + 1] * ca0 + xs[(5 + 4 * nb) * 128 + t] * cb0) * inv0;
+    const float x2 = (o[4 * nb + 2] * ca1 + xs[(6 + 4 * nb) * 128 + t] * cb1) * inv1;
+    const float x3 = (o[4 * nb + 3] * ca1 + xs[(7 + 4 * nb) * 128 + t] * cb1) * inv1;
+    if constexpr (kNarrow) {
+      if (row0 < Tq) {
+        op0[col] = __float2bfloat16_rn(x0);
+        if (col + 1 < dr) op0[col + 1] = __float2bfloat16_rn(x1);
+      }
+      if (row0 + 8 < Tq) {
+        op1[col] = __float2bfloat16_rn(x2);
+        if (col + 1 < dr) op1[col + 1] = __float2bfloat16_rn(x3);
+      }
+    } else {
+      if (row0 < Tq) *reinterpret_cast<__nv_bfloat162*>(op0 + col) = __floats2bfloat162_rn(x0, x1);
+      if (row0 + 8 < Tq) *reinterpret_cast<__nv_bfloat162*>(op1 + col) = __floats2bfloat162_rn(x2, x3);
+    }
+  }
+}
+
+// f32 past 256 columns: flash_kernel's design (a thread a query row, keys
+// through shared memory, scalar FMAs, the key loops not unrolled: unrolled
+// they made the build take minutes) with the same panel split, at kFPanel
+// columns, so the thread's accumulator stays in registers.  A key tile's
+// scores sum over Dr in chunks of kFChunk columns, the rows' q chunk staged
+// beside the K chunk (q read again for every key tile).
+constexpr int kFChunk = 64, kFPanel = 128, kFBK = 16;
+
+__global__ void __launch_bounds__(kBQ)
+flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                  const int* __restrict__ prefix_len, float* __restrict__ out, int Hq, int Hkv, int Tq,
+                  int Tk, int Dr, int n_panels, long long q_sb, long long q_st, long long q_sh,
+                  long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
+                  long long v_sh, long long o_sb, long long o_st, long long o_sh, int causal,
+                  int use_prefix, float scale) {
+  __shared__ float Qs[kBQ][kFChunk + 1];
+  __shared__ float Ks[kFBK][kFChunk];
+  __shared__ float Vs[kFBK][kFPanel];
+  __shared__ float Ss[kBQ][kFBK + 1];  // a row's masked scores, read by the rolled key loop
+
+  const int h = blockIdx.y / n_panels, p0 = (blockIdx.y % n_panels) * kFPanel, b = blockIdx.z;
+  const int kvh = h / (Hq / Hkv);
+  const int q0 = (int)blockIdx.x * kBQ;
+  const int qi = q0 + (int)threadIdx.x;
+  const bool active = qi < Tq;
+  const int off = Tk - Tq;
+  const int q_pos = qi + off;
+  const int plen = use_prefix ? prefix_len[b] : 0;
+
+  float acc[kFPanel];
+#pragma unroll
+  for (int d = 0; d < kFPanel; ++d) acc[d] = 0.f;
+  float m = -INFINITY, l = 0.f;
+
+  int kend = Tk;
+  if (causal) {
+    const int last_q = min(q0 + kBQ, Tq) - 1 + off;
+    kend = min(Tk, max(last_q + 1, plen));
+  }
+  const float* qb = q + b * q_sb + (long long)q0 * q_st + (long long)h * q_sh;
+  const float* kb = k + b * k_sb + (long long)kvh * k_sh;
+  const float* vb = v + b * v_sb + (long long)kvh * v_sh;
+
+  for (int k0 = 0; k0 < kend; k0 += kFBK) {
+    float s[kFBK];
+#pragma unroll
+    for (int r = 0; r < kFBK; ++r) s[r] = 0.f;
+    for (int c0 = 0; c0 < Dr; c0 += kFChunk) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < kBQ * kFChunk; e += kBQ) {
+        const int r = e / kFChunk, d = e % kFChunk;
+        Qs[r][d] = q0 + r < Tq && c0 + d < Dr ? qb[(long long)r * q_st + c0 + d] * scale : 0.f;
+      }
+      for (int e = threadIdx.x; e < kFBK * kFChunk; e += kBQ) {
+        const int r = e / kFChunk, d = e % kFChunk;
+        const int t = k0 + r;
+        Ks[r][d] = t < Tk && c0 + d < Dr ? kb[(long long)t * k_st + c0 + d] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kFBK; ++r) {
+        float dot = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < kFChunk; ++d) dot += Qs[threadIdx.x][d] * Ks[r][d];
+        s[r] += dot;
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kFBK * kFPanel; e += kBQ) {
+      const int r = e / kFPanel, d = e % kFPanel;
+      const int t = k0 + r;
+      Vs[r][d] = t < Tk && p0 + d < Dr ? vb[(long long)t * v_st + p0 + d] : 0.f;
+    }
+    __syncthreads();
+    if (!active) continue;
+    float m_tile = -INFINITY;
+    float* srow = Ss[threadIdx.x];
+#pragma unroll
+    for (int r = 0; r < kFBK; ++r) {
+      const int t = k0 + r;
+      const bool ok = t < Tk && (!causal || t <= q_pos || t < plen);
+      srow[r] = ok ? s[r] : -INFINITY;
+      m_tile = fmaxf(m_tile, srow[r]);
+    }
+    if (m_tile == -INFINITY) continue;
+    const float m_new = fmaxf(m, m_tile);
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < kFPanel; ++d) acc[d] *= alpha;
+#pragma unroll 1
+    for (int r = 0; r < kFBK; ++r) {
+      const float p = srow[r] == -INFINITY ? 0.f : expf(srow[r] - m_new);
+      l += p;
+#pragma unroll
+      for (int d = 0; d < kFPanel; ++d) acc[d] += p * Vs[r][d];
+    }
+    m = m_new;
+  }
+
+  if (active) {
+    float* op = out + b * o_sb + (long long)qi * o_st + (long long)h * o_sh + p0;
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+    for (int d = 0; d < kFPanel; ++d)
+      if (p0 + d < Dr) op[d] = acc[d] * inv;
+  }
+}
+
+template <bool kNarrow>
+int launch_tc_wide(const void* q, const void* k, const void* v, const int* plen, void* out, int B, int Hq,
+                   int Hkv, int Tq, int Tk, int Dr, long long q_sb, long long q_st, long long q_sh,
+                   long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
+                   long long v_sh, long long o_sb, long long o_st, long long o_sh, int causal, int use_prefix,
+                   float scale, cudaStream_t stream) {
+  constexpr int smem = WidePlan::kSmem;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_tc_wide_kernel<kNarrow>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int n_panels = (Dr + kPanel - 1) / kPanel;
+  dim3 grid(Hq * n_panels, (Tq + kBM - 1) / kBM, B);
+  flash_tc_wide_kernel<kNarrow><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, plen, (bf16*)out, Hq, Hkv, Tq, Tk, Dr, n_panels, q_sb,
+      q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal, use_prefix,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool kNarrow>
 int launch_tc(const void* q, const void* k, const void* v, const int* plen, void* out, int B,
               int Hq, int Hkv, int Tq, int Tk, int Dr, long long q_sb, long long q_st, long long q_sh,
@@ -617,6 +985,13 @@ int launch_f32(const void* q, const void* k, const void* v, const int* plen, voi
                long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
                long long v_st, long long v_sh, long long o_sb, long long o_st, long long o_sh,
                int causal, int use_prefix, float scale, cudaStream_t stream) {
+  if (D > 256) {  // the panel split
+    const int n_panels = (D + kFPanel - 1) / kFPanel;
+    flash_wide_kernel<<<dim3((Tq + kBQ - 1) / kBQ, Hq * n_panels, B), kBQ, 0, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, plen, (float*)out, Hq, Hkv, Tq, Tk, D, n_panels, q_sb,
+        q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, causal, use_prefix, scale);
+    return (int)cudaGetLastError();
+  }
   dim3 grid((Tq + kBQ - 1) / kBQ, Hq, B);
 #define FLASH(DD)                                                                              \
   flash_kernel<DD><<<grid, kBQ, 0, stream>>>(                                                  \
@@ -644,7 +1019,9 @@ int launch_f32(const void* q, const void* k, const void* v, const int* plen, voi
 // k, v and out share it.  With narrow 0 the bf16 kernel reads rows with
 // 16-byte copies: the wrapper guarantees a head dim that is a multiple of 8
 // and 16-byte aligned base pointers and row strides; with narrow 1 it reads
-// any layout with a contiguous head dim.  D is the real head dim, 1 to 256.
+// any layout with a contiguous head dim.  D is the real head dim, any D >= 1:
+// up to 256 on the smallest plan at least as wide, past it on the wide
+// kernels' column panels.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* prefix_len, void* out, int B, int Hq, int Hkv, int Tq,
                                int Tk, int D, long long q_sb, long long q_st, long long q_sh,
@@ -652,7 +1029,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                long long v_st, long long v_sh, long long o_sb, long long o_st,
                                long long o_sh, int causal, int use_prefix, float scale,
                                int dtype, int narrow, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || Tq <= 0 || B <= 0 || D <= 0 || D > 256) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv || Tq <= 0 || B <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* plen = (const int*)prefix_len;
   if (dtype == 0)
@@ -667,7 +1044,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (D <= 64) return PLAN(64);
   if (D <= 80) return PLAN(80);
   if (D <= 128) return PLAN(128);
-  return PLAN(256);
+  if (D <= 256) return PLAN(256);
+  return narrow ? launch_tc_wide<true>(ARGS) : launch_tc_wide<false>(ARGS);
 #undef PLAN
 #undef ARGS
 }

@@ -90,16 +90,17 @@
 //
 // The wide kernels take the alphabets whose staged rows do not fit a block
 // (the codec's delta decode stack at delta_qmax 1023 has 2,047 symbols;
-// tables allow up to 2^14 at precision 14).  One thread a lane, as above,
-// but the lane's table stays in device memory: K7 reads the slot's symbol
-// from the reference's own slot2sym row and then c[s] and c[s + 1] from
-// cums, three dependent gathers a step; K8 reads c[s] and c[s + 1].  They
-// keep every contract of the staged kernels (the compact payload and
-// per-lane offsets, a lane past its words reading its first word or 0,
-// K8's words and zeroed tail, 64-bit table offsets) and K8 shares its step
-// and its stores with the staged kernel.  Their time is that of the
-// gathers, which mostly miss the caches: the first K7 of this port read
-// its tables this way and took 12.5 ms over a smollm-360m wave (PERF.md).
+// tables allow up to 2^14 at precision 14).  One thread a lane, as above.
+// K7 stages each lane's row once as a bitmap of its symbols' starts: 2^k
+// bits whatever the alphabet, with ranks and the neighbouring starts a
+// 64-slot word (see "the wide kernels" below), and finds the slot's symbol,
+// c[s] and c[s + 1] by bit counts on one entry.  K8 reads c[s] and c[s + 1]
+// from the lane's cum row in device memory; on the codec's own tables,
+// which many lanes share, those gathers hit the caches, and it shares its
+// step and its stores with the staged kernel.  Both keep every contract of
+// the staged kernels (the compact payload and per-lane offsets, a lane past
+// its words reading its first word or 0, K8's words and zeroed tail, 64-bit
+// table offsets).
 //
 // Index width: table offsets are 64-bit.  A stacked delta decode of
 // qwen2-moe-a2.7b holds 491,520 tables, whose last row starts at 491,519 *
@@ -395,6 +396,111 @@ __global__ void __launch_bounds__(kLanes) rans_encode_kernel(
   encode_block(smem + threadIdx.x * R, symbols, A, k, base, n_lanes, n_sym, words, n_words, x_out, zero_from);
 }
 
+// ------------------------------------------------------ the wide kernels
+// Past the staged caps a lane's cum row does not fit a block beside 63 others
+// (2,047 symbols: 4 KB as uint16).  Read in device memory, a K7 step makes two
+// dependent gathers (the slot's symbol, then c[s] and c[s + 1]).  But a row is
+// a set of 2^k slots cut at its symbols' starts, so it fits in 2^k bits
+// whatever the alphabet.  K7 stages each lane's row once as a bitmap of the
+// starts of its symbols with f > 0, 64 slots a word, each word kept as one
+// 16-byte entry {bits, rank | prev << 16, next}: its rank (the starts before
+// it), prev (the last start before it) and next (the first start after it,
+// 2^k if none).  A step reads the slot's entry (one shared-memory load) and
+// takes s = rank + popc(starts <= slot) - 1, c[s] = the last start <= slot
+// and c[s + 1] = the first start > slot by bit counts.  After the stage it
+// reads no table in device memory, nor slot2sym or freqs.  A block is 64
+// lanes (32 at k = 14, whose 4 KB rows would not fit 64); at k = 12 it takes
+// 66,816 bytes, so an SM holds three, as the staged K7 on its 509-symbol
+// rows.  The ranks count only symbols with f > 0, so a table with a
+// zero-frequency symbol before a start (c[j] = c[j + 1] < 2^k: none of the
+// codec's tables, which pad only past their alphabet, where c = 2^k) is
+// flagged while it is staged, and its lane reads its cum row in device memory
+// instead (a binary search, log2(A) dependent reads a step).
+//
+// The wide K8 gathers c[s] and c[s + 1] from the cum row in device memory.
+// Its symbols are known in advance, and on the codec's tables (few, shared by
+// many lanes) the gathers hit the caches; a bitmap staged per lane, searched
+// over its ranks, made it 2.5x slower there, and gathers issued a four ahead
+// were no faster (PERF.md).
+__host__ __device__ inline int bitmap_words(int k) { return k > 6 ? 1 << (k - 6) : 1; }
+
+// a lane's shared memory in K7: its entries (one more, so that lanes' rows
+// fall in different banks) and its flag
+__host__ __device__ inline size_t wide_decode_lane_smem(int k) { return (size_t)(bitmap_words(k) + 1) * 16 + 4; }
+
+__host__ inline int wide_lanes(size_t lane_smem) { return kLanes * lane_smem <= (size_t)kMaxSmem ? kLanes : 32; }
+
+// Mark the bitmaps of lanes [base, base + lanes), zeroed by the caller:
+// lane j's 64-slot word w is the low half of entry ents[j * R + w] (two
+// 32-bit words, low first), its flag at flag[j].  Warp w marks the rows
+// of lanes w, w + warps, ...; its threads read the row as 16-byte pairs (as
+// stage_rows does), each with the entry after its pair, and set bit c[e] of
+// symbol e where c[e] < c[e + 1].  Ends with a barrier.
+__device__ __forceinline__ void stage_bitmaps(uint4* ents, int R, int* flag,
+                                              const long long* __restrict__ cums, const int* __restrict__ table_idx,
+                                              int A, int k, long long base, long long n_lanes) {
+  const int lanes = blockDim.x, warps = lanes / 32;
+  const uint32_t M = 1u << k;
+  const int wid = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int n = A + 1;
+  for (int j = wid; j < lanes && base + j < n_lanes; j += warps) {
+    const long long* src = cums + (long long)table_idx[base + j] * n;
+    const int head = (int)(((uintptr_t)src >> 3) & 1);
+    const longlong2* pairs = (const longlong2*)(src - head);
+    const int n_pairs = (head + n + 1) >> 1;
+    uint32_t* row = reinterpret_cast<uint32_t*>(ents + j * R);
+    bool zero_f = false;
+    auto mark = [&](int e, uint32_t ce, uint32_t cn) {
+      if (e < 0 || e >= A) return;
+      if (ce < cn)
+        atomicOr(row + (ce >> 6) * 4 + ((ce >> 5) & 1), 1u << (ce & 31));
+      else if (ce < M)
+        zero_f = true;
+    };
+    for (int q0 = 0; q0 < n_pairs; q0 += 32 * kStageUnroll) {
+      longlong2 v[kStageUnroll];
+      long long nx[kStageUnroll];
+#pragma unroll
+      for (int u = 0; u < kStageUnroll; ++u) {
+        const int q = q0 + u * 32 + l;
+        if (q < n_pairs) v[u] = __ldg(pairs + q);
+        if (q < n_pairs && 2 * q - head + 2 <= A) nx[u] = __ldg(reinterpret_cast<const long long*>(pairs + q + 1));
+      }
+#pragma unroll
+      for (int u = 0; u < kStageUnroll; ++u) {
+        const int q = q0 + u * 32 + l;
+        if (q < n_pairs) {
+          const int e = 2 * q - head;
+          mark(e, (uint32_t)v[u].x, (uint32_t)v[u].y);
+          mark(e + 1, (uint32_t)v[u].y, (uint32_t)nx[u]);
+        }
+      }
+    }
+    if (zero_f) flag[j] = 1;
+  }
+  __syncthreads();
+}
+
+// K7's lane: its own ranks and prevs (forward) and nexts (backward) over
+// its nw entries
+__device__ __forceinline__ void finish_bitmap(uint4* ent, int nw, uint32_t M) {
+  uint32_t rank = 0, prev = 0;
+  for (int w = 0; w < nw; ++w) {
+    const uint4 E = ent[w];
+    ent[w].z = rank | (prev << 16);
+    const unsigned long long bits = ((unsigned long long)E.y << 32) | E.x;
+    rank += __popcll(bits);
+    if (bits) prev = 64 * w + 63 - __clzll(bits);
+  }
+  uint32_t next = M;
+  for (int w = nw - 1; w >= 0; --w) {
+    const uint4 E = ent[w];
+    ent[w].w = next;
+    const unsigned long long bits = ((unsigned long long)E.y << 32) | E.x;
+    if (bits) next = 64 * w + __ffsll(bits) - 1;
+  }
+}
+
 // K8 at any alphabet: the lane's cum row read in device memory
 __global__ void __launch_bounds__(kLanes) rans_encode_wide_kernel(
     const int* __restrict__ symbols, const int* __restrict__ table_idx, const long long* __restrict__ cums,
@@ -407,33 +513,63 @@ __global__ void __launch_bounds__(kLanes) rans_encode_wide_kernel(
   encode_block(c, symbols, A, k, base, n_lanes, n_sym, words, n_words, x_out, zero_from);
 }
 
-// K7 at any alphabet: each step reads the slot's symbol from the lane's
-// slot2sym row, then c[s] and c[s + 1] from its cum row, in device memory
+// K7 at any alphabet up to 2^k: the lanes' bitmaps staged, then each step
+// by bit counts on the slot's entry
 __global__ void __launch_bounds__(kLanes) rans_decode_wide_kernel(
     const uint16_t* __restrict__ payload, const int* __restrict__ n_words, const long long* __restrict__ offsets,
-    const uint32_t* __restrict__ state, const int* __restrict__ table_idx, const uint16_t* __restrict__ slot2sym,
-    const long long* __restrict__ cums, int A, int k, long long n_lanes, int n_sym, int* __restrict__ out,
-    long long* __restrict__ x_out, long long* __restrict__ ptr_out) {
-  const long long lane = (long long)blockIdx.x * kLanes + threadIdx.x;
+    const uint32_t* __restrict__ state, const int* __restrict__ table_idx, const long long* __restrict__ cums,
+    int A, int k, long long n_lanes, int n_sym, int* __restrict__ out, long long* __restrict__ x_out,
+    long long* __restrict__ ptr_out) {
+  extern __shared__ __align__(16) uint4 ents[];  // [lanes][nw + 1], then flags
+  const int lanes = blockDim.x;
+  const int nw = bitmap_words(k), R = nw + 1;
+  const uint32_t M = 1u << k;
+  int* flag = reinterpret_cast<int*>(ents + lanes * R);
+  for (int e = threadIdx.x; e < lanes * R; e += lanes) ents[e] = make_uint4(0u, 0u, 0u, 0u);
+  flag[threadIdx.x] = 0;
+  __syncthreads();
+  const long long base = (long long)blockIdx.x * lanes;
+  stage_bitmaps(ents, R, flag, cums, table_idx, A, k, base, n_lanes);
+  const long long lane = base + threadIdx.x;
   if (lane >= n_lanes) return;
-  const long long t = table_idx[lane];
-  const uint16_t* s2s = slot2sym + (t << k);
-  const long long* c = cums + t * (A + 1);
-  const uint32_t mask = (1u << k) - 1u;
+  uint4* ent = ents + threadIdx.x * R;
+  finish_bitmap(ent, nw, M);
+  const bool search = flag[threadIdx.x] != 0;
+  const long long* crow = cums + (long long)table_idx[lane] * (A + 1);
+  const uint32_t mask = M - 1u;
   uint32_t x = state[lane];
-  const int nw = n_words[lane];
-  int ptr = nw - 1;
+  const int nwd = n_words[lane];
+  int ptr = nwd - 1;
   const uint16_t* w = payload + offsets[lane];
-  const uint32_t first = nw > 0 ? (uint32_t)__ldg(w) : 0u;  // the padded matrix's column 0
+  const uint32_t first = nwd > 0 ? (uint32_t)__ldg(w) : 0u;  // the padded matrix's column 0
   int* o = out + lane;
   for (int i = 0; i < n_sym; ++i) {
     const uint32_t word = ptr >= 0 ? (uint32_t)__ldg(w + ptr) : first;
     const uint32_t slot = x & mask;
-    const int s = __ldg(s2s + slot);
-    const uint32_t cs = (uint32_t)__ldg(c + s);
-    const uint32_t f = (uint32_t)__ldg(c + s + 1) - cs;
-    x = f * (x >> k) + slot - cs;
-    o[(long long)i * n_lanes] = s;
+    uint32_t s, cs, c1;
+    if (!search) {
+      const uint4 E = ent[slot >> 6];
+      const unsigned long long bits = ((unsigned long long)E.y << 32) | E.x;
+      const unsigned long long le = bits & ((2ull << (slot & 63)) - 1ull);  // the starts <= slot
+      const unsigned long long gt = bits ^ le;
+      s = (E.z & 0xFFFFu) + __popcll(le) - 1;
+      cs = le ? (slot | 63u) - __clzll(le) : E.z >> 16;
+      c1 = gt ? (slot & ~63u) + __ffsll(gt) - 1 : E.w;
+    } else {  // the largest s < A with c[s] <= slot
+      int lo = 0, hi = A - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if ((uint32_t)__ldg(crow + mid) <= slot)
+          lo = mid;
+        else
+          hi = mid - 1;
+      }
+      s = lo;
+      cs = (uint32_t)__ldg(crow + lo);
+      c1 = (uint32_t)__ldg(crow + lo + 1);
+    }
+    x = (c1 - cs) * (x >> k) + slot - cs;
+    o[(long long)i * n_lanes] = (int)s;
     if (x < kRansL) {
       x = (x << 16) | word;
       --ptr;
@@ -451,22 +587,24 @@ cudaError_t fit_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// registers, shared memory a block (static + dynamic), blocks an SM and
-// local (spill) bytes of a kernel at alphabet A
+// registers, shared memory a block (static + dynamic), blocks an SM, local
+// (spill) bytes and lanes a block of a kernel launched with ``lanes``
+// threads and ``smem`` bytes of dynamic shared memory
 template <typename Kernel>
-cudaError_t info(Kernel kernel, size_t smem, int* out) {
+cudaError_t info(Kernel kernel, size_t smem, int* out, int lanes = kLanes) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   err = fit_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kLanes, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, lanes, smem);
   if (err != cudaSuccess) return err;
   out[0] = attr.numRegs;
   out[1] = (int)(attr.sharedSizeBytes + smem);
   out[2] = blocks;
   out[3] = (int)attr.localSizeBytes;
+  out[4] = lanes;
   return cudaSuccess;
 }
 
@@ -502,15 +640,19 @@ extern "C" int rans_encode(const void* symbols, const void* table_idx, const voi
 
 // the wide kernels: any alphabet up to 2^k, no staged rows
 extern "C" int rans_decode_wide(const void* payload, const void* n_words, const void* offsets, const void* state,
-                                const void* table_idx, const void* slot2sym, const void* cums, int A, int k,
-                                long long n_lanes, int n_sym, void* out, void* x_out, void* ptr_out, void* stream) {
+                                const void* table_idx, const void* cums, int A, int k, long long n_lanes, int n_sym,
+                                void* out, void* x_out, void* ptr_out, void* stream) {
   if (n_lanes <= 0) return (int)cudaSuccess;
-  if (A < 1 || A > (1 << k)) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n_lanes + kLanes - 1) / kLanes);
-  rans_decode_wide_kernel<<<blocks, kLanes, 0, (cudaStream_t)stream>>>(
+  if (k < 1 || k > 14 || A < 1 || A > (1 << k)) return (int)cudaErrorInvalidValue;
+  const int lanes = wide_lanes(wide_decode_lane_smem(k));
+  const size_t smem = lanes * wide_decode_lane_smem(k);
+  const cudaError_t err = fit_smem(rans_decode_wide_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((n_lanes + lanes - 1) / lanes);
+  rans_decode_wide_kernel<<<blocks, lanes, smem, (cudaStream_t)stream>>>(
       (const uint16_t*)payload, (const int*)n_words, (const long long*)offsets, (const uint32_t*)state,
-      (const int*)table_idx, (const uint16_t*)slot2sym, (const long long*)cums, A, k, n_lanes, n_sym, (int*)out,
-      (long long*)x_out, (long long*)ptr_out);
+      (const int*)table_idx, (const long long*)cums, A, k, n_lanes, n_sym, (int*)out, (long long*)x_out,
+      (long long*)ptr_out);
   return (int)cudaGetLastError();
 }
 
@@ -526,11 +668,16 @@ extern "C" int rans_encode_wide(const void* symbols, const void* table_idx, cons
   return (int)cudaGetLastError();
 }
 
-// out: registers, shared memory a block, blocks an SM, spill bytes of a
-// kernel at alphabet A: K7 (decode != 0) or K8, staged (wide == 0) or wide
-extern "C" int rans_kernel_info(int decode, int wide, int A, int* out) {
-  if (wide)
-    return decode ? (int)info(rans_decode_wide_kernel, 0, out) : (int)info(rans_encode_wide_kernel, 0, out);
+// out: registers, shared memory a block, blocks an SM, spill bytes and
+// lanes a block of a kernel at alphabet A and precision k: K7 (decode != 0)
+// or K8, staged (wide == 0) or wide
+extern "C" int rans_kernel_info(int decode, int wide, int A, int k, int* out) {
+  if (k < 1 || k > 14) return (int)cudaErrorInvalidValue;
+  if (wide) {
+    const int lanes = wide_lanes(wide_decode_lane_smem(k));
+    return decode ? (int)info(rans_decode_wide_kernel, lanes * wide_decode_lane_smem(k), out, lanes)
+                  : (int)info(rans_encode_wide_kernel, 0, out);
+  }
   return decode ? (int)info(rans_decode_kernel, decode_smem(A), out)
                 : (int)info(rans_encode_kernel, encode_smem(A), out);
 }

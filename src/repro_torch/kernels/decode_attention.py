@@ -18,8 +18,10 @@ per call in ``.launches``; ``decode_attention_plain`` is the same function
 in PyTorch, the CPU path and the kernel's oracle.  Like the reference's
 kernel it takes any group size ``Hq / Hkv`` (a block serves at most 16
 query heads: larger groups are split, each part reading the KV head's
-tiles again) and any head dim up to ``_build.MAX_HEAD_DIM`` (256), on the
-smallest compiled plan at least as wide.  A cache whose rows are not whole
+tiles again) and any head dim: up to 256 on the smallest compiled plan at
+least as wide (``_build.HEAD_DIMS``), past it on the wide kernel, whose
+blocks each take one panel of the output's columns (a split of at most
+``WIDE_SPLIT`` positions; each panel re-reads K).  A cache whose rows are not whole
 16-byte chunks on 16-byte boundaries (an odd head dim in bf16, a view off
 its alignment) is read in place by the kernel's element-load path, never
 copied.
@@ -31,11 +33,12 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import check, check_head_dim, is_aligned16, load_library
+from repro_torch.kernels._build import HEAD_DIMS, check, check_head_dim, is_aligned16, load_library
 
-__all__ = ["TILE", "decode_attention_plain", "decode_attention_cuda", "split_size"]
+__all__ = ["TILE", "WIDE_SPLIT", "decode_attention_plain", "decode_attention_cuda", "split_size"]
 
 TILE = 64  # cache positions per tile of the kernel
+WIDE_SPLIT = 512  # the largest split past 256 columns (csrc/decode_attention.cu kWideSplit)
 _WAVES = 2  # blocks per SM the split size aims at
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -63,14 +66,17 @@ def decode_attention_plain(q, k, v, kv_len, *, scale=None):
     return o.reshape(B, Hq, D).to(q.dtype)
 
 
-def split_size(S: int, B: int, Hkv: int, n_sm: int) -> int:
-    """Cache positions per block of the split-KV pass: a multiple of the tile,
-    so that the ``B * Hkv * ceil(S / split)`` blocks fill ``n_sm`` SMs about
-    twice (fewer where rows are shorter than S: blocks past ``kv_len`` exit
-    at once)."""
+def split_size(S: int, B: int, Hkv: int, n_sm: int, D: int = 0) -> int:
+    """Cache positions per block of the split-KV pass at head dim ``D``: a
+    multiple of the tile, so that the ``B * Hkv * ceil(S / split)`` blocks
+    fill ``n_sm`` SMs about twice (fewer where rows are shorter than S: blocks
+    past ``kv_len`` exit at once), and past the compiled plans' widest head
+    dim at most ``WIDE_SPLIT`` (the wide kernel holds a split's scores in
+    shared memory)."""
     per_row = -(-_WAVES * n_sm // (B * Hkv))  # blocks per (row, KV head)
     per_block = -(-S // per_row)
-    return max(TILE, -(-per_block // TILE) * TILE)
+    split = max(TILE, -(-per_block // TILE) * TILE)
+    return min(split, WIDE_SPLIT) if D > HEAD_DIMS[-1] else split
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,7 +106,7 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale=None):
         scale = 1.0 / math.sqrt(D)
     narrow = not (is_aligned16(k) and is_aligned16(v))  # element loads: the cache is never copied
     dev = q.device
-    split = split_size(S, B, Hkv, _n_sm(dev.index))
+    split = split_size(S, B, Hkv, _n_sm(dev.index), D)
     n_splits = max(1, -(-S // split))
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=dev)
     # one scratch allocation: (m, l) per (row, query head, split), then the

@@ -19,9 +19,11 @@ scale of the rule the bf16 kernel is held to (``kernels.ops.BF16_TOL``).
 ``flash_attention_vjp`` is the plain version's VJP, recomputed a query
 chunk at a time: the backward of K4 under autograd (``kernels.ops``), as
 the reference trains through autodiff of ``chunked_mha``.  K4 takes any
-head dim up to ``_build.MAX_HEAD_DIM`` (256) on the smallest compiled plan
-at least as wide; a bf16 head dim that is no multiple of 8 takes the
-kernel's element-load path instead of its 16-byte copies.
+head dim: up to 256 on the smallest compiled plan at least as wide
+(``_build.HEAD_DIMS``), past it on the wide kernels, whose blocks each
+compute one panel of 256 output columns from S summed over all of D; a
+bf16 head dim that is no multiple of 8 takes the kernel's element-load path
+instead of its 16-byte copies.
 """
 from __future__ import annotations
 

@@ -128,10 +128,10 @@ def reset_launch_counts() -> None:
 # dtype at bf16; that moves an output by at most u * sum_t w_t |v_t|, which
 # ``rel`` admits on top of the output's rounding (``scale`` =
 # ``flash_attention_magnitude``).  K3's and K4's rules are the same at every
-# head dim their kernels take (1 to ``_build.MAX_HEAD_DIM`` = 256, on the
-# plans of ``_build.HEAD_DIMS``, the columns past D zeros) and every group
-# size: a score's f32 sum over D products moves by summation order only,
-# far below a bf16 step of the output.
+# head dim their kernels take (any D >= 1: up to 256 on the plans of
+# ``_build.HEAD_DIMS``, the columns past D zeros, past it on the wide path's
+# output panels) and every group size: a score's f32 sum over D products
+# moves by summation order only, far below a bf16 step of the output.
 BF16_TOL = {
     "kv_dequant_tokens": {"ulps": 1, "atol": 2e-5},
     "kv_dequant": {"ulps": 1, "atol": 2e-5},

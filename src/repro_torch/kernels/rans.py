@@ -7,13 +7,16 @@ between the wire and K1/K2 (load path) and between K5 and the wire (store
 path).  On the card each lane is one CUDA thread with its table's cum row
 staged in shared memory (``csrc/rans.cu``; see its head for what bounds the
 kernels on the H100 and how the design answers it); alphabets whose staged
-rows do not fit a block run on the wide kernels, which read each lane's
-table from device memory.  Each ``*_plain``
+rows do not fit a block run on the wide kernels: K7 stages each lane's row
+as a bitmap of its symbols' starts (2**k bits whatever the alphabet;
+:func:`bitmap_symbol` is its search on it), K8 reads each lane's cum row
+in device memory.  Each ``*_plain``
 function is the same scan as a Python loop of elementwise PyTorch ops over
 all lanes, one step per symbol, with the reference's own table reads
 (``slot2sym``, ``freqs``, ``cums``): the CPU's route and the kernels' oracle
-on the card.  :func:`guided_symbol` is K7's slot -> symbol search on the
-cum row, written in torch for the CPU tests.  ``kernels.ops`` picks between
+on the card.  :func:`guided_symbol` is the staged K7's slot -> symbol
+search on the cum row and :func:`bitmap_symbol` the wide K7's, written in
+torch for the CPU tests.  ``kernels.ops`` picks between
 the routes by the tables' device; ``core.rans.decode_payload`` / ``decode``
 / ``encode`` call it.
 
@@ -74,6 +77,7 @@ __all__ = [
     "BLOCK_LANES",
     "MAX_ALPHABET",
     "RANS_L",
+    "bitmap_symbol",
     "decode_kernel",
     "encode_kernel",
     "guided_symbol",
@@ -139,6 +143,49 @@ def guided_symbol(cums: torch.Tensor, slots: torch.Tensor, k: int) -> torch.Tens
         a = torch.where(more, a + 8, a)
 
 
+def bitmap_symbol(cums: torch.Tensor, slots: torch.Tensor, k: int):
+    """The wide K7's search, as the kernel runs it: for cum rows ``(n, A +
+    1)`` and slots ``(n, m)`` -> ``(s, c[s], c[s + 1])``, each ``(n, m)``
+    int64.  A row is a bitmap of the starts c[j] of its symbols with f > 0,
+    in words of 64 slots, each with the starts before it (rank), the last
+    start before it (prev) and the first start after it (next, 2**k if
+    none); ``s`` is rank plus the starts <= slot in its word, less one, c[s]
+    the last start <= slot (or prev), c[s + 1] the first start > slot (or
+    next).  A row with a zero-frequency symbol before a start (c[j] = c[j +
+    1] < 2**k) is searched on its cum row instead: the largest ``s < A``
+    with ``c[s] <= slot``."""
+    n, A = cums.shape[0], cums.shape[1] - 1
+    M = 1 << k
+    nw = max(M >> 6, 1)
+    c0, c1 = cums[:, :-1], cums[:, 1:]
+    starts = c0 < c1
+    searched = ((c0 == c1) & (c0 < M)).any(1)
+    marks = torch.zeros((n, nw * 64), dtype=torch.bool, device=cums.device)
+    rows = torch.arange(n, device=cums.device)[:, None].expand(n, A)
+    marks[rows[starts], c0[starts]] = True
+    words = marks.view(n, nw, 64)
+    counts = words.sum(-1)
+    rank = counts.cumsum(1) - counts
+    pos = torch.arange(nw * 64, device=cums.device).view(1, nw, 64)
+    last = torch.where(words, pos, -1).amax(-1)  # (n, nw): the word's last start, -1 if none
+    prev = torch.cat([last.new_zeros(n, 1), last.cummax(1).values[:, :-1]], 1).clamp_min(0)
+    first = torch.where(words, pos, M).amin(-1)
+    nxt = torch.cat([first.flip(1).cummin(1).values.flip(1)[:, 1:], first.new_full((n, 1), M)], 1)
+    w, t = slots >> 6, slots & 63
+    wb = torch.gather(words, 1, w[..., None].expand(*w.shape, 64))  # (n, m, 64)
+    lane = torch.arange(64, device=cums.device)
+    le = wb & (lane <= t[..., None])
+    gt = wb & ~le
+    s = torch.gather(rank, 1, w) + le.sum(-1) - 1
+    cs = torch.where(le.any(-1), (slots & ~63) + torch.where(le, lane, -1).amax(-1), torch.gather(prev, 1, w))
+    cn = torch.where(gt.any(-1), (slots & ~63) + torch.where(gt, lane, 64).amin(-1), torch.gather(nxt, 1, w))
+    found = (cums[:, None, :A] <= slots[..., None]).sum(-1) - 1
+    s = torch.where(searched[:, None], found, s)
+    cs = torch.where(searched[:, None], torch.gather(cums, 1, found), cs)
+    cn = torch.where(searched[:, None], torch.gather(cums, 1, found + 1), cn)
+    return s, cs, cn
+
+
 def _table_bases(tables, table_idx: torch.Tensor):
     t = table_idx.to(torch.int64)
     A = tables.freqs.shape[-1]
@@ -185,9 +232,9 @@ def rans_decode_plain(payload, n_words, offsets, state, table_idx, tables, n_sym
 
 
 def _check_tables(name, tables, dev, kind, wide=False):
-    """Raise unless ``tables`` are what the kernel reads: int64 ``cums``
-    (and, for the wide K7, int16 ``slot2sym``) on ``dev``, an alphabet up
-    to ``2**k``, and for a staged kernel up to its ``MAX_ALPHABET``."""
+    """Raise unless ``tables`` are what the kernel reads: int64 ``cums`` on
+    ``dev``, an alphabet up to ``2**k``, and for a staged kernel up to its
+    ``MAX_ALPHABET``."""
     k = tables.precision
     if not 1 <= k <= 14:
         raise ValueError(f"{name}: precision must lie in 1..14, got {k}")
@@ -200,12 +247,6 @@ def _check_tables(name, tables, dev, kind, wide=False):
     _check_device(name, dev, cums)
     if not 1 <= A <= 1 << k:
         raise ValueError(f"{name}: alphabet {A} outside 1..2**{k}")
-    if wide and kind == "decode":
-        s2s = tables.slot2sym
-        if s2s.dtype != torch.int16 or tuple(s2s.shape) != (n_t, 1 << k):
-            raise TypeError(f"{name}: slot2sym must be an ({n_t}, {1 << k}) int16 tensor, got {s2s.dtype} "
-                            f"{tuple(s2s.shape)}")
-        _check_device(name, dev, s2s)
     if not wide and A > MAX_ALPHABET[kind]:
         raise ValueError(f"{name}: alphabet {A} is wider than the {MAX_ALPHABET[kind]} symbols whose staged rows "
                          "fit a block's shared memory (the wide kernel takes it)")
@@ -245,11 +286,10 @@ def _decode_on_card(payload, n_words, offsets, state, table_idx, tables, n_sym: 
     if n_lanes == 0:
         return out.T, x, ptr
     lib = load_library()
-    tabs = (tables.slot2sym.data_ptr(), tables.cums.data_ptr()) if wide else (tables.cums.data_ptr(),)
     with torch.cuda.device(dev):  # the launch runs on the tensors' card
         check(getattr(lib, name)(
             payload.data_ptr(), n_words.data_ptr(), offsets.data_ptr(), state.data_ptr(), table_idx.data_ptr(),
-            *tabs, tables.freqs.shape[1], tables.precision, n_lanes, n_sym,
+            tables.cums.data_ptr(), tables.freqs.shape[1], tables.precision, n_lanes, n_sym,
             out.data_ptr(), x.data_ptr(), ptr.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         ), name)
     (rans_decode_wide_cuda if wide else rans_decode_cuda).launches += 1
@@ -263,11 +303,10 @@ def rans_decode_cuda(payload, n_words, offsets, state, table_idx, tables, n_sym:
 
 
 def rans_decode_wide_cuda(payload, n_words, offsets, state, table_idx, tables, n_sym: int):
-    """K7's wide kernel on the card (any alphabet up to ``2**k``); same
-    contract (symbol for symbol) as :func:`rans_decode_plain`."""
+    """K7's wide kernel on the card (any alphabet up to ``2**k``: each lane's
+    cum row staged as a bitmap of its symbols' starts, :func:`bitmap_symbol`);
+    same contract (symbol for symbol) as :func:`rans_decode_plain`."""
     return _decode_on_card(payload, n_words, offsets, state, table_idx, tables, n_sym, wide=True)
-
-
 
 
 rans_decode_cuda.launches = 0
@@ -343,8 +382,9 @@ def rans_encode_cuda(symbols, table_idx, tables):
 
 
 def rans_encode_wide_cuda(symbols, table_idx, tables):
-    """K8's wide kernel on the card (any alphabet up to ``2**k``); same
-    contract (word for word) as :func:`rans_encode_plain`."""
+    """K8's wide kernel on the card (any alphabet up to ``2**k``: c[s] and
+    c[s + 1] read from the lane's cum row in device memory); same contract
+    (word for word) as :func:`rans_encode_plain`."""
     return _encode_on_card(symbols, table_idx, tables, wide=True)
 
 
@@ -364,13 +404,14 @@ def encode_kernel(alphabet: int):
     return rans_encode_cuda if alphabet <= MAX_ALPHABET["encode"] else rans_encode_wide_cuda
 
 
-def kernel_info(kind: str, alphabet: int, device=None, wide: bool = False) -> dict:
+def kernel_info(kind: str, alphabet: int, device=None, wide: bool = False, precision: int = 12) -> dict:
     """K7's (``kind="decode"``) or K8's registers a thread, shared memory a
-    block (bytes), blocks an SM and spilled bytes a thread at ``alphabet``,
-    staged or ``wide``, as the CUDA runtime reports them for the current
-    card."""
-    out = (ctypes.c_int * 4)()
+    block (bytes), blocks an SM, spilled bytes a thread and lanes a block at
+    ``alphabet`` and ``precision``, staged or ``wide``, as the CUDA runtime
+    reports them for the current card."""
+    out = (ctypes.c_int * 5)()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        check(load_library().rans_kernel_info(int(kind == "decode"), int(wide), alphabet, out), "rans_kernel_info")
+        check(load_library().rans_kernel_info(int(kind == "decode"), int(wide), alphabet, precision, out),
+              "rans_kernel_info")
     return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2], spill_bytes=out[3],
-                lanes_per_sm=out[2] * BLOCK_LANES)
+                lanes_per_block=out[4], lanes_per_sm=out[2] * out[4])

@@ -22,6 +22,7 @@ except ImportError:
 from repro_torch.kernels import ops, timing
 from repro_torch.kernels.decode_attention import (
     TILE,
+    WIDE_SPLIT,
     decode_attention_cuda,
     decode_attention_plain,
     split_size,
@@ -777,18 +778,80 @@ def test_cuda_decode_attention_any_group_and_head_dim(cuda, Hq, Hkv, D, kv_dtype
     _check_decode(q, k, odd, lens)
 
 
-def test_head_dims_past_256_raise_naming_the_limit():
-    """Past 256, the widest plan, both wrappers raise a ValueError that
-    names the limit, before any launch (the one head dim the card refuses
-    that the reference's kernels take)."""
+@pytest.mark.parametrize("D", [257, 512, 2048])
+def test_head_dims_past_256_pass_the_head_dim_check(D):
+    """Past 256, the widest plan, both wrappers take the head dim (the wide
+    path): on CPU tensors they refuse only the device, before any launch."""
     before = (decode_attention_cuda.launches, flash_attention_cuda.launches)
-    q, k = torch.zeros(1, 2, 272), torch.zeros(1, 8, 1, 272)
-    with pytest.raises(ValueError, match=r"1\.\.256"):
+    q, k = torch.zeros(1, 2, D), torch.zeros(1, 8, 1, D)
+    with pytest.raises(ValueError, match="CUDA device"):
         decode_attention_cuda(q, k, k, torch.tensor([8], dtype=torch.int32))
-    qf, kf = torch.zeros(1, 8, 2, 272), torch.zeros(1, 8, 1, 272)
-    with pytest.raises(ValueError, match=r"1\.\.256"):
+    qf, kf = torch.zeros(1, 8, 2, D), torch.zeros(1, 8, 1, D)
+    with pytest.raises(ValueError, match="CUDA device"):
         flash_attention_cuda(qf, kf, kf)
     assert (decode_attention_cuda.launches, flash_attention_cuda.launches) == before
+
+
+def test_head_dim_0_raises():
+    """A head dim below 1 still raises a ValueError that names it, before
+    any launch."""
+    before = (decode_attention_cuda.launches, flash_attention_cuda.launches)
+    with pytest.raises(ValueError, match="head dim 0"):
+        decode_attention_cuda(torch.zeros(1, 2, 0), torch.zeros(1, 8, 1, 0), torch.zeros(1, 8, 1, 0),
+                              torch.tensor([8], dtype=torch.int32))
+    with pytest.raises(ValueError, match="head dim 0"):
+        flash_attention_cuda(torch.zeros(1, 8, 2, 0), torch.zeros(1, 8, 1, 0), torch.zeros(1, 8, 1, 0))
+    assert (decode_attention_cuda.launches, flash_attention_cuda.launches) == before
+
+
+@pytest.mark.parametrize("S, B, Hkv, D", [(3106, 1, 1, 512), (100_000, 2, 8, 257), (4096, 4, 5, 64),
+                                          (100_000, 2, 8, 256)])
+def test_split_size_caps_the_wide_split(S, B, Hkv, D):
+    """The split the wrapper launches with: a multiple of the tile that fills
+    an H100's 132 SMs about twice, and past the widest plan (256) at most
+    ``WIDE_SPLIT`` positions, the wide kernel's shared-memory rows; at 256
+    and below the head dim does not move it."""
+    split, uncapped = split_size(S, B, Hkv, 132, D), split_size(S, B, Hkv, 132)
+    assert split % TILE == 0 and split >= TILE
+    assert split == (min(uncapped, WIDE_SPLIT) if D > 256 else uncapped)
+    if S == 100_000:  # a long cache: the uncapped split passes the cap
+        assert uncapped > WIDE_SPLIT and split == (WIDE_SPLIT if D > 256 else uncapped)
+
+
+# (Hq, Hkv, D, kv_dtype) past 256 (the wide path: output panels across
+# blocks): GQA 8:2 and 32:1, bf16 and f32 K/V, 300 in bf16 (no whole
+# 16-byte chunks: the element loads)
+CUDA_WIDE_DECODE_SHAPES = [
+    (8, 2, 264, torch.bfloat16),
+    (8, 2, 264, torch.float32),
+    (8, 2, 300, torch.bfloat16),
+    (32, 1, 300, torch.float32),
+    (32, 1, 320, torch.bfloat16),
+    (8, 2, 384, torch.float32),
+    (8, 2, 512, torch.bfloat16),
+    (32, 1, 512, torch.float32),
+    (8, 2, 576, torch.bfloat16),
+    (32, 1, 1000, torch.bfloat16),
+    (8, 2, 1000, torch.float32),
+    (8, 2, 2048, torch.bfloat16),
+    (32, 1, 2048, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv,D,kv_dtype", CUDA_WIDE_DECODE_SHAPES)
+def test_cuda_decode_attention_past_256(cuda, Hq, Hkv, D, kv_dtype):
+    """K3 past 256 equals its plain version under the same rule, at ragged
+    lengths over several splits, with f32 q, on a layer of a stacked cache
+    and on rows off their 16-byte alignment (read in place)."""
+    q, k, v = _decode_case(cuda, Hq * D, 3, Hq, Hkv, 1100, D, torch.bfloat16, kv_dtype)
+    lens = torch.tensor([1100, 65, 0], dtype=torch.int32, device=cuda)
+    _check_decode(q, k, v, lens)
+    _check_decode(q.float(), torch.stack([k, k])[1], v, lens)
+    flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    odd = flat[1:].view(k.shape)
+    odd.copy_(v)
+    _check_decode(q, k, odd, lens)
 
 
 @pytest.mark.gpu
@@ -827,6 +890,8 @@ CUDA_GRAD_CASES = [
     (8, 15, 5, 1024, 64, True, None),
     (1, 32, 32, 200, 96, True, None),  # Phi-3-mini's head dim: the plan of 128
     (1, 8, 2, 130, 100, True, [40]),  # the element loads
+    (1, 8, 2, 130, 512, True, [40]),  # past 256: the wide forward
+    (1, 4, 1, 100, 300, False, None),
 ]
 
 
@@ -953,6 +1018,17 @@ CUDA_FLASH_CASES = [
     (1, 8, 1, 300, 300, 192, True, None),
     (1, 4, 2, 65, 65, 16, True, None),  # the plan of 32
     (1, 4, 4, 77, 77, 7, True, None),
+    # past 256: output panels of 256 columns across blocks, S over all of D
+    (1, 8, 2, 300, 300, 264, True, None),
+    (2, 8, 2, 77, 200, 300, True, [0, 150]),  # prefix-LM, Tq < Tk, element loads
+    (1, 32, 1, 130, 130, 320, False, None),  # bidirectional, 32:1
+    (1, 8, 2, 300, 300, 384, True, None),
+    (1, 8, 2, 2048, 2048, 512, True, None),
+    (2, 32, 1, 200, 333, 512, True, [100, 0]),
+    (1, 8, 2, 300, 300, 576, False, None),
+    (1, 8, 2, 200, 200, 1000, True, [64]),
+    (1, 8, 2, 130, 200, 2048, True, None),
+    (1, 4, 4, 65, 65, 2048, False, None),
 ]
 
 

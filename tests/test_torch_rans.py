@@ -23,6 +23,7 @@ from repro_torch.kernels import rans as krans
 from repro_torch.kernels.rans import (
     MAX_ALPHABET,
     RANS_L,
+    bitmap_symbol,
     guided_symbol,
     rans_decode_cuda,
     rans_decode_plain,
@@ -392,6 +393,60 @@ def test_guided_search_matches_slot2sym_on_every_slot(case):
     np.testing.assert_array_equal(guided_symbol(stack.cums, slots, k).numpy(), stack.slot2sym.to(torch.int64).numpy())
 
 
+def _zero_gap_tables(rng, n_tables, A, k, device="cpu"):
+    """Tables whose every other row has zero-frequency symbols between
+    symbols that hold slots (their mass moved onto symbol 0): rows the wide
+    K7 searches on the cum row instead of its bitmap."""
+    f = _freqs(rng, n_tables, A, k)
+    gaps = np.arange(1, A - 1, 3)
+    for r in range(0, n_tables, 2):
+        f[r, 0] += f[r, gaps].sum()
+        f[r, gaps] = 0
+    assert (f <= (1 << k) - 1).all()
+    return tables.build_coder_tables(f, k, device)
+
+
+# (seed, precision, alphabets of the stacked sets): the wide K7's alphabets
+# (past K7's staged cap: the codec's 2,047-symbol decode stack at delta_qmax
+# 1023, padded beside the lossless 509; 4,096 = 2**12; 16,384 = 2**14, every
+# symbol one slot, so every bit of a word is a start), one below it, and a
+# precision below one 64-slot word
+BITMAP_CASES = {
+    "A 2047, padded": (30, 12, (2047, 2047, 509)),
+    "A 4096": (31, 12, (4096,)),
+    "A 16384, k 14": (32, 14, (16384,)),
+    "A 509, k 13": (33, 13, (509,)),
+    "A 20, k 5": (34, 5, (20,)),
+}
+
+
+@pytest.mark.parametrize("case", list(BITMAP_CASES) + ["one symbol of one", "one symbol of eight",
+                                                     "zero-frequency gaps"])
+def test_bitmap_search_matches_slot2sym_on_every_slot(case):
+    """The wide K7's search (``bitmap_symbol``: a bitmap of the symbols'
+    starts, ranks and the starts around each 64-slot word) gives slot2sym's
+    symbol and its c[s], c[s + 1] on every slot of every table; rows with a
+    zero-frequency symbol before a start are searched on the cum row, and
+    equal too."""
+    if case.startswith("one symbol"):
+        k = 12
+        stack = _one_symbol_tables(k, 1, 0) if case == "one symbol of one" else _one_symbol_tables(k, 8, 5)
+    elif case == "zero-frequency gaps":
+        k = 12
+        stack = _zero_gap_tables(np.random.default_rng(35), 6, 2047, k)
+    else:
+        seed, k, alphabets = BITMAP_CASES[case]
+        rng = np.random.default_rng(seed)
+        stack = rans.stack_tables([tables.build_coder_tables(_freqs(rng, 4, A, k), k, "cpu") for A in alphabets],
+                                  pad_alphabet=len(set(alphabets)) > 1)
+    slots = torch.arange(1 << k).expand(stack.n_tables, -1).contiguous()
+    s, cs, cn = bitmap_symbol(stack.cums, slots, k)
+    want = stack.slot2sym.to(torch.int64)
+    np.testing.assert_array_equal(s.numpy(), want.numpy())
+    np.testing.assert_array_equal(cs.numpy(), torch.gather(stack.cums, 1, want).numpy())
+    np.testing.assert_array_equal(cn.numpy(), torch.gather(stack.cums, 1, want + 1).numpy())
+
+
 def _emitted_plus_tail(symbols, t_idx, tables_, n_sym):
     """K8's rule for its word buffer, in torch: a zero buffer that holds each
     emitted word at its ptr and, after the loop, the last step's word at the
@@ -562,6 +617,52 @@ def test_cuda_compact_decode_matches_plain(cuda, case):
             torch.as_tensor(t_idx, device=cuda), stack, n_sym)
     for g, w in zip(rans_decode_cuda(*args), rans_decode_plain(*args)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(COMPACT_CASES) + ["a flipped word"])
+def test_cuda_wide_compact_decode_matches_plain(cuda, case):
+    """The wide K7 on the wire's joined compact payloads (lanes with no
+    word, chunks whose lanes run out of words, precision 14, a flipped
+    word) equals its plain version symbol for symbol, state for state."""
+    seed, k, alphabets, n_t, lane_syms = COMPACT_CASES["chunks of different lengths" if case == "a flipped word"
+                                                       else case]
+    _, stack, arrays, t_idx, _ = _joined_wire(seed, k, alphabets, n_t, lane_syms)
+    if case == "a flipped word":
+        arrays = dict(arrays, **{"d.payload": arrays["d.payload"].copy()})
+        arrays["d.payload"][len(arrays["d.payload"]) // 3] ^= 0x5A5A
+    stack = rans.CoderTables(*(t.to(cuda) for t in stack[:3]), k)
+    n_sym = max(n for _, n in lane_syms)
+    payload = rans.wire_bits(arrays["d.payload"], 16, cuda)
+    n_words = torch.as_tensor(arrays["d.n_words"], device=cuda)
+    args = (payload, n_words, _offsets(n_words), rans.wire_bits(arrays["d.state"], 32, cuda),
+            torch.as_tensor(t_idx, device=cuda), stack, n_sym)
+    before = rans_decode_wide_cuda.launches
+    for g, w in zip(rans_decode_wide_cuda(*args), rans_decode_plain(*args)):
+        assert torch.equal(g, w)
+    assert rans_decode_wide_cuda.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A", [1, 8, 2047])
+def test_cuda_wide_decode_searches_zero_frequency_rows(cuda, A):
+    """Rows with a zero-frequency symbol before a start (one symbol holding
+    every slot past zero-frequency ones; 2,047-symbol rows with gaps, every
+    other row, beside rows without) take the wide K7's search on the cum
+    row, and the kernels still equal their plain versions and invert each
+    other."""
+    if A == 2047:
+        stack = _zero_gap_tables(np.random.default_rng(36), 8, A, 12, cuda)
+        rng = np.random.default_rng(37)
+        t_idx = rng.integers(0, 8, 300).astype(np.int32)
+        syms = stack.slot2sym.cpu().numpy()[t_idx[:, None], rng.integers(0, 1 << 12, size=(300, 200))]
+        syms = syms.astype(np.int32)
+    else:
+        sym = A - 3 if A > 1 else 0
+        stack = rans.CoderTables(*(t.to(cuda) for t in _one_symbol_tables(12, A, sym)[:3]), 12)
+        t_idx = np.arange(70, dtype=np.int32) % 2
+        syms = np.full((70, 33), sym, np.int32)
+    _held(cuda, stack, t_idx, syms, wide=True)
 
 
 @pytest.mark.gpu

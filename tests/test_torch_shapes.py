@@ -1,6 +1,7 @@
 """K3 and K4 across the reference's whole domain: head dims off the
-compiled plans (16, 48, 96, 100, 160) and groups past 16 query heads a KV
-head (32:1), the plain versions against the reference's Pallas kernels in
+compiled plans (16, 48, 96, 100, 160) and past them (288, 300, 512, 576:
+the kernels' wide path) and groups past 16 query heads a KV head (32:1),
+the plain versions against the reference's Pallas kernels in
 interpret mode and its ``kernels/ref.py`` oracles on the CPU (f32 within
 2e-5, as ``tests/test_kernels.py``); two models derived from smollm-360m's
 ``.tiny()`` at such shapes (head dim 48; 32 query heads on one KV head)
@@ -47,7 +48,7 @@ def _t(a):
 
 
 # (B, Hq, Hkv, S, D, kv_len, block_s): every new head dim at one query head
-# a KV head and at 32
+# a KV head and at 32, and head dims past 256
 DECODE_CASES = [
     (2, 32, 1, 64, 16, [0, 50], 32),
     (1, 4, 4, 64, 48, [33], 32),
@@ -56,6 +57,10 @@ DECODE_CASES = [
     (1, 32, 1, 32, 160, [31], 32),
     (1, 4, 4, 32, 96, [32], 32),
     (1, 32, 1, 32, 48, [20], 32),
+    (1, 4, 2, 32, 288, [30], 32),
+    (2, 2, 1, 32, 300, [32, 5], 32),
+    (1, 8, 2, 32, 512, [17], 32),
+    (1, 2, 2, 32, 576, [32], 32),
 ]
 
 
@@ -85,6 +90,10 @@ FLASH_CASES = [
     (1, 2, 1, 32, 32, 100, True, [8], 16),
     (1, 2, 2, 32, 32, 160, False, None, 16),
     (1, 4, 4, 32, 32, 96, True, None, 16),
+    (1, 2, 1, 32, 32, 288, True, None, 16),
+    (1, 2, 2, 16, 32, 300, True, [8], 16),
+    (1, 4, 2, 32, 32, 512, False, None, 16),
+    (1, 2, 1, 32, 32, 576, True, None, 16),
 ]
 
 

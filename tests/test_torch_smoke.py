@@ -88,9 +88,9 @@ def test_chip_smoke_wide_codec_path_runs_on_cpu_at_tiny_size(rehearsal):
 
 
 def test_chip_smoke_shapes_path_runs_on_cpu_at_tiny_size():
-    """Phase 20 at tiny widths (the heads kept: MHA 32 x 96 and 71:1 x 64):
-    every K3/K4 call held to its plain version (here the plain version
-    itself), the logits against the plain attention."""
+    """Phase 20 at tiny widths (the heads kept: MHA 32 x 96, 71:1 x 64 and
+    GQA 8:2 x 512): every K3/K4 call held to its plain version (here the
+    plain version itself), the logits against the plain attention."""
     smoke = _load_smoke()
     smoke.ops.reset_launch_counts()
     out = io.StringIO()
@@ -98,7 +98,8 @@ def test_chip_smoke_shapes_path_runs_on_cpu_at_tiny_size():
         smoke.drive_shapes_path(torch.device("cpu"), torch.Generator(device="cpu"), prompt=24, steps=3, tiny=True)
     out = out.getvalue()
     assert "shapes Phi-3-mini MHA 32 x 96: 2 layers" in out and "71/1 heads x 64" in out
-    assert out.count("held calls") == 2
+    assert "8/2 heads x 512" in out
+    assert out.count("held calls") == 3
     assert smoke.ops.launch_counts() == {name: 0 for name in smoke.ops.KERNELS}
 
 
