@@ -51,6 +51,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core._msgpack import IntegrityError, Reader, packb
 
 __all__ = [
@@ -109,7 +110,9 @@ def verify_checksum(blob: bytes) -> bool:
     if not has_checksum(blob):
         return False
     (expected,) = _CRC_TAIL.unpack(blob[-_CRC_TAIL.size:])
-    actual = zlib.crc32(blob[:-_TRAILER_LEN]) & 0xFFFFFFFF
+    tracing.count("crc_bytes", len(blob))
+    with tracing.span("crc", bytes=len(blob)):
+        actual = zlib.crc32(blob[:-_TRAILER_LEN]) & 0xFFFFFFFF
     if actual != expected:
         raise IntegrityError(
             f"chunk checksum mismatch: crc32 {actual:#010x} != stored "
@@ -119,6 +122,11 @@ def verify_checksum(blob: bytes) -> bool:
 
 
 def unpack(blob: bytes, *, verify: bool = True) -> Tuple[dict, Dict[str, np.ndarray]]:
+    with tracing.span("codec.unpack", bytes=len(blob)):
+        return _unpack(blob, verify)
+
+
+def _unpack(blob: bytes, verify: bool) -> Tuple[dict, Dict[str, np.ndarray]]:
     if verify:
         verify_checksum(blob)
     body = blob[:-_TRAILER_LEN] if has_checksum(blob) else blob
@@ -294,6 +302,7 @@ class SegmentIndex:
                 break  # gap: segments beyond the contiguous range
             if seg.end > end:
                 break  # cut mid-segment: everything before it stands
+            tracing.count("crc_bytes", seg.end - seg.start)
             actual = zlib.crc32(data[seg.start - offset : seg.end - offset]) & 0xFFFFFFFF
             if actual != seg.crc:
                 raise IntegrityError(
@@ -400,6 +409,7 @@ def segment_index(
     total = len(blob)
 
     def crc(a: int, b: int) -> int:
+        tracing.count("crc_bytes", b - a)
         return zlib.crc32(blob[a:b]) & 0xFFFFFFFF
 
     segs = [

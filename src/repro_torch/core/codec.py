@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.core import bitstream, gop, quant, rans, tables
 from repro_torch.kernels import ops
@@ -462,6 +463,16 @@ def _join_streams(
     return (payloads[0] if len(payloads) == 1 else torch.cat(payloads)), n_words, state
 
 
+def _decode_streams(parsed, prefix: str, device: torch.device, table_idx, tables: rans.CoderTables,
+                    n_sym: int) -> torch.Tensor:
+    """One rANS decode of every chunk's ``prefix`` stream.  The joined
+    payload on the device is freed on return, before the next stream's."""
+    with tracing.span("codec.h2d", chunks=len(parsed)):
+        stream = _join_streams(parsed, prefix, device)
+    with tracing.span("codec.rans", lanes=len(stream[1])):
+        return rans.decode_payload(*stream, table_idx, tables, n_sym)
+
+
 def _assemble_chunks(
     a_sym: torch.Tensor,  # (N * n_lanes, Gmax) anchor symbols, all chunks
     d_sym: torch.Tensor,  # (N * n_lanes, Dmax) delta symbols, all chunks
@@ -594,14 +605,14 @@ def decode_chunks(
 
     # --- anchors: one decode over all chunks (lossy + lossless tables stacked)
     t_idx_a = np.concatenate([t_idx_np + (n_ta if m[0] == 0 else 0) for m in metas])
-    a_sym = rans.decode_payload(*_join_streams(parsed, "a", dev), t_idx_a, _anchor_stack(ct), Gmax)
+    a_sym = _decode_streams(parsed, "a", dev, t_idx_a, _anchor_stack(ct), Gmax)
 
     # --- deltas: ONE decode for all chunks — lossy levels and the lossless
     # family (different alphabet) share it via alphabet-padded table stacking
     d_max = max(m[3] for m in metas)
     if d_max > 0:
         t_idx_d = np.concatenate([t_idx_np + _delta_table_base(ct, m[0]) for m in metas])
-        d_sym = rans.decode_payload(*_join_streams(parsed, "d", dev), t_idx_d, _delta_decode_stack(ct), d_max)
+        d_sym = _decode_streams(parsed, "d", dev, t_idx_d, _delta_decode_stack(ct), d_max)
     else:
         d_sym = torch.zeros((N * n_lanes, 0), dtype=torch.int32, device=dev)
 
@@ -619,14 +630,10 @@ def decode_chunks(
         L, C, g, cfg.delta_qmax,
         tuple((T, G, D, lvl == 0) for (lvl, T, G, D) in metas),
     )
-    return _assemble_chunks(
-        a_sym,
-        d_sym,
-        torch.as_tensor(scales, device=dev),
-        torch.as_tensor(bins, device=dev),
-        shape_meta=shape_meta,
-        out_dtype=out_dtype,
-    )
+    with tracing.span("codec.h2d", chunks=N):
+        scales, bins = torch.as_tensor(scales, device=dev), torch.as_tensor(bins, device=dev)
+    with tracing.span("codec.assemble", chunks=N):
+        return _assemble_chunks(a_sym, d_sym, scales, bins, shape_meta=shape_meta, out_dtype=out_dtype)
 
 
 def decode_chunk_runs(

@@ -61,6 +61,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from repro_torch import tracing
 from repro_torch._tree import tree_leaves
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import sharding
@@ -602,9 +603,11 @@ def decode_step(cfg: ArchConfig, params, tokens, caches: Caches):
     layers = _unstack(params["layers"], cfg.n_layers)
     if cfg.family in ATTENTION_FAMILIES:
         for l, p in enumerate(layers):
-            h = apply_norm(cfg.norm, p["ln1"], x)
-            attn_out = attn_decode(cfg, p["attn"], h, (caches.kv_k[l], caches.kv_v[l]), cache_len)
-            x = _mlp_residual(cfg, p, x + attn_out, h)[0]
+            with tracing.span("step.attn"):
+                h = apply_norm(cfg.norm, p["ln1"], x)
+                attn_out = attn_decode(cfg, p["attn"], h, (caches.kv_k[l], caches.kv_v[l]), cache_len)
+            with tracing.span("step.ffn"):
+                x = _mlp_residual(cfg, p, x + attn_out, h)[0]
     else:
         for l0, l1, app in _segments(cfg):
             for l in range(l0, l1):

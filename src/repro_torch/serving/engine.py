@@ -49,6 +49,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
@@ -163,11 +164,12 @@ class Engine:
         ``starts[i]``.  Rows not named keep their contents byte-identically.
         """
         self._check_runs(caches.kv_k.shape[1], rows, starts, run_tokens)
-        k, v, ln = kv_layout.insert_codec_runs(
-            caches.kv_k, caches.kv_v, caches.length,
-            torch.as_tensor(kv_new, device=self.device),
-            [int(r) for r in rows], [int(s) for s in starts], [int(t) for t in run_tokens],
-        )
+        with tracing.span("engine.insert", rows=len(rows)):
+            k, v, ln = kv_layout.insert_codec_runs(
+                caches.kv_k, caches.kv_v, caches.length,
+                torch.as_tensor(kv_new, device=self.device),
+                [int(r) for r in rows], [int(s) for s in starts], [int(t) for t in run_tokens],
+            )
         return caches._replace(kv_k=k, kv_v=v, length=ln)
 
     def _check_runs(self, n_rows: int, rows, starts, run_tokens) -> None:
@@ -269,7 +271,8 @@ class Engine:
         *own* ``caches.length[b]`` offset.
         """
         self._check_extend()
-        return lm.prefill_extend(self.cfg, self.params, tokens, caches, widths=widths)
+        with tracing.span("engine.question", rows=caches.kv_k.shape[1]):
+            return lm.prefill_extend(self.cfg, self.params, tokens, caches, widths=widths)
 
     def prefill_extend_gather(self, tokens, caches: Caches, rows) -> Tuple[torch.Tensor, Caches]:
         """Compact coalesced TEXT recompute for a *subset* of cache rows.
@@ -313,6 +316,10 @@ class Engine:
         """
         if self.cfg.family not in lm.ATTENTION_FAMILIES:
             raise ValueError(f"no cached generation for family {self.cfg.family}")
+        with tracing.span("engine.step", rows=caches.kv_k.shape[1]):
+            return self._decode_step_rows(tokens, caches, active)
+
+    def _decode_step_rows(self, tokens, caches: Caches, active) -> Tuple[torch.Tensor, Caches]:
         n_rows = caches.kv_k.shape[1]
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.long)
         active = torch.as_tensor(active, device=self.device).to(torch.bool)

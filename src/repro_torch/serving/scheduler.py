@@ -94,6 +94,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import codec as kvcodec
 from repro_torch.models.lm import Caches
 from repro_torch.serving.engine import Engine
@@ -221,28 +222,29 @@ def _execute_runs(
     for w in runs:
         groups.setdefault(id(w.tables), []).append(w)
     for group in groups.values():
-        t0 = time.perf_counter()
-        # token counts come from the plan (validated against every
-        # fetched blob's header at fetch time); decode_chunk_runs
-        # cross-checks the decoded total against them
-        kv, spans = kvcodec.decode_chunk_runs(
-            [w.blobs for w in group],
-            group[0].tables,
-            out_dtype=kv_layout.cache_dtype(caches),
-            run_tokens=[w.n_tokens for w in group],
-        )
-        caches = engine.insert_runs(
-            caches,
-            kv,
-            rows=[w.row for w in group],
-            starts=[w.start for w in group],
-            run_tokens=[n for _, n in spans],
-        )
-        dt = time.perf_counter() - t0
+        total = sum(w.n_tokens for w in group)
+        with tracing.span("sched.decode", rows=len(group), tokens=total):
+            t0 = time.perf_counter()
+            # token counts come from the plan (validated against every
+            # fetched blob's header at fetch time); decode_chunk_runs
+            # cross-checks the decoded total against them
+            kv, spans = kvcodec.decode_chunk_runs(
+                [w.blobs for w in group],
+                group[0].tables,
+                out_dtype=kv_layout.cache_dtype(caches),
+                run_tokens=[w.n_tokens for w in group],
+            )
+            caches = engine.insert_runs(
+                caches,
+                kv,
+                rows=[w.row for w in group],
+                starts=[w.start for w in group],
+                run_tokens=[n for _, n in spans],
+            )
+            dt = time.perf_counter() - t0
         stats.decode_s += dt
         stats.n_decode_batches += 1
         stats.n_runs += len(group)
-        total = sum(w.n_tokens for w in group)
         for w in group:
             acct_by_row[w.row].decode_s += dt * w.n_tokens / total
             acct_by_row[w.row].runs += 1
@@ -367,6 +369,10 @@ class ConcurrentScheduler:
     # ------------------------------------------------------------------
 
     def run(self, requests: List[SessionRequest]) -> SchedulerResult:
+        with tracing.span("sched.run", requests=len(requests)):
+            return self._run(requests)
+
+    def _run(self, requests: List[SessionRequest]) -> SchedulerResult:
         if not requests:
             raise ValueError("ConcurrentScheduler.run needs at least one request")
         _validate_requests(self.engine, requests)
@@ -439,7 +445,8 @@ class ConcurrentScheduler:
             # at most [run, text] per round, so this preserves its order
             caches = _execute_runs(self.engine, round_runs, caches, acct_by_row, stats)
             caches = _execute_texts(self.engine, round_texts, caches, acct_by_row, stats)
-        kv_layout.synchronize(caches)  # the wall total is end-to-end only then
+        with tracing.span("sched.sync"):
+            kv_layout.synchronize(caches)  # the wall total is end-to-end only then
         wall_total = time.perf_counter() - wall0
 
         sessions = [

@@ -106,6 +106,7 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import bitstream
 from repro_torch.core import codec as kvcodec
 from repro_torch.models.lm import Caches
@@ -275,6 +276,11 @@ def validate_blob(blob: bytes, meta, level: int) -> None:
     ``bitstream.IntegrityError`` here, *before* any header parse or decode
     touches the bytes (corruption is detected, never interpreted).
     """
+    with tracing.span("session.validate", bytes=len(blob)):
+        _validate_blob(blob, meta, level)
+
+
+def _validate_blob(blob: bytes, meta, level: int) -> None:
     kvcodec.verify_chunk(blob)
     h = kvcodec.peek_chunk_header(blob)
     # chunk_idx is present on store-written blobs; standalone encodes
@@ -600,6 +606,10 @@ class SessionTask:
         only *issues* I/O returns none.  The last chunk also flushes the
         segmenter, so once :attr:`done` every item has been emitted.
         """
+        with tracing.span("session.step", req=self.label):
+            return self._step()
+
+    def _step(self) -> List[object]:
         if self.suspended:
             raise RuntimeError(
                 f"stepping request {self.label!r}: suspended at "
@@ -611,7 +621,9 @@ class SessionTask:
             if policy is None:
                 # legacy path: any fetch failure raises straight through
                 self._pending = None
-                res = handle.result()
+                with tracing.span("session.wait", req=self.label):
+                    res = handle.result()
+                tracing.count("wire_bytes", sum(len(b) for b in res.blobs))
                 if self.session.validate_blobs:
                     validate_blob(res.blobs[0], m, config)
                 tl = self.clock.account(m, config, nbytes, res, scale)
@@ -715,9 +727,11 @@ class SessionTask:
         timeout = policy.wall_timeout_s if realtime else None
         mode = self._pending_mode
         try:
-            res = handle.result(timeout=timeout)
+            with tracing.span("session.wait", req=self.label):
+                res = handle.result(timeout=timeout)
         except Exception as e:
             return self._on_fetch_failure(e, handle, m, config, nbytes, scale)
+        tracing.count("wire_bytes", sum(len(b) for b in res.blobs))
         # §C.1 mid-chunk re-plan (virtual clock only): the fetch ran far
         # past what the live estimator predicted — a client watching the
         # socket would have cancelled partway in, kept the verified prefix,

@@ -54,6 +54,7 @@ from typing import Dict, Iterable, List, Optional, Protocol, Sequence, Tuple, ru
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import codec as kvcodec
 
 __all__ = [
@@ -312,15 +313,16 @@ class KVStore:
         ``bitstream.IntegrityError`` naming the same when the blob's
         checksum trailer does not match — corruption at rest is caught at
         the store boundary, before any bytes cross a link."""
-        blob = self.backend.get(context_id, chunk_idx, level)
-        try:
-            kvcodec.verify_chunk(blob)
-        except ValueError as e:  # IntegrityError is a ValueError
-            raise type(e)(
-                f"stored bitstream for context {context_id!r} chunk "
-                f"{chunk_idx} level {level} failed integrity check: {e}"
-            ) from e
-        return blob
+        with tracing.span("store.get", ctx=context_id, chunk=chunk_idx, level=level):
+            blob = self.backend.get(context_id, chunk_idx, level)
+            try:
+                kvcodec.verify_chunk(blob)
+            except ValueError as e:  # IntegrityError is a ValueError
+                raise type(e)(
+                    f"stored bitstream for context {context_id!r} chunk "
+                    f"{chunk_idx} level {level} failed integrity check: {e}"
+                ) from e
+            return blob
 
     def delete_kv(self, context_id: str, chunk_idx: int, level: int) -> bool:
         """Remove one (chunk, level) blob; True if it existed.  Metadata is

@@ -93,6 +93,7 @@ import threading
 import time
 from typing import List, Optional, Protocol, Sequence, Tuple, runtime_checkable
 
+from repro_torch import tracing
 from repro_torch.core import _msgpack
 from repro_torch.core.bitstream import IntegrityError, SegmentIndex, segment_index
 from repro_torch.streaming.network import NetworkModel, keyed_straggler_delay
@@ -450,10 +451,11 @@ class LocalTransport:
             cold_entries = _probe_cold(self.store, context_id, chunk_levels)
             t0 = time.perf_counter()
             try:
-                blobs = [
-                    self.store.get_kv(context_id, ci, lvl)
-                    for ci, lvl in chunk_levels
-                ]
+                with tracing.span("transport.fetch", ctx=context_id, chunks=len(chunk_levels)):
+                    blobs = [
+                        self.store.get_kv(context_id, ci, lvl)
+                        for ci, lvl in chunk_levels
+                    ]
             except BaseException as e:  # surfaced at result()
                 handle._finish(None, e)
                 return
